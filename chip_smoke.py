@@ -5,30 +5,51 @@
 
 Run from the root of a checkout on a machine with a CUDA card. It imports
 no JAX and nothing of ddsp_piano_tpu. Phases, one line each (the kernel
-check prints one line per kernel); any failure ends the run with a
+checks print one line per kernel); any failure ends the run with a
 non-zero exit code and no result line:
 
 1. The card's name and power limit, as nvidia-smi reports them.
-2. Build the CUDA kernels from csrc/ (one nvcc per source, in parallel).
+2. Build the CUDA kernels from csrc/ (one nvcc per source, in parallel),
+   with each kernel's registers and spills.
 3. Render a 3 s (750-frame) segment of examples/demo.mid on the CPU
-   through the plain path, recording the inputs that reach each kernel's
-   front door; then hold each kernel against its plain version on the card
-   at exactly those inputs, and time kernel, plain version and, where one
-   PyTorch call computes the same function, that call.
-4. The main path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
+   through the plain path, recording the inputs that reach the forward
+   kernels' front doors (K1-K3); then hold each kernel against its plain
+   version on the card at exactly those inputs, and time kernel, plain
+   version and, where one PyTorch call computes the same function, that
+   call.
+4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
    at full width on ``cuda``, with every launch counter set to 0 just
-   before and read just after; each kernel must have launched.
+   before and read just after; K1-K3 must have launched.
 5. The same 3 s segment on the card, against the CPU render of phase 3
    (same initial weights, same injected noise).
-6. One JSON line of kernel numbers, then the result line.
+6. Teacher data: ``synthesize_midi_file.main`` renders all of demo.mid
+   (weights seed 0) to a 24 kHz wav, and a mini-MAESTRO (csv with a train
+   and a validation row, the MIDI and the wav) is written under
+   build/chip_smoke/mini_maestro/.
+7. One full-width training step (batch 6, 3 s) on ``cuda``, recording the
+   inputs of the gradient kernels (K4-K7) inside their autograd
+   Functions; each is held against its plain version on the card at those
+   inputs and timed beside its plain version and its library yardstick.
+8. The training path: ``train_single_phase.main`` trains maestro_v2
+   (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
+   mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
+   and read just after; K1, K2 and K4-K7 must have launched and the losses
+   be finite. Prints the step time and its parts, then a torch.profiler
+   view of three more steps: the device's busy share and the operators
+   with the most device and host time.
+9. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+   same step on the CPU plain path (same weights, batch and noise).
+10. One JSON line of kernel numbers, then the result line.
 
-Build outputs and the rendered wav files go to build/ in the checkout.
+Build outputs, the rendered wav files, the mini-MAESTRO and the training
+run's checkpoints go to build/ in the checkout.
 """
 
 import contextlib
 import importlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -48,6 +69,15 @@ MAIN_PATH_SECONDS = 10.0
 N_TIMED = 25                   # timed launches per median (after warm-up)
 DEV = torch.device('cuda')
 
+# Training: the JAX CLI's defaults (batch 6, 3 s segments), phase 1. The
+# teacher is the initial model of seed 0 (synthesize_midi_file's weights);
+# the student starts from seed 1.
+TRAIN_BATCH = 6
+TRAIN_STEPS = 8
+STUDENT_SEED = 1
+MAESTRO_DIR = os.path.join(OUT_DIR, 'mini_maestro')
+GRAD_CHECK_SECONDS = 1.0
+
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth.
 PEAK_F32_FLOPS = 67e12
@@ -62,6 +92,22 @@ SLICE_TOL = 1.1e-4
 # recurrence. NoteRelease: bit-exact.
 OSC_TOL = 1e-5                 # share of peak
 GRU_TOL = 1e-5                 # absolute (|h| < 1)
+# Gradient kernels against their plain versions on the card: the
+# oscillator backward computes the plain VJP's terms bit for bit and sums
+# the 96 samples of a frame in another order (share of each gradient's
+# peak); the GRU backward differs from its plain version as the forward
+# does (expf/tanhf, dot-product order), absolute as GRU_TOL; NoteRelease
+# bit-exact.
+OSC_BWD_TOL = 1e-5
+GRU_BWD_TOL = 1e-5
+# One training step on cuda against the CPU plain path, per trainable
+# leaf as a share of its peak (tests/test_torch_training.py's whole-step
+# tolerances): with the loss's magnitude term alone 1e-3; with the v2
+# loss, whose log-magnitude term scales rounding at near-silent STFT bins
+# by up to 1e5, 0.1 and a cosine of 0.999 between the two gradients.
+STEP_TOL_MAG = 1e-3
+STEP_TOL_V2 = 0.1
+STEP_MIN_COSINE = 0.999
 
 # Floating-point operations per unit of work, counted from the kernels'
 # inner loops (csrc/*.cu).
@@ -70,6 +116,12 @@ OSC_FLOPS_PER_TERM = 34        # per live (partial, sample): phase 6,
 #   multiply-accumulate 2
 GRU_GATE_FLOPS_PER_UNIT = 17   # per (step, row, unit), besides h U + b
 NR_FLOPS_PER_STEP = 14         # per (step, lane)
+OSC_BWD_FLOPS_PER_TERM = 50    # per computed (partial, sample): phase 5,
+#   frequency and mask 3, crossfade 4, range reduction 8, two degree-4
+#   polynomials 17, cotangents 4, five sums 9
+GRU_BWD_GATE_FLOPS_PER_UNIT = 34   # per (step, row, unit), besides the
+#   recompute h U + b and the chain's three U^T products
+NR_BWD_FLOPS_PER_STEP = 40     # per (step, lane)
 
 
 def fail(message):
@@ -154,6 +206,22 @@ FRONT_DOORS = (
     ('ddsp_piano_torch.models.sub_modules', 'note_release_scan',
      'note_release'),
 )
+RENDER_KERNELS = ('oscillator_skip', 'gru_scan', 'note_release')
+# The kernel wrappers that the training step's autograd Functions call.
+TRAIN_DOORS = (
+    ('ddsp_piano_torch.kernels.oscillator', 'render_framewise_skip_cuda',
+     'oscillator_skip'),
+    ('ddsp_piano_torch.kernels.gru', 'gru_scan_cuda', 'gru_scan'),
+    ('ddsp_piano_torch.kernels.note_release', 'note_release_scan_res_cuda',
+     'note_release_res'),
+    ('ddsp_piano_torch.kernels.oscillator', 'render_framewise_skip_bwd_cuda',
+     'oscillator_skip_bwd'),
+    ('ddsp_piano_torch.kernels.gru', 'gru_scan_bwd_cuda', 'gru_scan_bwd'),
+    ('ddsp_piano_torch.kernels.note_release', 'note_release_scan_bwd_cuda',
+     'note_release_bwd'),
+)
+TRAIN_KERNELS = ('oscillator_skip', 'gru_scan', 'oscillator_skip_bwd',
+                 'gru_scan_bwd', 'note_release_res', 'note_release_bwd')
 
 
 def segment_inputs(device):
@@ -179,18 +247,30 @@ SEGMENT_OUTPUTS = ('wet', 'dry', 'f0_hz', 'inharm_coef', 'extended_pitch',
                    'reverb_ir')
 
 
+def _copy(args):
+    """A copy of a call's arguments that later in-place work cannot
+    change."""
+    if isinstance(args, torch.Tensor):
+        return args.detach().clone()
+    if isinstance(args, tuple) and hasattr(args, '_fields'):
+        return type(args)(*(_copy(a) for a in args))
+    if isinstance(args, (tuple, list)):
+        return type(args)(_copy(a) for a in args)
+    return args
+
+
 @contextlib.contextmanager
-def capturing(capture):
-    """Record the inputs of every kernel front door, by kernel name, in the
-    dict ``capture`` (None records nothing)."""
+def capturing(capture, doors=FRONT_DOORS):
+    """Record the inputs of every front door in ``doors``, by kernel name,
+    in the dict ``capture`` (None records nothing)."""
     patched = []
-    doors = FRONT_DOORS if capture is not None else ()
+    doors = doors if capture is not None else ()
     for module_name, attr, kernel in doors:
         module = importlib.import_module(module_name)
         original = getattr(module, attr)
 
         def recorder(*args, _original=original, _kernel=kernel):
-            capture.setdefault(_kernel, []).append(args)
+            capture.setdefault(_kernel, []).append(_copy(args))
             return _original(*args)
 
         setattr(module, attr, recorder)
@@ -366,6 +446,15 @@ KERNEL_SOURCES = {
                  'ddsp_piano_tpu/kernels/gru_pallas.py:138'),
     'note_release': ('cuda', 'ddsp_piano_torch/csrc/note_release.cu',
                      'ddsp_piano_tpu/kernels/gru_pallas.py:451'),
+    'oscillator_skip_bwd': (
+        'cuda', 'ddsp_piano_torch/csrc/oscillator_skip_bwd.cu',
+        'ddsp_piano_tpu/kernels/oscillator_pallas.py:519'),
+    'gru_scan_bwd': ('cuda', 'ddsp_piano_torch/csrc/gru_scan_bwd.cu',
+                     'ddsp_piano_tpu/kernels/gru_pallas.py:313'),
+    'note_release_res': ('cuda', 'ddsp_piano_torch/csrc/note_release_bwd.cu',
+                         'ddsp_piano_tpu/kernels/gru_pallas.py:618'),
+    'note_release_bwd': ('cuda', 'ddsp_piano_torch/csrc/note_release_bwd.cu',
+                         'ddsp_piano_tpu/kernels/gru_pallas.py:673'),
 }
 
 
@@ -441,9 +530,9 @@ def main_path():
     sync()
     wall = time.perf_counter() - start
     launches = dict(build.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in RENDER_KERNELS if launches[k] == 0]
     if missing:
-        fail(f"the main path launched no {missing} kernel: {launches}")
+        fail(f"the render path launched no {missing} kernel: {launches}")
     kernel_ms = main_path_kernel_ms(shapes)
     audio, dry, sr = result['audio'], result['dry'], result['sample_rate']
     if audio.shape != (int(MAIN_PATH_SECONDS * sr),):
@@ -464,6 +553,389 @@ def main_path():
                 kernel_ms=kernel_ms,
                 rtf=MAIN_PATH_SECONDS / result['seconds'], peaks=peaks,
                 bin_hz=bin_hz, n_pitches=len(pitches))
+
+
+# -- phase 6 ------------------------------------------------------------------
+
+
+def teacher_data():
+    """The teacher's render of demo.mid (initial weights of seed 0, piano
+    0) and a mini-MAESTRO over it: one train and one validation row."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+
+    if os.path.isdir(MAESTRO_DIR):
+        shutil.rmtree(MAESTRO_DIR)
+    os.makedirs(MAESTRO_DIR)
+    wav = os.path.join(MAESTRO_DIR, 'demo.wav')
+    args = cli.process_args(['--seed', '7', '--piano_type', '0', '--device',
+                             DEV.type, DEMO_MIDI, wav])
+    result = cli.main(args)
+    shutil.copy(DEMO_MIDI, os.path.join(MAESTRO_DIR, 'demo.midi'))
+    seconds = len(result['audio']) / result['sample_rate']
+    with open(os.path.join(MAESTRO_DIR, 'maestro-v3.0.0.csv'), 'w') as f:
+        f.write('canonical_composer,canonical_title,split,year,'
+                'midi_filename,audio_filename,duration\n')
+        for split in ('train', 'validation'):
+            f.write(f'Demo,demo,{split},2018,demo.midi,demo.wav,'
+                    f'{seconds}\n')
+    rms = float(np.sqrt(np.mean(result['audio'].astype(np.float64) ** 2)))
+    if not (np.isfinite(result['audio']).all() and rms > 1e-4):
+        fail(f"teacher render not finite or silent (rms {rms})")
+    return seconds, rms
+
+
+def first_batch(batch_size, seconds=SEGMENT_SECONDS):
+    """The first batch of the mini-MAESTRO's train split, unshuffled."""
+    from ddsp_piano_torch.data import pipeline
+
+    batches = pipeline.get_dataset(MAESTRO_DIR, split='train',
+                                   duration=seconds, batch_size=batch_size,
+                                   shuffle=False, infinite_generator=False,
+                                   sample_rate=24000, max_polyphony=16,
+                                   num_parallel_calls=1)
+    batch = next(batches)
+    batches.close()
+    return batch
+
+
+# -- phase 7 ------------------------------------------------------------------
+
+
+def train_step_inputs():
+    """One full-width training step on the card, recording the inputs of
+    every kernel its autograd Functions launch."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=DEV, seed=STUDENT_SEED)
+    trainer = Trainer(model, first_phase=True, seed=STUDENT_SEED)
+    batch = first_batch(TRAIN_BATCH)
+    capture = {}
+    with capturing(capture, TRAIN_DOORS):
+        losses = trainer.train_step(batch)
+    sync()
+    total = float(losses['total_loss'])
+    if not np.isfinite(total):
+        fail(f"training step loss {total}")
+    missing = [k for k in TRAIN_KERNELS if k not in capture]
+    if missing:
+        fail(f"the training step called no {missing} kernel")
+    return capture, total
+
+
+def check_oscillator_bwd(calls):
+    from ddsp_piano_torch.kernels import oscillator as kosc
+
+    (controls, g, up, sr), = calls
+    b, n_frames, k = controls.f_lo.shape
+    got = kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
+    want = kosc.render_framewise_vjp_plain(controls, g, up, sr)
+    sync()
+    errs, rel = [], []
+    for name, a, w in zip(controls._fields, got, want):
+        peak = w.abs().max().item()
+        err = (a - w).abs().max().item()
+        if not (np.isfinite(err) and err <= OSC_BWD_TOL * max(peak, 1e-30)):
+            fail(f"oscillator backward kernel differs from its plain "
+                 f"version in d{name}: {err} > {OSC_BWD_TOL} x peak {peak}")
+        errs.append(err)
+        rel.append(err / max(peak, 1e-30))
+    computed = kosc.audible_partials(controls, sr).sum().item()
+    ms = median_ms(lambda: kosc.render_framewise_skip_bwd_cuda(controls, g,
+                                                               up, sr))
+    plain_ms = median_ms(lambda: kosc.render_framewise_vjp_plain(
+        controls, g, up, sr), n=5, warmup=1)
+    library_ms, slices = library_osc_bwd_ms(controls, g, up, sr)
+    flops = OSC_BWD_FLOPS_PER_TERM * computed * up
+    nbytes = 4 * (10 * b * n_frames * k + b * n_frames * up)
+    bound_ms, bound_by = bound(flops, nbytes)
+    detail = (f"controls 5 x {tuple(controls.f_lo.shape)}, g "
+              f"{tuple(g.shape)}; computed partials {computed}/"
+              f"{controls.f_lo.numel()} (Nyquist-only bound); max err / peak "
+              f"{max(rel):.3g}; library = autograd of the library forward "
+              f"over {slices}")
+    return dict(name='oscillator_skip_bwd', max_abs_err=max(errs), ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by), detail
+
+
+def library_osc_bwd_ms(controls, g, up, sr, rows=8):
+    """torch.autograd.grad of check_oscillator's library expression
+    (torch.cos of the materialised phases times the amplitudes, summed over
+    partials), over slices of ``rows`` voice rows: its (rows, frames, up,
+    K) intermediates would take several GB each for all 96. Returns the
+    summed time and the slicing."""
+    b = controls.f_lo.shape[0]
+    s = torch.arange(up, device=DEV, dtype=torch.float32)
+    h = (torch.sin((np.pi / (2.0 * up)) * s) ** 2)[None, None, :, None]
+    s = s[None, None, :, None]
+    tri = s * (s + 1.0) * (0.5 / up)
+    total = 0.0
+    for start in range(0, b, rows):
+        parts = [c[start:start + rows].detach().requires_grad_()
+                 for c in controls]
+        f_lo, f_hi, a_lo, a_hi, phase0 = parts
+        df = (f_hi - f_lo)[:, :, None, :]
+        phase = phase0[:, :, None, :] + (2.0 * np.pi / sr) * (
+            (s + 1.0) * f_lo[:, :, None, :] + df * tri)
+        amp = (a_lo[:, :, None, :] * (1.0 - h)
+               + a_hi[:, :, None, :] * h) * (
+            f_lo[:, :, None, :] + df * (s / up) < sr / 2.0)
+        out = torch.sum(amp * torch.cos(phase), -1).reshape(
+            parts[0].shape[0], -1)
+        gs = g[start:start + rows]
+        total += median_ms(lambda: torch.autograd.grad(
+            out, parts, gs, retain_graph=True), n=5, warmup=1)
+        del out, phase, amp, parts
+    return total, f"{-(-b // rows)} slices of {rows} voice rows"
+
+
+def check_gru_bwd(calls):
+    from ddsp_piano_torch.kernels import gru as kgru
+
+    rows = []
+    for x_proj, rec_kernel, rec_bias, h0, hs, g in calls:
+        t, b, three_u = x_proj.shape
+        u = three_u // 3
+        got = kgru.gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, h0, hs, g)
+        want = kgru.gru_scan_plain_bwd(x_proj, rec_kernel, rec_bias, h0, hs,
+                                       g)
+        sync()
+        err = max((a - w).abs().max().item() for a, w in zip(got, want))
+        peak = max(w.abs().max().item() for w in want)
+        if not (np.isfinite(err) and err <= GRU_BWD_TOL):
+            fail(f"GRU backward kernel (u={u}, B={b}) differs from its plain "
+                 f"version: {err} > {GRU_BWD_TOL} (streams' peak {peak})")
+        ms = median_ms(lambda: kgru.gru_scan_bwd_cuda(
+            x_proj, rec_kernel, rec_bias, h0, hs, g))
+        plain_ms = median_ms(lambda: kgru.gru_scan_plain_bwd(
+            x_proj, rec_kernel, rec_bias, h0, hs, g), n=5, warmup=1)
+        x = x_proj.detach().requires_grad_()
+        h = h0.detach().requires_grad_()
+        library = _library_gru(x, rec_kernel, rec_bias, h)
+        with torch.enable_grad():
+            fwd_ms = median_ms(library)
+            fwd_bwd_ms = median_ms(lambda: torch.autograd.grad(
+                library(), [x, h], g))
+        flops = t * b * (4 * u * three_u + 2 * three_u
+                         + GRU_BWD_GATE_FLOPS_PER_UNIT * u)
+        nbytes = 4 * (t * b * three_u + 2 * t * b * u + 2 * u * three_u
+                      + three_u + b * u + 4 * t * b * u + b * u)
+        rows.append(dict(u=u, b=b, t=t, err=err, peak=peak, ms=ms,
+                         plain_ms=plain_ms,
+                         library_ms=fwd_bwd_ms - fwd_ms,
+                         bound=bound(flops, nbytes)))
+    total = dict(name='gru_scan_bwd', max_abs_err=max(r['err'] for r in rows))
+    for key in ('ms', 'plain_ms', 'library_ms'):
+        total[key] = sum(r[key] for r in rows)
+    total['bound_ms'] = sum(r['bound'][0] for r in rows)
+    by = {r['bound'][1] for r in rows}
+    total['bound_by'] = by.pop() if len(by) == 1 else 'operations'
+    detail = '; '.join(
+        f"u={r['u']} ({r['t']}, {r['b']}): err {r['err']:.3g} (peak "
+        f"{r['peak']:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"cuDNN backward {r['library_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.5f} ms ({r['bound'][1]})" for r in rows)
+    return total, detail + "; the chain of 750 serial steps bounds it"
+
+
+def check_note_release_pair(capture):
+    from ddsp_piano_torch.kernels import note_release as knr
+
+    (x, thr, s0), = capture['note_release_res']
+    (bx, bthr, prev, steps, g_out, g_state), = capture['note_release_bwd']
+    t, b, _ = x.shape
+    got = knr.note_release_scan_res_cuda(x, thr, s0)
+    want = knr.note_release_scan_plain_res(x, thr, s0)
+    got_b = knr.note_release_scan_bwd_cuda(bx, bthr, prev, steps, g_out,
+                                           g_state)
+    want_b = knr.note_release_scan_plain_bwd(bx, bthr, prev, steps, g_out,
+                                             g_state)
+    sync()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        fail("NoteRelease residual kernel (K6) is not bit-exact against its "
+             "plain version")
+    if not all(torch.equal(a, w) for a, w in zip(got_b, want_b)):
+        fail("NoteRelease backward kernel (K7) is not bit-exact against its "
+             "plain version")
+    u = want[2] - thr
+    ties = int((u == 0).sum()), int((u == 1).sum())
+    rows = []
+    for name, fn, plain, args, flops, nbytes in (
+            ('note_release_res', knr.note_release_scan_res_cuda,
+             knr.note_release_scan_plain_res, (x, thr, s0),
+             NR_FLOPS_PER_STEP * t * b, 4 * (3 * t * b + 1 + 4 * b)),
+            ('note_release_bwd', knr.note_release_scan_bwd_cuda,
+             knr.note_release_scan_plain_bwd,
+             (bx, bthr, prev, steps, g_out, g_state),
+             NR_BWD_FLOPS_PER_STEP * t * b, 4 * (5 * t * b + 1 + 5 * b))):
+        ms = median_ms(lambda: fn(*args))
+        plain_ms = median_ms(lambda: plain(*args), n=5, warmup=1)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows.append(dict(name=name, max_abs_err=0.0, ms=ms,
+                         plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_by=bound_by))
+    detail = (f"x ({t}, {b}, 1), threshold {float(thr):g}, release ties "
+              f"steps - thr == 0 at {ties[0]} and == 1 at {ties[1]} (step, "
+              f"lane) cells; both bit-exact; the chain of {t} serial steps "
+              f"bounds them")
+    return rows, detail
+
+
+def kernel_ms_per_step(capture):
+    """CUDA-event ms of every kernel launch of one training step, at the
+    step's own inputs: {kernel: summed ms}."""
+    from ddsp_piano_torch.kernels import gru, note_release, oscillator
+
+    launch = {
+        'oscillator_skip': oscillator.render_framewise_skip_cuda,
+        'gru_scan': gru.gru_scan_cuda,
+        'note_release_res': note_release.note_release_scan_res_cuda,
+        'oscillator_skip_bwd': oscillator.render_framewise_skip_bwd_cuda,
+        'gru_scan_bwd': gru.gru_scan_bwd_cuda,
+        'note_release_bwd': note_release.note_release_scan_bwd_cuda,
+    }
+    return {kernel: sum(median_ms(lambda: launch[kernel](*args), n=10)
+                        for args in calls)
+            for kernel, calls in capture.items()}
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+
+def training_path():
+    from ddsp_piano_torch import train_single_phase as cli
+    from ddsp_piano_torch.kernels import build
+
+    exp = os.path.join(OUT_DIR, 'train_exp')
+    if os.path.isdir(exp):
+        shutil.rmtree(exp)
+    args = cli.process_args(['-b', str(TRAIN_BATCH), '-s', str(TRAIN_STEPS),
+                             '-e', '1', '--seed', str(STUDENT_SEED),
+                             '--device', DEV.type, MAESTRO_DIR, exp])
+    build.reset_launches()
+    start = time.perf_counter()
+    result = cli.main(args, record_timeline=True)
+    sync()
+    wall = time.perf_counter() - start
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the training path launched no {missing} kernel: {launches}")
+    losses = result['step_losses']
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        fail(f"training losses {losses}")
+    if result['val_losses'] is None or not np.isfinite(
+            result['val_losses']['total_loss']):
+        fail(f"validation losses {result['val_losses']}")
+    if not os.path.isfile(os.path.join(exp, 'phase_1', 'last_iter',
+                                       'ckpt.pt')):
+        fail("the training path wrote no last_iter checkpoint")
+    times = result['trainer'].step_times()[1:]
+    parts = [statistics.median(p) for p in zip(*times)]
+    return dict(launches=launches, wall=wall, losses=losses,
+                val=result['val_losses']['total_loss'], step_ms=parts[0],
+                fwd_ms=parts[1], bwd_ms=parts[2], opt_ms=parts[3])
+
+
+def profile_training_steps(n_steps=3):
+    """torch.profiler over ``n_steps`` full-width training steps after two
+    warm-up steps: wall ms per step, the device's busy share (the union of
+    kernel and copy intervals on the device's timeline), and the operators
+    with the most device and host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=DEV, seed=STUDENT_SEED)
+    trainer = Trainer(model, first_phase=True, seed=STUDENT_SEED)
+    batch = trainer.stage(first_batch(TRAIN_BATCH))
+    for _ in range(2):
+        trainer.train_step(batch)
+    sync()
+    activities = [ProfilerActivity.CPU]
+    if DEV.type == 'cuda':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        start = time.perf_counter()
+        for _ in range(n_steps):
+            trainer.train_step(batch)
+        sync()
+        wall_ms = (time.perf_counter() - start) * 1e3 / n_steps
+    intervals = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type.name == 'CUDA' and e.time_range.end
+        > e.time_range.start)
+    busy, last = 0.0, None
+    for lo, hi in intervals:
+        if last is None or lo > last:
+            busy += hi - lo
+            last = hi
+        elif hi > last:
+            busy += hi - last
+            last = hi
+    busy_ms = busy / 1e3 / n_steps
+    table = prof.key_averages()
+    by_device = sorted(table, key=lambda e: -e.self_device_time_total)[:10]
+    by_host = sorted(table, key=lambda e: -e.self_cpu_time_total)[:10]
+    fmt = lambda e, t: f"{e.key[:48]} {t / 1e3 / n_steps:.2f} ({e.count // n_steps})"
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms,
+                device=[fmt(e, e.self_device_time_total) for e in by_device],
+                host=[fmt(e, e.self_cpu_time_total) for e in by_host])
+
+
+# -- phase 9 ------------------------------------------------------------------
+
+
+def step_gradients(device, batch, noise, logmag_weight):
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=device, seed=STUDENT_SEED)
+    model.loss_objs[0].logmag_weight = logmag_weight
+    trainer = Trainer(model, first_phase=True)
+    losses = trainer.forward_backward(
+        {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+        noise=noise.to(device))
+    return (float(losses['total_loss']),
+            {n: p.grad.detach().cpu() for n, p in trainer.named_params})
+
+
+def gradient_check():
+    """One step's gradients at batch 1, 1 s: cuda against the CPU plain
+    path, with the v2 loss and with its magnitude term alone."""
+    batch = first_batch(1, seconds=GRAD_CHECK_SECONDS)
+    batch.pop('filename', None)
+    n_samples = batch['audio'].shape[-1]
+    noise = 2.0 * torch.rand((16, n_samples), generator=torch.Generator(
+        ).manual_seed(SEED + 2)) - 1.0
+    out = {}
+    for name, logmag_weight in (('magnitudes', 0.0), ('v2', 1.0)):
+        loss_gpu, grads_gpu = step_gradients(DEV, batch, noise,
+                                             logmag_weight)
+        loss_cpu, grads_cpu = step_gradients('cpu', batch, noise,
+                                             logmag_weight)
+        errs = {k: ((grads_gpu[k] - g).abs().max()
+                    / max(g.abs().max().item(), 1e-30)).item()
+                for k, g in grads_cpu.items()}
+        a = torch.cat([g.flatten() for g in grads_gpu.values()]).double()
+        b = torch.cat([g.flatten() for g in grads_cpu.values()]).double()
+        cosine = float(a @ b / (a.norm() * b.norm()))
+        worst = max(errs, key=errs.get)
+        tol = STEP_TOL_MAG if name == 'magnitudes' else STEP_TOL_V2
+        if not (np.isfinite(loss_gpu) and errs[worst] <= tol
+                and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
+                and (name == 'magnitudes' or cosine >= STEP_MIN_COSINE)):
+            fail(f"{name} loss: cuda step differs from the cpu step: loss "
+                 f"{loss_gpu} vs {loss_cpu}, worst leaf {worst} "
+                 f"{errs[worst]} of its peak (tolerance {tol}), cosine "
+                 f"{cosine}")
+        out[name] = dict(loss_gpu=loss_gpu, loss_cpu=loss_cpu,
+                         worst=worst, worst_err=errs[worst],
+                         median_err=statistics.median(errs.values()),
+                         cosine=cosine, n_leaves=len(errs))
+    return out
 
 
 # -- main ---------------------------------------------------------------------
@@ -536,10 +1008,76 @@ def main():
           f"{errs['amplitudes']:.3g}, reverb_ir {errs['reverb_ir']:.3g}",
           flush=True)
 
+    t0 = time.perf_counter()
+    seconds, rms = teacher_data()
+    print(f"teacher: demo.mid {seconds:g} s rendered (weights seed 0, piano "
+          f"0, rms {rms:.4f}) into a mini-MAESTRO in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    capture, loss = train_step_inputs()
+    print(f"training step (b={TRAIN_BATCH}, {SEGMENT_SECONDS:g} s) on cuda: "
+          f"total loss {loss:.4f}; kernel calls "
+          f"{ {k: len(v) for k, v in capture.items()} }", flush=True)
+    step_kernel_ms = kernel_ms_per_step(capture)
+    for kernel, check in (('oscillator_skip_bwd', check_oscillator_bwd),
+                          ('gru_scan_bwd', check_gru_bwd)):
+        row, detail = check(capture[kernel])
+        kernels.append(row)
+        print(f"kernel {kernel}: {detail}; max_abs_err "
+              f"{row['max_abs_err']:.3g}; kernel_ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} library_ms "
+              f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+              f"({row['bound_by']})", flush=True)
+    rows, detail = check_note_release_pair(capture)
+    kernels.extend(rows)
+    for row in rows:
+        print(f"kernel {row['name']}: {detail}; kernel_ms {row['ms']:.4f} "
+              f"plain_ms {row['plain_ms']:.4f} library_ms none bound_ms "
+              f"{row['bound_ms']:.7f} ({row['bound_by']})", flush=True)
+    del capture
+
+    t = training_path()
+    per_step = sum(step_kernel_ms.values())
+    print(f"training path: train_single_phase -b {TRAIN_BATCH} -s "
+          f"{TRAIN_STEPS} -e 1 on cuda, wall {t['wall']:.1f} s; launches "
+          f"{t['launches']}; total loss {t['losses'][0]:.4f} -> "
+          f"{t['losses'][-1]:.4f}, validation {t['val']:.4f}", flush=True)
+    print(f"training step, median of steps 2-{TRAIN_STEPS} (CUDA events): "
+          f"{t['step_ms']:.2f} ms = forward {t['fwd_ms']:.2f} + backward "
+          f"{t['bwd_ms']:.2f} + clip and Adam {t['opt_ms']:.2f}; kernels "
+          f"{per_step:.2f} ms ({100 * per_step / t['step_ms']:.1f} %): "
+          + ', '.join(f"{k} {v:.3f}" for k, v in sorted(
+              step_kernel_ms.items())), flush=True)
+
+    prof = profile_training_steps()
+    if prof['busy_ms'] > 0:
+        busy = (f"device busy {prof['busy_ms']:.2f} ms "
+                f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %)")
+    else:
+        busy = "device time not measured (the profiler saw no device events)"
+    print(f"profile of {TRAIN_BATCH}-row training steps (torch.profiler): "
+          f"wall {prof['wall_ms']:.2f} ms per step, {busy}; most device "
+          f"ms per step (calls): {'; '.join(prof['device'])}", flush=True)
+    print(f"most host ms per step (calls): {'; '.join(prof['host'])}",
+          flush=True)
+
+    g = gradient_check()
+    print("gradients, cuda vs cpu plain (b=1, "
+          f"{GRAD_CHECK_SECONDS:g} s, {g['v2']['n_leaves']} trainable "
+          "leaves): " + '; '.join(
+              f"{name} loss {r['loss_gpu']:.6f} vs {r['loss_cpu']:.6f}, "
+              f"worst leaf {r['worst']} {r['worst_err']:.3g} of its peak, "
+              f"median {r['median_err']:.3g}, cosine {r['cosine']:.7f}"
+              for name, r in g.items())
+          + f" (tolerances {STEP_TOL_MAG:g} magnitudes; {STEP_TOL_V2:g} and "
+          f"cosine {STEP_MIN_COSINE} v2)", flush=True)
+
     for row in kernels:
         route, source, replaces = KERNEL_SOURCES[row['name']]
+        launches = (m['launches'] if row['name'] in RENDER_KERNELS
+                    else t['launches'])[row['name']]
         row.update(route=route, source=source, replaces=replaces,
-                   launches=m['launches'][row['name']])
+                   launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
             'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
     print(json.dumps({'kernels': [{k: row[k] for k in keys}

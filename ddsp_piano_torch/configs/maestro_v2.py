@@ -1,9 +1,10 @@
 """MAESTRO v2 (JAES-2023) model configuration, the default model.
 
-Counterpart of ddsp_piano_tpu/configs/maestro_v2.py:59-108 (inference
-path): 24 kHz, FiLMContextNetwork + MonophonicDeepNetwork +
-JointParametricInharmTuning (frozen pretrained Railsback/inharmonicity
-parameters) + MultiInstrumentFeedbackDelayReverb.
+Counterpart of ddsp_piano_tpu/configs/maestro_v2.py:59-108: 24 kHz,
+FiLMContextNetwork + MonophonicDeepNetwork + JointParametricInharmTuning
+(frozen pretrained Railsback/inharmonicity parameters) +
+MultiInstrumentFeedbackDelayReverb, trained on the multi-scale spectral
+loss (L1 on magnitudes and log magnitudes).
 
 V2_TUNING_WEIGHTS is the published per-instrument tuning table
 (maestro-v2.gin:44-115), copied from the JAX package's config.
@@ -15,6 +16,7 @@ from ddsp_piano_torch import processors
 from ddsp_piano_torch.configs.registry import register
 from ddsp_piano_torch.models import (Parallelizer, PianoModel,
                                      VectorizedPolyphonicProcessorGroup)
+from ddsp_piano_torch.models import losses as losses_lib
 from ddsp_piano_torch.models import sub_modules as sm
 
 V2_TUNING_WEIGHTS = {
@@ -62,11 +64,16 @@ def build(inference: bool = False,
           n_instruments: int = 10,
           n_synths: int = 16,
           n_harmonics: int = 128,
-          n_noise_bands: int = 96) -> PianoModel:
+          n_noise_bands: int = 96,
+          regularize_early: bool = False,
+          first_phase: bool = True) -> PianoModel:
     """The v2 model, weights uninitialised (see configs.get_model).
-    ``inference`` and ``duration`` are accepted for signature parity; the
-    v2 modules do not depend on them."""
-    del inference, duration
+    ``inference``, ``duration`` and ``first_phase`` are accepted for
+    signature parity: in the JAX package ``inference`` only selects an
+    envelope-pipeline fallback of the additive synth that the port does not
+    have, and the training phase is applied by the trainer
+    (PianoModel.set_trainable)."""
+    del inference, duration, first_phase
     processor_group = VectorizedPolyphonicProcessorGroup(
         additive=processors.MultiInharmonic(frame_rate=frame_rate,
                                             sample_rate=sample_rate),
@@ -96,6 +103,13 @@ def build(inference: bool = False,
             n_instruments=n_instruments,
             pretrained_weights=V2_TUNING_WEIGHTS),
         reverb_model=sm.MultiInstrumentFeedbackDelayReverb(
-            n_instruments=n_instruments, sample_rate=sample_rate),
+            n_instruments=n_instruments, sample_rate=sample_rate,
+            regularize_early=regularize_early),
         processor_group=processor_group,
+        losses=[
+            losses_lib.SpectralLoss(loss_type='L1', mag_weight=1.0,
+                                    logmag_weight=1.0,
+                                    sample_rate=sample_rate,
+                                    name='audio_stft_loss'),
+        ],
     )

@@ -1,12 +1,16 @@
-"""Wav writing and dBFS normalisation (numpy + the stdlib wave module).
+"""Wav reading and writing, resampling and dBFS normalisation (numpy, scipy
+and the stdlib wave module).
 
-Copies of write_wav, read_wav, dbfs and normalize_audio from
-ddsp_piano_tpu/data/audio_io.py.
+Copies of read_wav, resample_audio, load_audio_as_signal, write_wav, dbfs
+and normalize_audio from ddsp_piano_tpu/data/audio_io.py. Only wav input
+is read: where the JAX package decodes other formats with ffmpeg, the port
+refuses them.
 """
 
 from __future__ import annotations
 
 import wave
+from fractions import Fraction
 
 import numpy as np
 
@@ -32,6 +36,43 @@ def read_wav(path: str):
     else:
         raise ValueError(f"Unsupported wav sample width {width}")
     return data.reshape(-1, channels), rate
+
+
+def resample_audio(audio: np.ndarray, orig_rate: int,
+                   target_rate: int) -> np.ndarray:
+    """Polyphase resampling along axis 0."""
+    if orig_rate == target_rate:
+        return audio
+    from scipy.signal import resample_poly
+    frac = Fraction(target_rate, orig_rate).limit_denominator(1000)
+    return resample_poly(audio, frac.numerator, frac.denominator,
+                         axis=0).astype(np.float32)
+
+
+def _is_wav(path: str) -> bool:
+    """RIFF/WAVE header sniff."""
+    with open(path, 'rb') as f:
+        head = f.read(12)
+    return head[:4] == b'RIFF' and head[8:12] == b'WAVE'
+
+
+def load_audio_as_signal(audio_path: str,
+                         sample_rate: int = 16000) -> np.ndarray:
+    """Load a wav file as mono float32 at the target sample rate, of length
+    int(duration * sample_rate) (padded or trimmed after resampling)."""
+    if not _is_wav(audio_path):
+        raise ValueError(f"{audio_path!r} is not a wav file: "
+                         "ddsp_piano_torch reads wav only (MAESTRO ships "
+                         "wav); convert other formats first.")
+    data, rate = read_wav(audio_path)
+    mono = data.mean(axis=1)
+    expected_len = int(len(mono) / rate * sample_rate)
+    audio = resample_audio(mono, rate, sample_rate)
+    if len(audio) > expected_len:
+        audio = audio[:expected_len]
+    elif len(audio) < expected_len:
+        audio = np.pad(audio, (0, expected_len - len(audio)))
+    return audio.astype(np.float32)
 
 
 def write_wav(path: str, audio: np.ndarray, sample_rate: int,

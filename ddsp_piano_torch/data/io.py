@@ -1,7 +1,7 @@
-"""MIDI file -> model conditioning (numpy, host side).
+"""MIDI and audio files -> model features (numpy, host side).
 
-Copy of load_midi_as_conditioning and its helpers from
-ddsp_piano_tpu/data/io.py:18-82.
+Copy of load_midi_as_conditioning, load_data and their helpers from
+ddsp_piano_tpu/data/io.py:18-98.
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ddsp_piano_torch.data import midi
+from ddsp_piano_torch.data import audio_io, midi
 from ddsp_piano_torch.data.midi_encoders import roll_to_conditioning
 
 
@@ -70,3 +70,21 @@ def load_midi_as_conditioning(mid_path: str,
     return {'conditioning': conditioning[np.newaxis].astype(np.float32),
             'pedal': pedals[np.newaxis].astype(np.float32),
             'duration': target_n_frames / frame_rate + warm_up_duration}
+
+
+def load_data(audio_path: str,
+              mid_path: str,
+              max_polyphony: Optional[int] = None,
+              sample_rate: int = 16000,
+              frame_rate: int = 250):
+    """Aligned audio + MIDI features for one track: (audio, conditioning,
+    pedals, polyphony) with max_polyphony, else (audio, midi roll,
+    pedals)."""
+    audio = audio_io.load_audio_as_signal(audio_path, sample_rate)
+    note_sequence = load_midi_as_note_sequence(mid_path)
+    midi_roll, pedals = midi_roll_from_sequence(note_sequence, frame_rate)
+    if max_polyphony is not None:
+        conditioning, polyphony = roll_to_conditioning(midi_roll,
+                                                       max_polyphony)
+        return audio, conditioning, pedals, polyphony
+    return audio, midi_roll, pedals

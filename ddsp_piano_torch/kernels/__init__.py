@@ -1,9 +1,14 @@
-"""Hand-written CUDA kernels of the inference path, with plain versions.
+"""Hand-written CUDA kernels, with plain versions.
 
 - oscillator.py: skipping additive oscillator (csrc/oscillator_skip.cu)
-- gru.py: GRU recurrence (csrc/gru_scan.cu)
-- note_release.py: NoteRelease recurrence (csrc/note_release.cu)
+  and its backward (csrc/oscillator_skip_bwd.cu)
+- gru.py: GRU recurrence (csrc/gru_scan.cu) and its backward
+  (csrc/gru_scan_bwd.cu)
+- note_release.py: NoteRelease recurrence (csrc/note_release.cu), its
+  residual-saving forward and its backward (csrc/note_release_bwd.cu)
 
 Each front door launches its kernel for CUDA tensors and runs the plain
-PyTorch version for CPU tensors; there is no switch between the two.
+PyTorch version for CPU tensors; there is no switch between the two. With
+grad enabled, a torch.autograd.Function pairs each forward with its
+backward kernel.
 """

@@ -36,6 +36,9 @@ SOURCE_FLAGS = {
     'note_release': ('--fmad=false',),
     'oscillator_skip': ('--fmad=false',),
     'gru_scan': (),
+    'note_release_bwd': ('--fmad=false',),
+    'oscillator_skip_bwd': ('--fmad=false',),
+    'gru_scan_bwd': (),
 }
 
 _P = ctypes.c_void_p
@@ -53,11 +56,31 @@ SIGNATURES = {
         'osc_skip_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _F, _P),
     },
+    'note_release_bwd': {
+        'note_release_res_launch': (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        'note_release_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                    _I, _P),
+    },
+    'gru_scan_bwd': {
+        'gru_scan_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _P),
+        'gru_scan_bwd_staged_rows': (_I, _I),
+    },
+    'oscillator_skip_bwd': {
+        'osc_skip_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                _I, _F, _F, _P),
+    },
 }
+
+# The kernels, by the name of their launch counter: K1-K3 (inference) and
+# K4-K7 (gradients). note_release_bwd.cu holds two of them.
+KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
+           'oscillator_skip_bwd', 'gru_scan_bwd', 'note_release_res',
+           'note_release_bwd')
 
 # Launches of each kernel, counted by its wrapper where it launches the
 # kernel and nowhere else (a run shows its path went through the kernels).
-LAUNCHES: Dict[str, int] = {name: 0 for name in SIGNATURES}
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 
 def reset_launches() -> None:

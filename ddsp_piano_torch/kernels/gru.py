@@ -1,13 +1,17 @@
-"""GRU recurrence: CUDA kernel (csrc/gru_scan.cu) and its plain PyTorch
-version.
+"""GRU recurrence: CUDA kernels (csrc/gru_scan.cu, csrc/gru_scan_bwd.cu)
+and their plain PyTorch versions.
 
 Counterpart of ddsp_piano_tpu/kernels/gru_pallas.py gru_scan (the front
-door, :959-968), gru_scan_pallas (the kernel) and gru_scan_reference (the
-plain scan). The TPU wrapper's fallback to the scan when VMEM is too small
-is not ported: a shape the kernel cannot take raises.
+door, :959-968), gru_scan_pallas (the forward kernel), gru_scan_reference
+(the plain scan) and gru_scan_pallas_bwd (the backward: a kernel for the
+per-step streams, :268-331, then two bulk contractions, :334-353). The TPU
+wrappers' fallbacks to the scan or its VJP when VMEM is too small are not
+ported: a shape a kernel cannot take raises.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -37,9 +41,62 @@ def gru_scan_plain(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
     return torch.stack(hs)
 
 
-def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
-                  rec_bias: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """The kernel on CUDA tensors; raises on anything it does not take."""
+def _h_prev(h0: torch.Tensor, hs: torch.Tensor) -> torch.Tensor:
+    """(T, B, u) hidden state entering each step."""
+    return torch.cat([h0[None], hs[:-1]], dim=0)
+
+
+def gru_scan_plain_bwd(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                       rec_bias: torch.Tensor, h0: torch.Tensor,
+                       hs: torch.Tensor, g: torch.Tensor
+                       ) -> Tuple[torch.Tensor, ...]:
+    """Per-step gate cotangents of the recurrence (gru_pallas.py:201-232),
+    walking time backward and recomputing the gates from (x_proj, h_prev):
+    (dxz, dxr, dxh, drh) each (T, B, u), and dh0 (B, u)."""
+    u = h0.shape[-1]
+    h_prev = _h_prev(h0, hs)
+    w_t = [rec_kernel[:, i * u:(i + 1) * u].t() for i in range(3)]
+    dh = torch.zeros_like(h0)
+    streams = [[None] * x_proj.shape[0] for _ in range(4)]
+    for t in range(x_proj.shape[0] - 1, -1, -1):
+        hp, xt = h_prev[t], x_proj[t]
+        rec = torch.matmul(hp, rec_kernel) + rec_bias
+        rh = rec[:, 2 * u:]
+        z = torch.sigmoid(xt[:, :u] + rec[:, :u])
+        r = torch.sigmoid(xt[:, u:2 * u] + rec[:, u:2 * u])
+        hh = torch.tanh(xt[:, 2 * u:] + r * rh)
+        dh = dh + g[t]
+        dz = dh * (hp - hh)
+        dpre = (dh * (1.0 - z)) * (1.0 - hh * hh)      # d(xh + r rh)
+        drh = dpre * r                                 # d(h Uh + bh)
+        dr_pre = (dpre * rh) * (r * (1.0 - r))         # d(xr + rr)
+        dz_pre = dz * (z * (1.0 - z))                  # d(xz + rz)
+        dh = (dh * z + torch.matmul(dz_pre, w_t[0])
+              + torch.matmul(dr_pre, w_t[1]) + torch.matmul(drh, w_t[2]))
+        for stream, value in zip(streams, (dz_pre, dr_pre, dpre, drh)):
+            stream[t] = value
+    if x_proj.shape[0] == 0:
+        empty = x_proj.new_zeros((0,) + tuple(h0.shape))
+        return empty, empty, empty, empty, dh
+    return tuple(torch.stack(s) for s in streams) + (dh,)
+
+
+def gru_grads_from_streams(h0: torch.Tensor, hs: torch.Tensor, streams):
+    """(dx_proj, d_rec_kernel, d_rec_bias, dh0) from the per-step streams
+    (gru_pallas.py:334-353): the weight gradients are two float32
+    contractions of h_prev with the streams over (T * B), the bias
+    gradients their sums."""
+    dxz, dxr, dxh, drh, dh0 = streams
+    u = h0.shape[-1]
+    h_prev = _h_prev(h0, hs).reshape(-1, u)
+    dx_proj = torch.cat([dxz, dxr, dxh], dim=-1)
+    parts = [d.reshape(-1, u) for d in (dxz, dxr, drh)]
+    d_kernel = torch.matmul(h_prev.t(), torch.cat(parts, dim=-1))
+    d_bias = torch.cat([p.sum(dim=0) for p in parts])
+    return dx_proj, d_kernel, d_bias, dh0
+
+
+def _check_gru(what, x_proj, rec_kernel, rec_bias, h0):
     if x_proj.dim() != 3:
         raise ValueError(f"x_proj must be (T, B, 3u), got "
                          f"{tuple(x_proj.shape)}")
@@ -47,29 +104,31 @@ def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
     u = three_u // 3
     args = (x_proj, rec_kernel, rec_bias, h0)
     if any(not a.is_cuda or a.dtype != torch.float32 for a in args):
-        raise ValueError("gru_scan_cuda takes float32 CUDA tensors")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise ValueError("gru_scan_cuda is inference-only: its gradient "
-                         "kernel is not ported yet")
+        raise ValueError(f"{what} takes float32 CUDA tensors")
     if (three_u != 3 * u or tuple(rec_kernel.shape) != (u, three_u)
             or tuple(rec_bias.shape) != (three_u,)
             or tuple(h0.shape) != (b, u)):
         raise ValueError(
-            f"gru_scan_cuda: shapes x_proj {tuple(x_proj.shape)}, rec_kernel "
+            f"{what}: shapes x_proj {tuple(x_proj.shape)}, rec_kernel "
             f"{tuple(rec_kernel.shape)}, rec_bias {tuple(rec_bias.shape)}, "
             f"h0 {tuple(h0.shape)} do not form a GRU of width u = {u}")
     if three_u > 1024 or u % 4 != 0:
-        raise ValueError(f"gru_scan_cuda takes u <= 340, a multiple of 4; "
+        raise ValueError(f"{what} takes u <= 340, a multiple of 4; "
                          f"got u = {u}")
+    return t, b, u
+
+
+def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                  rec_bias: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """K2 on CUDA tensors; raises on anything it does not take."""
+    t, b, u = _check_gru('gru_scan_cuda', x_proj, rec_kernel, rec_bias, h0)
     lib = build.library('gru_scan')
     rows = min(ROWS_PER_BLOCK, max(b, 1))
     if lib.gru_scan_staged_rows(u, rows) < 0:
         raise ValueError(f"gru_scan_cuda: u = {u} needs more shared memory "
                          "than a block has")
-    x = x_proj.contiguous()
-    w = rec_kernel.contiguous()
-    bias = rec_bias.contiguous()
-    h = h0.contiguous()
+    x, w, bias, h = (a.detach().contiguous()
+                     for a in (x_proj, rec_kernel, rec_bias, h0))
     out = torch.empty((t, b, u), dtype=torch.float32, device=x.device)
     if t == 0 or b == 0:
         return out
@@ -81,10 +140,74 @@ def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
     return out
 
 
+def gru_scan_bwd_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
+                      rec_bias: torch.Tensor, h0: torch.Tensor,
+                      hs: torch.Tensor, g: torch.Tensor
+                      ) -> Tuple[torch.Tensor, ...]:
+    """K5 on CUDA tensors: the streams of gru_scan_plain_bwd."""
+    t, b, u = _check_gru('gru_scan_bwd_cuda', x_proj, rec_kernel, rec_bias,
+                         h0)
+    for name, a in (('hs', hs), ('g', g)):
+        if (not a.is_cuda or a.dtype != torch.float32
+                or tuple(a.shape) != (t, b, u)):
+            raise ValueError(f"gru_scan_bwd_cuda: {name} must be a float32 "
+                             f"CUDA tensor of ({t}, {b}, {u})")
+    lib = build.library('gru_scan_bwd')
+    rows = min(ROWS_PER_BLOCK, max(b, 1))
+    if lib.gru_scan_bwd_staged_rows(u, rows) < 0:
+        raise ValueError(f"gru_scan_bwd_cuda: u = {u} needs more shared "
+                         "memory than a block has")
+    x, w, bias, h, hs_c, g_c = (a.detach().contiguous() for a in
+                                (x_proj, rec_kernel, rec_bias, h0, hs, g))
+    w_t = w.t().contiguous()
+    streams = torch.empty((4, t, b, u), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((b, u), dtype=torch.float32, device=x.device)
+    if b == 0:
+        return tuple(streams) + (dh0,)
+    if t == 0:
+        dh0.zero_()
+        return tuple(streams) + (dh0,)
+    code = lib.gru_scan_bwd_launch(
+        x.data_ptr(), w.data_ptr(), w_t.data_ptr(), bias.data_ptr(),
+        h.data_ptr(), hs_c.data_ptr(), g_c.data_ptr(), streams.data_ptr(),
+        dh0.data_ptr(), t, b, u, rows, build.stream_handle(x.device))
+    build.check(code, 'gru_scan_bwd_launch')
+    build.LAUNCHES['gru_scan_bwd'] += 1
+    return tuple(streams) + (dh0,)
+
+
+class GRUScan(torch.autograd.Function):
+    """K2 forward and K5 backward (then the two weight contractions); on
+    CPU tensors their plain versions. The hidden states are the only
+    residual (gru_pallas.py:935-956)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, rec_kernel, rec_bias, h0):
+        if tensor_device(x_proj, 'gru_scan') == 'cuda':
+            hs = gru_scan_cuda(x_proj, rec_kernel, rec_bias, h0)
+        else:
+            hs = gru_scan_plain(x_proj, rec_kernel, rec_bias, h0)
+        ctx.save_for_backward(x_proj, rec_kernel, rec_bias, h0, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, g):
+        x_proj, rec_kernel, rec_bias, h0, hs = ctx.saved_tensors
+        bwd = (gru_scan_bwd_cuda if tensor_device(x_proj, 'gru_scan') == 'cuda'
+               else gru_scan_plain_bwd)
+        streams = bwd(x_proj, rec_kernel, rec_bias, h0, hs, g.contiguous())
+        return gru_grads_from_streams(h0, hs, streams)
+
+
 def gru_scan(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
              rec_bias: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
-    """Front door for nn.GRU: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if tensor_device(x_proj, 'gru_scan') == 'cuda':
+    """Front door for nn.GRU. With grad enabled and an input requiring it:
+    the GRUScan Function (K2 + K5 on CUDA). Otherwise K2 for CUDA tensors,
+    the plain version for CPU tensors."""
+    device = tensor_device(x_proj, 'gru_scan')
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x_proj, rec_kernel, rec_bias, h0)):
+        return GRUScan.apply(x_proj, rec_kernel, rec_bias, h0)
+    if device == 'cuda':
         return gru_scan_cuda(x_proj, rec_kernel, rec_bias, h0)
     return gru_scan_plain(x_proj, rec_kernel, rec_bias, h0)

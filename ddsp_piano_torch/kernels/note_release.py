@@ -1,8 +1,17 @@
-"""NoteRelease recurrence: CUDA kernel (csrc/note_release.cu) and its plain
-PyTorch version.
+"""NoteRelease recurrence: CUDA kernels (csrc/note_release.cu,
+csrc/note_release_bwd.cu) and their plain PyTorch versions.
 
-Counterpart of ddsp_piano_tpu/kernels/gru_pallas.py note_release_scan
-(the front door) and note_release_reference (the plain scan).
+Counterpart of ddsp_piano_tpu/kernels/gru_pallas.py: note_release_scan
+(the front door), note_release_reference (the plain scan),
+note_release_scan_pallas_res (forward with the pre-update ``steps``
+stream) and note_release_scan_pallas_bwd (the reverse walk).
+
+Gradients follow JAX's conventions at the ties that real data hits
+(``steps`` counts whole frames and the threshold can be integral, so
+``steps - threshold`` lands on 0 and 1): d relu(u)/du = 0 at u = 0 and
+d min(r, 1)/dr = 0.5 at r = 1 (gru_pallas.py:533-538). Torch's autograd of
+``clamp`` has gradient 1 at both ties, so the gradient is written out
+(:func:`note_release_scan_plain_bwd`) and never taken from autograd.
 """
 
 from __future__ import annotations
@@ -15,55 +24,130 @@ from ddsp_piano_torch.device import tensor_device
 from ddsp_piano_torch.kernels import build
 
 
+def _sat_relu(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.clamp(x, min=0.0), max=1.0)
+
+
+def _note_release_step(note, prev, steps, thr):
+    activity = _sat_relu(note)
+    release_end = _sat_relu(steps - thr)
+    out = activity * note + (1.0 - activity) * prev * (1.0 - release_end)
+    new_steps = (steps + 1.0) * (1.0 - activity) * (1.0 - release_end)
+    return out, new_steps
+
+
+def note_release_scan_plain_res(active_pitch: torch.Tensor,
+                                threshold: torch.Tensor,
+                                state0: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """(T, B, 1) pitch, (1,) threshold in frames, (B, 2) state ->
+    ((T, B, 1) extended pitch, (B, 2) final state, (T, B) pre-update
+    steps).
+
+    Same operations in the same order as the kernels, so they agree bit
+    for bit."""
+    x = active_pitch[..., 0]
+    thr = threshold.reshape(())
+    prev = state0[:, 0]
+    steps = state0[:, 1]
+    outs, pre_steps = [], []
+    for t in range(x.shape[0]):
+        pre_steps.append(steps)
+        prev, steps = _note_release_step(x[t], prev, steps, thr)
+        outs.append(prev)
+    if not outs:
+        return (x[..., None].clone(), torch.stack([prev, steps], dim=-1),
+                x.clone())
+    return (torch.stack(outs)[..., None], torch.stack([prev, steps], dim=-1),
+            torch.stack(pre_steps))
+
+
 def note_release_scan_plain(active_pitch: torch.Tensor,
                             threshold: torch.Tensor,
                             state0: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(T, B, 1) pitch, (1,) threshold in frames, (B, 2) state ->
-    ((T, B, 1) extended pitch, (B, 2) final state).
+    ((T, B, 1) extended pitch, (B, 2) final state)."""
+    ys, state, _ = note_release_scan_plain_res(active_pitch, threshold,
+                                               state0)
+    return ys, state
 
-    Same operations in the same order as the kernel, so the two agree
-    bit for bit."""
+
+def sat_relu_mask(u: torch.Tensor) -> torch.Tensor:
+    """d/du of min(relu(u), 1) under JAX's conventions: 0 at u == 0, and
+    0.5 where relu(u) == 1 (gru_pallas.py:533-538)."""
+    r = torch.clamp(u, min=0.0)
+    inner = torch.where(r < 1.0, 1.0, torch.where(r == 1.0, 0.5, 0.0))
+    return torch.where(u > 0.0, inner, 0.0)
+
+
+def note_release_scan_plain_bwd(active_pitch: torch.Tensor,
+                                threshold: torch.Tensor,
+                                prev: torch.Tensor, steps: torch.Tensor,
+                                g_out: torch.Tensor, g_state: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """Reverse NoteRelease walk (gru_pallas.py:541-601).
+
+    active_pitch (T, B, 1); threshold (1,); prev and steps (T, B), the
+    pre-step held note and release count; g_out (T, B, 1) and g_state
+    (B, 2) the cotangents of the outputs. Returns (dx (T, B), per-lane
+    dthreshold (B,), dstate0 (B, 2)); the caller sums dthreshold over the
+    lanes."""
     x = active_pitch[..., 0]
+    g = g_out[..., 0]
     thr = threshold.reshape(())
-    prev = state0[:, 0]
-    steps = state0[:, 1]
-    outs = []
-    for t in range(x.shape[0]):
-        note = x[t]
-        activity = torch.clamp(torch.clamp(note, min=0.0), max=1.0)
-        release_end = torch.clamp(torch.clamp(steps - thr, min=0.0), max=1.0)
-        out = (activity * note
-               + (1.0 - activity) * prev * (1.0 - release_end))
-        steps = (steps + 1.0) * (1.0 - activity) * (1.0 - release_end)
-        prev = out
-        outs.append(out)
-    ys = torch.stack(outs)[..., None] if outs else x[..., None].clone()
-    return ys, torch.stack([prev, steps], dim=-1)
+    d_prev = g_state[:, 0]
+    d_steps = g_state[:, 1]
+    dthr = torch.zeros_like(d_prev)
+    dx = [None] * x.shape[0]
+    for t in range(x.shape[0] - 1, -1, -1):
+        note, p, s = x[t], prev[t], steps[t]
+        a = _sat_relu(note)
+        u_e = s - thr
+        e = _sat_relu(u_e)
+        mask_a = sat_relu_mask(note)
+        mask_e = sat_relu_mask(u_e)
+        one_a = 1.0 - a
+        one_e = 1.0 - e
+        g_o = g[t] + d_prev
+        g_n = d_steps
+        # out = a note + (1 - a) prev (1 - e); ns = (s + 1)(1 - a)(1 - e)
+        g_e = -(g_o * p + g_n * (s + 1.0)) * one_a
+        g_a = g_o * (note - p * one_e) - g_n * (s + 1.0) * one_e
+        dx[t] = g_o * a + g_a * mask_a
+        d_prev = g_o * one_a * one_e
+        d_steps = g_n * one_a * one_e + g_e * mask_e
+        dthr = dthr + g_e * (-mask_e)
+    dx = torch.stack(dx) if dx else x.clone()
+    return dx, dthr, torch.stack([d_prev, d_steps], dim=-1)
+
+
+def _check_inputs(what, active_pitch, threshold, state0):
+    if active_pitch.dim() != 3 or active_pitch.shape[-1] != 1:
+        raise ValueError(f"active_pitch must be (T, B, 1), got "
+                         f"{tuple(active_pitch.shape)}")
+    b = active_pitch.shape[1]
+    args = (active_pitch, threshold, state0)
+    if any(not a.is_cuda or a.dtype != torch.float32 for a in args):
+        raise ValueError(f"{what} takes float32 CUDA tensors")
+    if threshold.numel() != 1 or tuple(state0.shape) != (b, 2):
+        raise ValueError("threshold must have one element and state0 be "
+                         f"(B, 2); got {tuple(threshold.shape)}, "
+                         f"{tuple(state0.shape)}")
+    return (active_pitch.detach().contiguous(),
+            threshold.detach().contiguous(), state0.detach().contiguous())
 
 
 def note_release_scan_cuda(active_pitch: torch.Tensor,
                            threshold: torch.Tensor,
                            state0: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel on CUDA tensors; raises on anything it does not take."""
-    if active_pitch.dim() != 3 or active_pitch.shape[-1] != 1:
-        raise ValueError(f"active_pitch must be (T, B, 1), got "
-                         f"{tuple(active_pitch.shape)}")
-    t, b, _ = active_pitch.shape
-    args = (active_pitch, threshold, state0)
-    if any(not a.is_cuda or a.dtype != torch.float32 for a in args):
-        raise ValueError("note_release_scan_cuda takes float32 CUDA tensors")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        raise ValueError("note_release_scan_cuda is inference-only: its "
-                         "gradient kernel is not ported yet")
-    if threshold.numel() != 1 or tuple(state0.shape) != (b, 2):
-        raise ValueError("threshold must have one element and state0 be "
-                         f"(B, 2); got {tuple(threshold.shape)}, "
-                         f"{tuple(state0.shape)}")
-    x = active_pitch.contiguous()
-    thr = threshold.contiguous()
-    s0 = state0.contiguous()
+    """K3 on CUDA tensors; raises on anything it does not take."""
+    x, thr, s0 = _check_inputs('note_release_scan_cuda', active_pitch,
+                               threshold, state0)
+    t, b, _ = x.shape
     out = torch.empty((t, b, 1), dtype=torch.float32, device=x.device)
     state = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     lib = build.library('note_release')
@@ -75,10 +159,98 @@ def note_release_scan_cuda(active_pitch: torch.Tensor,
     return out, state
 
 
+def note_release_scan_res_cuda(active_pitch: torch.Tensor,
+                               threshold: torch.Tensor,
+                               state0: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """K6 (K3 plus the pre-update steps stream) on CUDA tensors."""
+    x, thr, s0 = _check_inputs('note_release_scan_res_cuda', active_pitch,
+                               threshold, state0)
+    t, b, _ = x.shape
+    out = torch.empty((t, b, 1), dtype=torch.float32, device=x.device)
+    state = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    steps = torch.empty((t, b), dtype=torch.float32, device=x.device)
+    lib = build.library('note_release_bwd')
+    code = lib.note_release_res_launch(
+        x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
+        state.data_ptr(), steps.data_ptr(), t, b,
+        build.stream_handle(x.device))
+    build.check(code, 'note_release_res_launch')
+    build.LAUNCHES['note_release_res'] += 1
+    return out, state, steps
+
+
+def note_release_scan_bwd_cuda(active_pitch: torch.Tensor,
+                               threshold: torch.Tensor,
+                               prev: torch.Tensor, steps: torch.Tensor,
+                               g_out: torch.Tensor, g_state: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """K7 on CUDA tensors: (dx (T, B), per-lane dthreshold (B,),
+    dstate0 (B, 2))."""
+    x, thr, gs = _check_inputs('note_release_scan_bwd_cuda', active_pitch,
+                               threshold, g_state)
+    t, b, _ = x.shape
+    streams = [prev, steps, g_out.reshape(t, b)]
+    if any(not a.is_cuda or a.dtype != torch.float32
+           or tuple(a.shape) != (t, b) for a in streams):
+        raise ValueError("note_release_scan_bwd_cuda: prev, steps and g_out "
+                         f"must be float32 CUDA tensors of ({t}, {b})")
+    p, s, g = (a.detach().contiguous() for a in streams)
+    dx = torch.empty((t, b), dtype=torch.float32, device=x.device)
+    dthr = torch.empty((b,), dtype=torch.float32, device=x.device)
+    dstate0 = torch.empty((b, 2), dtype=torch.float32, device=x.device)
+    lib = build.library('note_release_bwd')
+    code = lib.note_release_bwd_launch(
+        x.data_ptr(), thr.data_ptr(), p.data_ptr(), s.data_ptr(),
+        g.data_ptr(), gs.data_ptr(), dx.data_ptr(), dthr.data_ptr(),
+        dstate0.data_ptr(), t, b, build.stream_handle(x.device))
+    build.check(code, 'note_release_bwd_launch')
+    build.LAUNCHES['note_release_bwd'] += 1
+    return dx, dthr, dstate0
+
+
+class NoteReleaseScan(torch.autograd.Function):
+    """K6 forward (saving the steps stream) and K7 backward; on CPU tensors
+    their plain versions. Counterpart of gru_pallas.py _note_release_vjp."""
+
+    @staticmethod
+    def forward(ctx, active_pitch, threshold, state0):
+        if tensor_device(active_pitch, 'note_release_scan') == 'cuda':
+            out, final, steps = note_release_scan_res_cuda(
+                active_pitch, threshold, state0)
+        else:
+            out, final, steps = note_release_scan_plain_res(
+                active_pitch, threshold, state0)
+        ctx.save_for_backward(active_pitch, threshold, state0, out, steps)
+        return out, final
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        active_pitch, threshold, state0, out, steps = ctx.saved_tensors
+        # The held note entering each step: the outputs shifted by one.
+        prev = torch.cat([state0[None, :, 0], out[:-1, :, 0]], dim=0)
+        bwd = (note_release_scan_bwd_cuda
+               if tensor_device(active_pitch, 'note_release_scan') == 'cuda'
+               else note_release_scan_plain_bwd)
+        dx, dthr, dstate0 = bwd(active_pitch, threshold, prev, steps,
+                                g_out.contiguous(), g_state.contiguous())
+        # The cross-lane sum outside the kernel (gru_pallas.py:713-715).
+        return (dx[..., None], torch.sum(dthr).reshape(threshold.shape),
+                dstate0)
+
+
 def note_release_scan(active_pitch: torch.Tensor, threshold: torch.Tensor,
                       state0: torch.Tensor):
-    """Front door for models.sub_modules.NoteRelease (time-major): the
-    kernel for CUDA tensors, the plain version for CPU tensors."""
-    if tensor_device(active_pitch, 'note_release_scan') == 'cuda':
+    """Front door for models.sub_modules.NoteRelease (time-major). With
+    grad enabled and an input requiring it: the NoteReleaseScan Function
+    (K6 + K7 on CUDA). Otherwise K3 for CUDA tensors, the plain version for
+    CPU tensors."""
+    device = tensor_device(active_pitch, 'note_release_scan')
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (active_pitch, threshold, state0)):
+        return NoteReleaseScan.apply(active_pitch, threshold, state0)
+    if device == 'cuda':
         return note_release_scan_cuda(active_pitch, threshold, state0)
     return note_release_scan_plain(active_pitch, threshold, state0)

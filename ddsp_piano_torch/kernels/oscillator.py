@@ -1,11 +1,13 @@
-"""Skipping additive oscillator: CUDA kernel (csrc/oscillator_skip.cu) and
-its plain PyTorch version.
+"""Skipping additive oscillator: CUDA kernels (csrc/oscillator_skip.cu,
+csrc/oscillator_skip_bwd.cu) and their plain PyTorch versions.
 
 Counterpart of ddsp_piano_tpu/kernels/oscillator_pallas.py
-render_framewise_pallas_skip. The plain version is ops.oscillator's
-render_framewise with the kernel's trig ('poly'). Inference only: the
-gradient kernel (the TPU's render_framewise_pallas_skip_vjp) comes with the
-training slice, so the wrapper refuses CUDA inputs that require grad.
+render_framewise_pallas_skip (forward) and
+render_framewise_pallas_skip_vjp (backward), and of the custom_vjp that
+ties them together (ops/oscillator.py _render_skip_grad). The plain
+versions are ops.oscillator's render_framewise with the forward kernel's
+trig ('poly') and render_framewise_vjp with the backward kernel's
+('poly4', the TPU's gradient default when the forward runs 'poly').
 """
 
 from __future__ import annotations
@@ -17,9 +19,13 @@ import torch
 from ddsp_piano_torch.device import tensor_device
 from ddsp_piano_torch.kernels import build
 from ddsp_piano_torch.ops.oscillator import (FramewiseOscControls,
-                                             render_framewise, sample_tables)
+                                             gradient_tables,
+                                             render_framewise,
+                                             render_framewise_vjp,
+                                             sample_tables)
 
 TRIG = 'poly'
+TRIG_BWD = 'poly4'
 
 
 def render_framewise_plain(controls: FramewiseOscControls, upsampling: int,
@@ -27,10 +33,17 @@ def render_framewise_plain(controls: FramewiseOscControls, upsampling: int,
     return render_framewise(controls, upsampling, sample_rate, trig=TRIG)
 
 
+def render_framewise_vjp_plain(controls: FramewiseOscControls,
+                               g: torch.Tensor, upsampling: int,
+                               sample_rate: int) -> FramewiseOscControls:
+    return render_framewise_vjp(controls, g, upsampling, sample_rate,
+                                trig=TRIG_BWD)
+
+
 def active_partials(controls: FramewiseOscControls,
                     sample_rate: int) -> torch.Tensor:
     """(b, n_frames) one past each frame's last active partial: the
-    kernel's loop bound, with the TPU kernel's activity predicate."""
+    forward kernel's loop bound, with the TPU kernel's activity predicate."""
     f_lo, f_hi, a_lo, a_hi, _ = controls
     active = ((torch.minimum(f_lo, f_hi) < sample_rate / 2.0)
               & ((a_lo != 0.0) | (a_hi != 0.0)))
@@ -38,10 +51,18 @@ def active_partials(controls: FramewiseOscControls,
     return torch.amax(torch.where(active, k_idx, 0), dim=-1)
 
 
-def render_framewise_skip_cuda(controls: FramewiseOscControls,
-                               upsampling: int,
-                               sample_rate: int) -> torch.Tensor:
-    """The kernel on CUDA tensors; raises on anything it does not take."""
+def audible_partials(controls: FramewiseOscControls,
+                     sample_rate: int) -> torch.Tensor:
+    """(b, n_frames) one past each frame's last partial below Nyquist: the
+    backward kernel's loop bound (Nyquist only, oscillator_pallas.py:
+    496-501: a silent partial still has amplitude gradients)."""
+    f_lo, f_hi = controls.f_lo, controls.f_hi
+    audible = torch.minimum(f_lo, f_hi) < sample_rate / 2.0
+    k_idx = torch.arange(1, f_lo.shape[-1] + 1, device=f_lo.device)
+    return torch.amax(torch.where(audible, k_idx, 0), dim=-1)
+
+
+def _check_controls(what, controls):
     shape = tuple(controls.f_lo.shape)
     if len(shape) != 3:
         raise ValueError(f"controls must be (B, n_frames, K), got {shape}")
@@ -49,19 +70,23 @@ def render_framewise_skip_cuda(controls: FramewiseOscControls,
         if (not c.is_cuda or c.dtype != torch.float32
                 or tuple(c.shape) != shape
                 or c.device != controls.f_lo.device):
-            raise ValueError("render_framewise_skip_cuda takes five float32 "
-                             f"CUDA tensors of one shape {shape}")
-        if torch.is_grad_enabled() and c.requires_grad:
-            raise ValueError("render_framewise_skip_cuda is inference-only: "
-                             "its gradient kernel is not ported yet")
-    b, n_frames, k = shape
+            raise ValueError(f"{what} takes five float32 CUDA tensors of one "
+                             f"shape {shape}")
+    return shape
+
+
+def render_framewise_skip_cuda(controls: FramewiseOscControls,
+                               upsampling: int,
+                               sample_rate: int) -> torch.Tensor:
+    """K1 on CUDA tensors; raises on anything it does not take."""
+    b, n_frames, k = _check_controls('render_framewise_skip_cuda', controls)
     up = int(upsampling)
     if 4 * up > 1024:
         raise ValueError(f"render_framewise_skip_cuda takes up <= 256, got "
                          f"{up}")
     device = controls.f_lo.device
     table = torch.stack(sample_tables(up, device)).contiguous()   # (4, up)
-    parts = [c.contiguous() for c in controls]
+    parts = [c.detach().contiguous() for c in controls]
     out = torch.empty((b, n_frames * up), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
@@ -75,10 +100,78 @@ def render_framewise_skip_cuda(controls: FramewiseOscControls,
     return out
 
 
+def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
+                                   g: torch.Tensor, upsampling: int,
+                                   sample_rate: int) -> FramewiseOscControls:
+    """K4 on CUDA tensors: the five control gradients from the audio
+    cotangent g (B, n_frames * up)."""
+    b, n_frames, k = _check_controls('render_framewise_skip_bwd_cuda',
+                                     controls)
+    up = int(upsampling)
+    device = controls.f_lo.device
+    if (not g.is_cuda or g.dtype != torch.float32
+            or tuple(g.shape) != (b, n_frames * up)):
+        raise ValueError("render_framewise_skip_bwd_cuda: g must be a "
+                         f"float32 CUDA tensor of ({b}, {n_frames * up})")
+    if k > 1024:
+        raise ValueError(f"render_framewise_skip_bwd_cuda takes K <= 1024 "
+                         f"partials, got {k}")
+    h, tri, s1, s_frac = sample_tables(up, device)
+    _, _, w_flo, w_fhi = gradient_tables(up, sample_rate, device)
+    table = torch.stack([h, tri, s1, s_frac, w_flo, w_fhi]).contiguous()
+    parts = [c.detach().contiguous() for c in controls]
+    g_c = g.detach().contiguous()
+    grads = torch.empty((5, b, n_frames, k), dtype=torch.float32,
+                        device=device)
+    if grads.numel() == 0:
+        return FramewiseOscControls(*grads)
+    lib = build.library('oscillator_skip_bwd')
+    code = lib.osc_skip_bwd_launch(
+        *(p.data_ptr() for p in parts), g_c.data_ptr(), table.data_ptr(),
+        grads.data_ptr(), b, n_frames, k, up,
+        2.0 * math.pi / float(sample_rate), float(sample_rate) / 2.0,
+        build.stream_handle(device))
+    build.check(code, 'osc_skip_bwd_launch')
+    build.LAUNCHES['oscillator_skip_bwd'] += 1
+    return FramewiseOscControls(*grads)
+
+
+class RenderFramewiseSkip(torch.autograd.Function):
+    """K1 forward and K4 backward; on CPU tensors their plain versions.
+    The five controls are the only residual (ops/oscillator.py:485-495)."""
+
+    @staticmethod
+    def forward(ctx, upsampling, sample_rate, *controls):
+        controls = FramewiseOscControls(*controls)
+        if tensor_device(controls.f_lo, 'render_framewise_skip') == 'cuda':
+            audio = render_framewise_skip_cuda(controls, upsampling,
+                                               sample_rate)
+        else:
+            audio = render_framewise_plain(controls, upsampling, sample_rate)
+        ctx.save_for_backward(*controls)
+        ctx.upsampling, ctx.sample_rate = upsampling, sample_rate
+        return audio
+
+    @staticmethod
+    def backward(ctx, g):
+        controls = FramewiseOscControls(*ctx.saved_tensors)
+        bwd = (render_framewise_skip_bwd_cuda
+               if tensor_device(controls.f_lo,
+                                'render_framewise_skip') == 'cuda'
+               else render_framewise_vjp_plain)
+        grads = bwd(controls, g.contiguous(), ctx.upsampling,
+                    ctx.sample_rate)
+        return (None, None) + tuple(grads)
+
+
 def render_framewise_skip(controls: FramewiseOscControls, upsampling: int,
                           sample_rate: int) -> torch.Tensor:
-    """Front door for processors.inharm: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
-    if tensor_device(controls.f_lo, 'render_framewise_skip') == 'cuda':
+    """Front door for processors.inharm. With grad enabled and a control
+    requiring it: the RenderFramewiseSkip Function (K1 + K4 on CUDA).
+    Otherwise K1 for CUDA tensors, the plain version for CPU tensors."""
+    device = tensor_device(controls.f_lo, 'render_framewise_skip')
+    if torch.is_grad_enabled() and any(c.requires_grad for c in controls):
+        return RenderFramewiseSkip.apply(upsampling, sample_rate, *controls)
+    if device == 'cuda':
         return render_framewise_skip_cuda(controls, upsampling, sample_rate)
     return render_framewise_plain(controls, upsampling, sample_rate)

@@ -1,4 +1,4 @@
-"""Piano model (counterpart of ddsp_piano_tpu/models), inference path."""
+"""Piano model and its losses (counterpart of ddsp_piano_tpu/models)."""
 
 from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
 from ddsp_piano_torch.models.piano_model import PianoModel

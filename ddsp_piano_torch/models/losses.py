@@ -1,0 +1,71 @@
+"""Training losses.
+
+Counterpart of ddsp_piano_tpu/models/losses.py:13-82 (Loss and
+SpectralLoss, the v2 loss). ReverbRegularizer, InharmonicityLoss and
+LoudnessLoss come with the dafx22 slice.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from ddsp_piano_torch.ops import spectral
+
+
+class Loss:
+    """A named loss computed from the model outputs dict."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def compute(self, outputs: dict) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class SpectralLoss(Loss):
+    """Multi-resolution STFT loss between outputs['audio'] (the target) and
+    a selected output key."""
+
+    def __init__(self,
+                 output_key: str = 'audio_synth',
+                 extract_signal: bool = False,
+                 fft_sizes: Sequence[int] = (2048, 1024, 512, 256, 128, 64),
+                 loss_type: str = 'L1',
+                 mag_weight: float = 1.0,
+                 logmag_weight: float = 0.0,
+                 delta_time_weight: float = 0.0,
+                 delta_freq_weight: float = 0.0,
+                 cumsum_freq_weight: float = 0.0,
+                 loudness_weight: float = 0.0,
+                 sample_rate: int = 16000,
+                 name: str = 'audio_stft_loss'):
+        super().__init__(name=name)
+        self.output_key = output_key
+        self.extract_signal = extract_signal
+        self.fft_sizes = tuple(fft_sizes)
+        self.loss_type = loss_type
+        self.mag_weight = mag_weight
+        self.logmag_weight = logmag_weight
+        self.delta_time_weight = delta_time_weight
+        self.delta_freq_weight = delta_freq_weight
+        self.cumsum_freq_weight = cumsum_freq_weight
+        self.loudness_weight = loudness_weight
+        self.sample_rate = sample_rate
+
+    def compute(self, outputs):
+        audio_synth = outputs[self.output_key]
+        if self.extract_signal:
+            audio_synth = audio_synth['signal']
+        return spectral.multi_scale_spectral_loss(
+            outputs['audio'], audio_synth,
+            fft_sizes=self.fft_sizes,
+            loss_type=self.loss_type,
+            mag_weight=self.mag_weight,
+            logmag_weight=self.logmag_weight,
+            delta_time_weight=self.delta_time_weight,
+            delta_freq_weight=self.delta_freq_weight,
+            cumsum_freq_weight=self.cumsum_freq_weight,
+            loudness_weight=self.loudness_weight,
+            sample_rate=self.sample_rate)

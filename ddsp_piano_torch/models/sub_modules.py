@@ -29,10 +29,11 @@ def _collapse_last_axis(x: torch.Tensor) -> torch.Tensor:
 
 
 def _norm_conditioning(conditioning: torch.Tensor) -> torch.Tensor:
-    """Scale (..., 2) pitch/velocity pairs by [1/128, 1]."""
-    scale = torch.tensor([1.0 / MIDI_NORM, 1.0], dtype=torch.float32,
-                         device=conditioning.device)
-    return conditioning * scale
+    """Scale (..., 2) pitch/velocity pairs by [1/128, 1]. 1/128 is exact,
+    so this is the JAX package's product, without a host-to-device copy of
+    the scale (which would synchronise the stream)."""
+    return torch.cat([conditioning[..., :1] * (1.0 / MIDI_NORM),
+                      conditioning[..., 1:]], dim=-1)
 
 
 class FiLMContextNetwork(nn.DictModule):
@@ -82,9 +83,10 @@ class MultiInstrumentFeedbackDelayReverb(nn.DictModule):
                    '_early_ir')
 
     def __init__(self, n_instruments=10, sample_rate=16000, delay_lines=8,
-                 early_ir_length=200):
+                 early_ir_length=200, regularize_early=False):
         super().__init__()
         self.n_instruments = n_instruments
+        self.regularize_early = regularize_early
 
         def emb(width, mean, std):
             return nn.Embedding(n_instruments, width,
@@ -106,6 +108,14 @@ class MultiInstrumentFeedbackDelayReverb(nn.DictModule):
     def _reshape_embedding(e, splits=4):
         """(b, 4n) -> (b, n, 4): chunk the last axis, chunk index last."""
         return torch.stack(torch.chunk(e, splits, dim=-1), dim=-1)
+
+    def regularization(self) -> torch.Tensor:
+        """L1 penalty on the early IR embeddings when regularize_early
+        (sub_modules.py:367-370), else 0."""
+        emb = self._early_ir.embeddings
+        if not self.regularize_early:
+            return emb.new_zeros(())
+        return 1e-1 * torch.sum(torch.abs(emb))
 
     def forward(self, piano_model):
         if self.n_instruments == 1:

@@ -1,5 +1,6 @@
 """Core signal ops: the subset of ddsp_piano_tpu/ops/core.py the v2 render
-calls (core.py:31-136). Resampling is not on that path and is not ported.
+and its training loss call (core.py:31-136, 201-211). Resampling is not on
+that path and is not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +52,24 @@ def safe_divide(numerator, denominator, eps=1e-7):
     safe = torch.where(denominator == 0.0,
                        torch.full_like(denominator, eps), denominator)
     return numerator / safe
+
+
+def safe_log(x, eps=1e-5) -> torch.Tensor:
+    """log(x) with x <= eps replaced by eps: the gradient is zero there
+    (a ``where``, not a clamp, as core.py:87-89)."""
+    return torch.log(torch.where(x <= eps, torch.full_like(x, eps), x))
+
+
+def hann_window(window_length: int, periodic: bool = True,
+                device=None) -> torch.Tensor:
+    """tf.signal.hann_window: the raised-cosine denominator is
+    L + periodic * (1 - L % 2) - 1 (core.py:201-211). Evaluated in float64
+    and rounded once, so every device gets the same window."""
+    if window_length == 1:
+        return torch.ones((1,), dtype=torch.float32, device=device)
+    denom = window_length + (1 - window_length % 2 if periodic else 0) - 1
+    n = torch.arange(window_length, dtype=torch.float64, device=device)
+    return (0.5 - 0.5 * torch.cos(_2PI * n / denom)).float()
 
 
 def remove_above_nyquist(frequency_envelopes, amplitude_envelopes,

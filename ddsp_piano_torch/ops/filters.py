@@ -180,6 +180,32 @@ def _linmap_mm_constants(frame_size: int, n_bands: int, window_size: int,
     return w2, b2, inv2
 
 
+@functools.lru_cache(maxsize=None)
+def _linmap_device_constants(frame_size: int, n_bands: int, window_size: int,
+                             fft_size: int, use_mm: bool,
+                             device: torch.device):
+    """The linmap path's float32 constants, copied to ``device`` once: a
+    copy from pageable host memory synchronises the stream. They are made
+    outside inference mode, so that a render under inference_mode does not
+    leave tensors that a later training step cannot save for backward."""
+    with torch.inference_mode(False):
+        return _linmap_constants_on(frame_size, n_bands, window_size,
+                                    fft_size, use_mm, device)
+
+
+def _linmap_constants_on(frame_size, n_bands, window_size, fft_size, use_mm,
+                         device):
+    if use_mm:
+        mats = _linmap_mm_constants(frame_size, n_bands, window_size,
+                                    fft_size)
+    else:
+        basis = np_ir_basis(n_bands, window_size).astype(np.float64)
+        basis_fft = np.fft.rfft(basis, n=fft_size, axis=-1)
+        mats = (basis_fft.real.astype(np.float32),
+                basis_fft.imag.astype(np.float32))
+    return tuple(torch.from_numpy(m).to(device) for m in mats)
+
+
 def _frequency_filter_linmap(audio: torch.Tensor, magnitudes: torch.Tensor,
                              window_size: int, padding: str) -> torch.Tensor:
     """Framed time-varying filtering with the IR spectra as one matmul of
@@ -200,10 +226,10 @@ def _frequency_filter_linmap(audio: torch.Tensor, magnitudes: torch.Tensor,
     audio_frames = torch.nn.functional.pad(audio, (0, pad)).reshape(
         batch, n_frames, frame_size)
 
+    constants = _linmap_device_constants(frame_size, n_bands, window_size,
+                                         fft_size, use_mm, dev)
     if use_mm:
-        w2, b2, inv2 = (torch.from_numpy(m).to(dev) for m in
-                        _linmap_mm_constants(frame_size, n_bands,
-                                             window_size, fft_size))
+        w2, b2, inv2 = constants
         a2 = torch.matmul(audio_frames, w2)
         i2 = torch.matmul(mags, b2)
         n_freqs = fft_size // 2 + 1
@@ -213,10 +239,7 @@ def _frequency_filter_linmap(audio: torch.Tensor, magnitudes: torch.Tensor,
                         a_re * ir_im + a_im * ir_re], dim=-1)
         out_frames = torch.matmul(p2, inv2)
     else:
-        basis_fft = np.fft.rfft(basis.astype(np.float64), n=fft_size,
-                                axis=-1)
-        b_re = torch.from_numpy(basis_fft.real.astype(np.float32)).to(dev)
-        b_im = torch.from_numpy(basis_fft.imag.astype(np.float32)).to(dev)
+        b_re, b_im = constants
         ir_fft = torch.complex(torch.matmul(mags, b_re),
                                torch.matmul(mags, b_im))
         audio_fft = torch.fft.rfft(audio_frames, n=fft_size, dim=-1)

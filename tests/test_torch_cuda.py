@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-Every test here needs an NVIDIA GPU and skips without one (a CUDA kernel
-has no CPU mode). This file imports no JAX, so it also runs on a machine
+K1-K3 (forward) and K4-K7 (gradients), each with its launch counter, and
+each autograd Function on CUDA tensors against the same Function on CPU
+tensors (its plain versions). Every test here needs an NVIDIA GPU and
+skips without one (a CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on a machine
 without it; tests/conftest.py imports JAX, so run it there as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -80,3 +82,131 @@ def test_note_release_kernel_bit_exact(cuda_device):
     want, want_state = tnr.note_release_scan_plain(x, thr, s0)
     assert torch.equal(got, want) and torch.equal(got_state, want_state)
     assert build.LAUNCHES['note_release'] == 1
+
+
+def _osc_controls(device, b=4, n_frames=60, seed=2):
+    rng = np.random.RandomState(seed)
+    f0 = rng.uniform(20, 9000, (b, n_frames, 1)).astype(np.float32)
+    f0[0, :20] = 0.0
+    freqs = f0 * np.arange(1, 129, dtype=np.float32)
+    amps = rng.rand(b, n_frames, 128).astype(np.float32)
+    amps[0, :20] = 0.0
+    return tosc.framewise_osc_controls(_t(freqs, device), _t(amps, device),
+                                       96, 24000)
+
+
+@pytest.mark.cuda
+def test_oscillator_bwd_kernel_matches_plain(cuda_device):
+    controls = _osc_controls(cuda_device)
+    g = _t(np.random.RandomState(3).randn(4, 60 * 96), cuda_device)
+    build.reset_launches()
+    got = tosck.render_framewise_skip_bwd_cuda(controls, g, 96, 24000)
+    want = tosck.render_framewise_vjp_plain(controls, g, 96, 24000)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['oscillator_skip_bwd'] == 1
+    for name, a, w in zip(controls._fields, got, want):
+        # Same terms bit for bit (--fmad=false); the 96-sample sums in
+        # another order: 1e-5 of each gradient's peak.
+        scale = w.abs().max().item()
+        assert (a - w).abs().max().item() <= 1e-5 * scale, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('u,B', [(64, 6), (192, 16)])
+def test_gru_bwd_kernel_matches_plain(cuda_device, u, B):
+    rng = np.random.RandomState(u)
+    x_proj = _t(0.5 * rng.randn(70, B, 3 * u), cuda_device)
+    rec = _t(np.linalg.qr(rng.randn(3 * u, u))[0].T, cuda_device)
+    bias = _t(0.1 * rng.randn(3 * u), cuda_device)
+    h0 = _t(0.5 * rng.randn(B, u), cuda_device)
+    g = _t(rng.randn(70, B, u), cuda_device)
+    hs = tgru.gru_scan_plain(x_proj, rec, bias, h0)
+    build.reset_launches()
+    got = tgru.gru_scan_bwd_cuda(x_proj, rec, bias, h0, hs, g)
+    want = tgru.gru_scan_plain_bwd(x_proj, rec, bias, h0, hs, g)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['gru_scan_bwd'] == 1
+    for name, a, w in zip(('dxz', 'dxr', 'dxh', 'drh', 'dh0'), got, want):
+        # expf/tanhf and dot-product order over 70 steps: 1e-5 of each
+        # stream's peak.
+        assert (a - w).abs().max().item() <= 1e-5 * max(
+            1.0, w.abs().max().item()), name
+
+
+@pytest.mark.cuda
+def test_note_release_res_and_bwd_kernels_bit_exact(cuda_device):
+    x = np.zeros((700, 16, 1), np.float32)
+    x[10:60, :, 0] = 60.0
+    x[400:430, ::2, 0] = 48.0
+    x[5:40, 1, 0] = 1.0
+    x = _t(x, cuda_device)
+    thr = torch.tensor([275.0], device=cuda_device)   # integral: ties
+    s0 = torch.zeros(16, 2, device=cuda_device)
+    s0[3] = torch.tensor([50.0, 270.0])
+    rng = np.random.RandomState(4)
+    g_out = _t(rng.randn(700, 16, 1), cuda_device)
+    g_state = _t(rng.randn(16, 2), cuda_device)
+    build.reset_launches()
+    got = tnr.note_release_scan_res_cuda(x, thr, s0)
+    want = tnr.note_release_scan_plain_res(x, thr, s0)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    u = want[2] - 275.0
+    assert bool((u == 0).any()) and bool((u == 1).any())
+    prev = torch.cat([s0[None, :, 0], want[0][:-1, :, 0]], dim=0)
+    got = tnr.note_release_scan_bwd_cuda(x, thr, prev, want[2], g_out,
+                                         g_state)
+    want = tnr.note_release_scan_plain_bwd(x, thr, prev, want[2], g_out,
+                                           g_state)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert build.LAUNCHES['note_release_res'] == 1
+    assert build.LAUNCHES['note_release_bwd'] == 1
+
+
+def _both_devices(arrays, device):
+    cpu = [torch.from_numpy(np.asarray(a, np.float32)).requires_grad_()
+           for a in arrays]
+    gpu = [a.detach().to(device).requires_grad_() for a in cpu]
+    return cpu, gpu
+
+
+def _assert_function_agrees(fn, arrays, cotangents, device, tol):
+    """fn's outputs and input gradients on CUDA (the kernels) against the
+    CPU (the plain versions); tol is a share of each tensor's peak."""
+    cpu, gpu = _both_devices(arrays, device)
+    outs = []
+    for inputs in (cpu, gpu):
+        out = fn(*inputs)
+        out = out if isinstance(out, tuple) else (out,)
+        cts = [torch.from_numpy(np.asarray(c, np.float32)).to(o.device)
+               for c, o in zip(cotangents, out)]
+        grads = torch.autograd.grad(out, inputs, cts)
+        outs.append([o.detach().cpu() for o in out + grads])
+    for i, (a, w) in enumerate(zip(outs[1], outs[0])):
+        err = (a - w).abs().max().item()
+        assert err <= tol * max(w.abs().max().item(), 1e-6), (i, err)
+
+
+@pytest.mark.cuda
+def test_functions_on_cuda_match_cpu(cuda_device):
+    rng = np.random.RandomState(9)
+    # NoteRelease: K6 + K7 against the plain pair: bit for bit but for the
+    # threshold gradient's sum over lanes, taken in two orders (1e-6).
+    x = np.zeros((300, 8, 1), np.float32)
+    x[5:60, :, 0] = 64.0
+    _assert_function_agrees(
+        tnr.note_release_scan, [x, [40.0], np.zeros((8, 2))],
+        [rng.randn(300, 8, 1), rng.randn(8, 2)], cuda_device, 1e-6)
+    # GRU: K2 + K5 (then the weight contractions) against the plain pair.
+    u, B, T = 64, 4, 40
+    _assert_function_agrees(
+        tgru.gru_scan,
+        [0.5 * rng.randn(T, B, 3 * u), 0.3 * rng.randn(u, 3 * u),
+         0.1 * rng.randn(3 * u), 0.5 * rng.randn(B, u)],
+        [rng.randn(T, B, u)], cuda_device, 1e-5)
+    # Oscillator: K1 + K4 against the plain pair.
+    controls = _osc_controls('cpu', b=2, n_frames=20)
+    _assert_function_agrees(
+        lambda *c: tosck.render_framewise_skip(
+            tosc.FramewiseOscControls(*c), 96, 24000),
+        [c.numpy() for c in controls], [rng.randn(2, 20 * 96)],
+        cuda_device, 1e-5)

@@ -31,7 +31,7 @@ bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'ddsp_piano_tpu'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 25, names
+assert len(names) >= 31, names
 """
 
 
@@ -60,15 +60,32 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take():
-    from ddsp_piano_torch.kernels import gru, note_release
+    from ddsp_piano_torch.kernels import gru, note_release, oscillator
+    from ddsp_piano_torch.ops.oscillator import FramewiseOscControls
 
     x = torch.zeros(4, 2, 1)
+    for wrapper in (note_release.note_release_scan_cuda,
+                    note_release.note_release_scan_res_cuda):
+        with pytest.raises(ValueError, match='CUDA'):
+            wrapper(x, torch.ones(1), torch.zeros(2, 2))
     with pytest.raises(ValueError, match='CUDA'):
-        note_release.note_release_scan_cuda(x, torch.ones(1),
-                                            torch.zeros(2, 2))
+        note_release.note_release_scan_bwd_cuda(
+            x, torch.ones(1), torch.zeros(4, 2), torch.zeros(4, 2), x,
+            torch.zeros(2, 2))
+    gru_args = (torch.zeros(3, 2, 12), torch.zeros(4, 12), torch.zeros(12),
+                torch.zeros(2, 4))
     with pytest.raises(ValueError, match='CUDA'):
-        gru.gru_scan_cuda(torch.zeros(3, 2, 12), torch.zeros(4, 12),
-                          torch.zeros(12), torch.zeros(2, 4))
+        gru.gru_scan_cuda(*gru_args)
+    with pytest.raises(ValueError, match='CUDA'):
+        gru.gru_scan_bwd_cuda(*gru_args, torch.zeros(3, 2, 4),
+                              torch.zeros(3, 2, 4))
+    controls = FramewiseOscControls(*(torch.zeros(1, 2, 8)
+                                      for _ in range(5)))
+    with pytest.raises(ValueError, match='CUDA'):
+        oscillator.render_framewise_skip_cuda(controls, 96, 24000)
+    with pytest.raises(ValueError, match='CUDA'):
+        oscillator.render_framewise_skip_bwd_cuda(
+            controls, torch.zeros(1, 192), 96, 24000)
 
 
 @pytest.mark.parametrize('alone', [False, True], ids=['repo', 'alone'])

@@ -19,27 +19,45 @@ non-zero exit code and no result line:
    call.
 4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
    at full width on ``cuda``, with every launch counter set to 0 just
-   before and read just after; K1-K3 must have launched.
+   before and read just after; K1-K3 must have launched. Each launch is
+   then held against its plain version on the card at the inputs the run
+   gave it, and timed.
 5. The same 3 s segment on the card, against the CPU render of phase 3
    (same initial weights, same injected noise).
-6. Teacher data: ``synthesize_midi_file.main`` renders all of demo.mid
+6. dafx22 kernels: the 3 s segment through the dafx22 model (16 kHz, 96
+   harmonics x 2 substrings) on the CPU plain path, recording the
+   oscillator's inputs; the all-partials oscillator (K8) and the skipping
+   one (K1) are each held against their plain versions on the card at
+   those inputs, K8 against K1, and both are timed with K8's plain
+   version and library yardstick.
+7. The dafx22 render path: ``synthesize_midi_file.main -c dafx22``
+   renders 10 s of demo.mid on ``cuda`` twice, with the default
+   oscillator and with ``--oscillator full``, every launch counter set to
+   0 just before each run and read just after: the first must launch K1,
+   K2 and K3 and not K8, the second K8, K2 and K3 and not K1; the two
+   renders must agree. Each launch is held against its plain version at
+   the inputs the run gave it, and K8's row of the kernel line (error,
+   times, bound) is taken at the full run's oscillator inputs, as in
+   phase 6.
+8. The dafx22 segment on the card against its CPU render of phase 6.
+9. Teacher data: ``synthesize_midi_file.main`` renders all of demo.mid
    (weights seed 0) to a 24 kHz wav, and a mini-MAESTRO (csv with a train
    and a validation row, the MIDI and the wav) is written under
    build/chip_smoke/mini_maestro/.
-7. One full-width training step (batch 6, 3 s) on ``cuda``, recording the
+10. One full-width training step (batch 6, 3 s) on ``cuda``, recording the
    inputs of the gradient kernels (K4-K7) inside their autograd
    Functions; each is held against its plain version on the card at those
    inputs and timed beside its plain version and its library yardstick.
-8. The training path: ``train_single_phase.main`` trains maestro_v2
+11. The training path: ``train_single_phase.main`` trains maestro_v2
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
    be finite. Prints the step time and its parts, then a torch.profiler
    view of three more steps: the device's busy share and the operators
    with the most device and host time.
-9. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+12. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise).
-10. One JSON line of kernel numbers, then the result line.
+13. One JSON line of kernel numbers, then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO and the training
 run's checkpoints go to build/ in the checkout.
@@ -92,6 +110,10 @@ SLICE_TOL = 1.1e-4
 # recurrence. NoteRelease: bit-exact.
 OSC_TOL = 1e-5                 # share of peak
 GRU_TOL = 1e-5                 # absolute (|h| < 1)
+# K8 against K1, and the dafx22 render with one against the other: the
+# degree-6 polynomial against the native cosine and another order of the
+# sum (tests/test_oscillator.py:190), a share of peak.
+K8_K1_TOL = 1e-4
 # Gradient kernels against their plain versions on the card: the
 # oscillator backward computes the plain VJP's terms bit for bit and sums
 # the 96 samples of a frame in another order (share of each gradient's
@@ -114,6 +136,10 @@ STEP_MIN_COSINE = 0.999
 OSC_FLOPS_PER_TERM = 34        # per live (partial, sample): phase 6,
 #   crossfade 3, frequency 2, mask 1, range reduction 8, polynomial 12,
 #   multiply-accumulate 2
+OSC_FULL_FLOPS_PER_TERM = 33   # per (partial, sample), all computed:
+#   phase 6, crossfade 3, frequency 2, mask 1, multiply-accumulate 2, and
+#   cosf's fast path 19 (product by 2/pi, rounding, three-part reduction
+#   6, degree-4 polynomial in r^2 9, sign 1)
 GRU_GATE_FLOPS_PER_UNIT = 17   # per (step, row, unit), besides h U + b
 NR_FLOPS_PER_STEP = 14         # per (step, lane)
 OSC_BWD_FLOPS_PER_TERM = 50    # per computed (partial, sample): phase 5,
@@ -202,6 +228,8 @@ def build_kernels():
 FRONT_DOORS = (
     ('ddsp_piano_torch.processors.inharm', 'render_framewise_skip',
      'oscillator_skip'),
+    ('ddsp_piano_torch.processors.inharm', 'render_framewise_full',
+     'oscillator_full'),
     ('ddsp_piano_torch.nn.layers', 'gru_scan', 'gru_scan'),
     ('ddsp_piano_torch.models.sub_modules', 'note_release_scan',
      'note_release'),
@@ -224,7 +252,7 @@ TRAIN_KERNELS = ('oscillator_skip', 'gru_scan', 'oscillator_skip_bwd',
                  'gru_scan_bwd', 'note_release_res', 'note_release_bwd')
 
 
-def segment_inputs(device):
+def segment_inputs(device, upsampling):
     from ddsp_piano_torch.data.io import load_midi_as_conditioning
 
     inputs = load_midi_as_conditioning(DEMO_MIDI,
@@ -235,7 +263,7 @@ def segment_inputs(device):
         'pedal': torch.from_numpy(inputs['pedal']).to(device),
         'piano_model': torch.tensor([[PIANO_TYPE]], device=device),
     }
-    n_samples = inputs['conditioning'].shape[1] * 96
+    n_samples = inputs['conditioning'].shape[1] * upsampling
     noise = 2.0 * torch.rand((16, n_samples), generator=torch.Generator(
         ).manual_seed(SEED + 1)) - 1.0
     return features, noise.to(device)
@@ -282,14 +310,15 @@ def capturing(capture, doors=FRONT_DOORS):
             setattr(module, attr, original)
 
 
-def render_segment(device, capture=None):
+def render_segment(device, capture=None, config='maestro_v2'):
     """The 3 s segment through the port's model on ``device``, recording
     the kernel front doors' inputs in ``capture``."""
     from ddsp_piano_torch.configs import get_model
 
-    model = get_model('maestro_v2', inference=True, duration=SEGMENT_SECONDS,
+    model = get_model(config, inference=True, duration=SEGMENT_SECONDS,
                       device=device, seed=SEED)
-    features, noise = segment_inputs(device)
+    features, noise = segment_inputs(
+        device, model.sample_rate // model.frame_rate)
     with capturing(capture), torch.inference_mode():
         outs = model(features, noise=noise)
     outs['wet'] = outs['audio_synth'][0]
@@ -322,32 +351,97 @@ def check_oscillator(calls):
         if not (np.isfinite(err) and err <= OSC_TOL * peak):
             fail(f"oscillator kernel differs from its plain version: "
                  f"{err} > {OSC_TOL} x peak {peak}")
-        f_lo, f_hi, a_lo, a_hi, phase0 = controls
-        live = ((torch.minimum(f_lo, f_hi) < sr / 2.0)
-                & ((a_lo != 0) | (a_hi != 0))).sum().item()
-        # The library yardstick: torch.cos of the materialised phases,
-        # times the amplitudes, summed over partials.
-        s = torch.arange(up, device=DEV, dtype=torch.float32)
-        h = (torch.sin((np.pi / (2.0 * up)) * s) ** 2)[None, None, :, None]
-        s = s[None, None, :, None]
-        df = (f_hi - f_lo)[:, :, None, :]
-        tri = s * (s + 1.0) * (0.5 / up)
-        phase = phase0[:, :, None, :] + (2.0 * np.pi / sr) * (
-            (s + 1.0) * f_lo[:, :, None, :] + df * tri)
-        amp = (a_lo[:, :, None, :] * (1.0 - h) + a_hi[:, :, None, :] * h) * (
-            f_lo[:, :, None, :] + df * (s / up) < sr / 2.0)
         ms = median_ms(lambda: kosc.render_framewise_skip_cuda(controls, up,
                                                               sr))
         plain_ms = median_ms(lambda: kosc.render_framewise_plain(controls, up,
                                                                  sr))
-        library_ms = median_ms(lambda: torch.sum(amp * torch.cos(phase), -1))
-        del phase, amp
-    flops = OSC_FLOPS_PER_TERM * live * up
-    nbytes = 4 * (5 * b * n_frames * k + b * n_frames * up)
-    bound_ms, bound_by = bound(flops, nbytes)
-    detail = (f"controls 5 x {tuple(f_lo.shape)}, live partials "
-              f"{live}/{f_lo.numel()}")
+        library_ms = library_osc_ms(controls, up, sr)
+    live = live_cells(controls, sr)
+    bound_ms, bound_by = osc_bound(OSC_FLOPS_PER_TERM * live * up, controls,
+                                   up)
+    detail = (f"controls 5 x {(b, n_frames, k)}, live partials "
+              f"{live}/{controls.f_lo.numel()}")
     return dict(name='oscillator_skip', max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by), detail
+
+
+def library_osc_ms(controls, up, sr):
+    """The library yardstick of the oscillators: torch.cos of the
+    materialised phases, times the amplitudes, summed over partials."""
+    f_lo, f_hi, a_lo, a_hi, phase0 = controls
+    s = torch.arange(up, device=DEV, dtype=torch.float32)
+    h = (torch.sin((np.pi / (2.0 * up)) * s) ** 2)[None, None, :, None]
+    s = s[None, None, :, None]
+    df = (f_hi - f_lo)[:, :, None, :]
+    tri = s * (s + 1.0) * (0.5 / up)
+    phase = phase0[:, :, None, :] + (2.0 * np.pi / sr) * (
+        (s + 1.0) * f_lo[:, :, None, :] + df * tri)
+    amp = (a_lo[:, :, None, :] * (1.0 - h) + a_hi[:, :, None, :] * h) * (
+        f_lo[:, :, None, :] + df * (s / up) < sr / 2.0)
+    return median_ms(lambda: torch.sum(amp * torch.cos(phase), -1))
+
+
+def live_cells(controls, sr):
+    """(frame, partial) cells that sound: below Nyquist and not silent."""
+    f_lo, f_hi, a_lo, a_hi, _ = controls
+    return ((torch.minimum(f_lo, f_hi) < sr / 2.0)
+            & ((a_lo != 0) | (a_hi != 0))).sum().item()
+
+
+def osc_bound(flops, controls, up):
+    """An oscillator's bound: its operations, against five control reads
+    and one audio write."""
+    b, n_frames, k = controls.f_lo.shape
+    return bound(flops, 4 * (5 * b * n_frames * k + b * n_frames * up))
+
+
+def check_oscillator_full(calls):
+    """K8 and K1 at one recorded call's dafx22 oscillator inputs: each
+    against its plain version, K8 against K1; times of both, K8's plain
+    version and the library yardstick. Returns K8's row and a detail line
+    with K1's numbers."""
+    from ddsp_piano_torch.kernels import oscillator as kosc
+
+    (controls, up, sr), = calls
+    controls = to_card(controls)
+    b, n_frames, k = controls.f_lo.shape
+    with torch.inference_mode():
+        got = kosc.render_framewise_full_cuda(controls, up, sr)
+        want = kosc.render_framewise_full_plain(controls, up, sr)
+        skip = kosc.render_framewise_skip_cuda(controls, up, sr)
+        skip_want = kosc.render_framewise_plain(controls, up, sr)
+        sync()
+        peak = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        skip_err = (skip - skip_want).abs().max().item()
+        cross = (got - skip).abs().max().item()
+        for what, e, tol in (('K8 against its plain version', err, OSC_TOL),
+                             ('K1 against its plain version', skip_err,
+                              OSC_TOL),
+                             ('K8 against K1', cross, K8_K1_TOL)):
+            if not (np.isfinite(e) and e <= tol * peak):
+                fail(f"dafx22 oscillator inputs: {what} differs by {e} > "
+                     f"{tol} x peak {peak}")
+        ms = median_ms(lambda: kosc.render_framewise_full_cuda(controls, up,
+                                                              sr))
+        plain_ms = median_ms(lambda: kosc.render_framewise_full_plain(
+            controls, up, sr))
+        skip_ms = median_ms(lambda: kosc.render_framewise_skip_cuda(
+            controls, up, sr))
+        library_ms = library_osc_ms(controls, up, sr)
+    terms = b * n_frames * up * k
+    bound_ms, bound_by = osc_bound(OSC_FULL_FLOPS_PER_TERM * terms,
+                                   controls, up)
+    live = live_cells(controls, sr)
+    skip_bound, skip_by = osc_bound(OSC_FLOPS_PER_TERM * live * up,
+                                    controls, up)
+    detail = (f"dafx22 controls 5 x {(b, n_frames, k)}, up {up}, {terms} "
+              f"terms; max err / peak: K8 {err / peak:.3g}, K1 "
+              f"{skip_err / peak:.3g}, K8 vs K1 {cross / peak:.3g}; K1 here "
+              f"{skip_ms:.4f} ms (live partials {live}/{b * n_frames * k}, "
+              f"bound {skip_bound:.5f} ms, {skip_by})")
+    return dict(name='oscillator_full', max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by), detail
 
@@ -439,6 +533,14 @@ def check_note_release(calls):
                 bound_by=bound_by), f"x ({t}, {b}, 1), bit-exact"
 
 
+def print_full_row(where, row, detail):
+    print(f"kernel oscillator_full at the dafx22 {where}'s inputs: {detail}; "
+          f"max_abs_err {row['max_abs_err']:.3g}; kernel_ms {row['ms']:.4f} "
+          f"plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+          f"({row['bound_by']})", flush=True)
+
+
 KERNEL_SOURCES = {
     'oscillator_skip': ('cuda', 'ddsp_piano_torch/csrc/oscillator_skip.cu',
                         'ddsp_piano_tpu/kernels/oscillator_pallas.py:356'),
@@ -455,6 +557,8 @@ KERNEL_SOURCES = {
                          'ddsp_piano_tpu/kernels/gru_pallas.py:618'),
     'note_release_bwd': ('cuda', 'ddsp_piano_torch/csrc/note_release_bwd.cu',
                          'ddsp_piano_tpu/kernels/gru_pallas.py:673'),
+    'oscillator_full': ('cuda', 'ddsp_piano_torch/csrc/oscillator_full.cu',
+                        'ddsp_piano_tpu/kernels/oscillator_pallas.py:217'),
 }
 
 
@@ -492,23 +596,51 @@ def spectral_peaks(audio, sample_rate, n_peaks=5, guard_hz=5.0):
     return freqs[peaks], freqs[1]
 
 
-def main_path_kernel_ms(capture):
-    """[(kernel, input shape, ms)]: the CUDA-event time of each kernel
-    launch the main path makes, at the inputs it made it with."""
+def path_kernels(capture, what):
+    """[(kernel, input shape, ms, err)] for each kernel launch a main path
+    made, at the inputs it made it with: the kernel held against its plain
+    version on the card (oscillators within OSC_TOL of peak, ``err`` a share
+    of peak; the GRU within GRU_TOL, absolute; NoteRelease bit-exact), then
+    its CUDA-event time."""
     from ddsp_piano_torch.kernels import gru, note_release, oscillator
 
-    launch = {'oscillator_skip': oscillator.render_framewise_skip_cuda,
-              'gru_scan': gru.gru_scan_cuda,
-              'note_release': note_release.note_release_scan_cuda}
+    pairs = {'oscillator_skip': (oscillator.render_framewise_skip_cuda,
+                                 oscillator.render_framewise_plain),
+             'oscillator_full': (oscillator.render_framewise_full_cuda,
+                                 oscillator.render_framewise_full_plain),
+             'gru_scan': (gru.gru_scan_cuda, gru.gru_scan_plain),
+             'note_release': (note_release.note_release_scan_cuda,
+                              note_release.note_release_scan_plain)}
     rows = []
     with torch.inference_mode():
         for kernel, calls in sorted(capture.items()):
+            cuda, plain = pairs[kernel]
             for args in calls:
-                ms = median_ms(lambda: launch[kernel](*args))
-                rows.append((kernel, tuple(args[0][0].shape
-                                           if kernel == 'oscillator_skip'
-                                           else args[0].shape), ms))
+                got, want = cuda(*args), plain(*args)
+                sync()
+                if kernel == 'note_release':
+                    err, ok = 0.0, all(torch.equal(a, w)
+                                       for a, w in zip(got, want))
+                elif kernel == 'gru_scan':
+                    err = (got - want).abs().max().item()
+                    ok = np.isfinite(err) and err <= GRU_TOL
+                else:
+                    err = ((got - want).abs().max()
+                           / want.abs().max()).item()
+                    ok = np.isfinite(err) and err <= OSC_TOL
+                shape = tuple(args[0][0].shape if kernel.startswith(
+                    'oscillator') else args[0].shape)
+                if not ok:
+                    fail(f"{what}: {kernel} at its inputs {shape} differs "
+                         f"from its plain version by {err}")
+                ms = median_ms(lambda: cuda(*args))
+                rows.append((kernel, shape, ms, err))
     return rows
+
+
+def kernels_line(rows):
+    return '; '.join(f"{k} {shape} {ms:.4f} ms (err {err:.3g})"
+                     for k, shape, ms, err in rows)
 
 
 def main_path():
@@ -533,7 +665,7 @@ def main_path():
     missing = [k for k in RENDER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the render path launched no {missing} kernel: {launches}")
-    kernel_ms = main_path_kernel_ms(shapes)
+    kernel_ms = path_kernels(shapes, 'main path')
     audio, dry, sr = result['audio'], result['dry'], result['sample_rate']
     if audio.shape != (int(MAIN_PATH_SECONDS * sr),):
         fail(f"audio of shape {audio.shape}")
@@ -555,7 +687,65 @@ def main_path():
                 bin_hz=bin_hz, n_pitches=len(pitches))
 
 
-# -- phase 6 ------------------------------------------------------------------
+# -- phase 7 ------------------------------------------------------------------
+
+
+DAFX22_PATH_KERNELS = {'skip': ('oscillator_skip', 'gru_scan', 'note_release'),
+                       'full': ('oscillator_full', 'gru_scan', 'note_release')}
+
+
+def dafx22_path():
+    """``synthesize_midi_file -c dafx22`` on 10 s of demo.mid, once per
+    oscillator, each after a warm-up render of its own; the counters are
+    set to 0 just before each timed run and read just after."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+    from ddsp_piano_torch.kernels import build
+
+    runs = {}
+    for oscillator, kernels in DAFX22_PATH_KERNELS.items():
+        out = os.path.join(OUT_DIR, f'demo_dafx22_{oscillator}.wav')
+        args = cli.process_args(['-c', 'dafx22', '-d', str(MAIN_PATH_SECONDS),
+                                 '-u', '--seed', str(SEED), '--piano_type',
+                                 str(PIANO_TYPE), '--oscillator', oscillator,
+                                 '--device', DEV.type, DEMO_MIDI, out])
+        shapes = {}
+        with capturing(shapes):
+            cli.main(args)
+        sync()
+        build.reset_launches()
+        result = cli.main(args)
+        sync()
+        launches = dict(build.LAUNCHES)
+        other = DAFX22_PATH_KERNELS['full' if oscillator == 'skip'
+                                    else 'skip'][0]
+        missing = [k for k in kernels if launches[k] == 0]
+        if missing or launches[other]:
+            fail(f"dafx22 --oscillator {oscillator}: launches {launches} "
+                 f"(must launch {kernels}, not {other})")
+        audio, sr = result['audio'], result['sample_rate']
+        if sr != 16000 or audio.shape != (int(MAIN_PATH_SECONDS * sr),):
+            fail(f"dafx22 audio of shape {audio.shape} at {sr} Hz")
+        for name, x in (('wet', audio), ('dry', result['dry'])):
+            rms = float(np.sqrt(np.mean(x.astype(np.float64) ** 2)))
+            if not np.isfinite(x).all() or rms <= 1e-4:
+                fail(f"dafx22 {name} audio not finite or silent (rms {rms})")
+        runs[oscillator] = dict(
+            launches=launches, forward=result['seconds'],
+            rtf=MAIN_PATH_SECONDS / result['seconds'], audio=audio,
+            dry=result['dry'], calls=shapes, kernel_ms=path_kernels(
+                shapes, f'dafx22 --oscillator {oscillator}'))
+    errs = {}
+    for stem in ('audio', 'dry'):
+        want = runs['skip'][stem]
+        errs[stem] = float(np.abs(runs['full'][stem] - want).max()
+                           / np.abs(want).max())
+        if not errs[stem] <= K8_K1_TOL:
+            fail(f"dafx22 {stem} render with --oscillator full differs from "
+                 f"the default by {errs[stem]} of peak > {K8_K1_TOL}")
+    return runs, errs
+
+
+# -- phase 9 ------------------------------------------------------------------
 
 
 def teacher_data():
@@ -598,7 +788,7 @@ def first_batch(batch_size, seconds=SEGMENT_SECONDS):
     return batch
 
 
-# -- phase 7 ------------------------------------------------------------------
+# -- phase 10 -----------------------------------------------------------------
 
 
 def train_step_inputs():
@@ -800,7 +990,7 @@ def kernel_ms_per_step(capture):
             for kernel, calls in capture.items()}
 
 
-# -- phase 8 ------------------------------------------------------------------
+# -- phase 11 -----------------------------------------------------------------
 
 
 def training_path():
@@ -885,7 +1075,7 @@ def profile_training_steps(n_steps=3):
                 host=[fmt(e, e.self_cpu_time_total) for e in by_host])
 
 
-# -- phase 9 ------------------------------------------------------------------
+# -- phase 12 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight):
@@ -938,6 +1128,27 @@ def gradient_check():
     return out
 
 
+# -- phases 5 and 8 -----------------------------------------------------------
+
+
+def compare_segment(config, cpu):
+    """The 3 s segment rendered on the card against its CPU render."""
+    gpu = render_segment(DEV, config=config)
+    errs = {k: float(np.abs(gpu[k] - cpu[k]).max()
+                     / max(np.abs(cpu[k]).max(), 1e-30))
+            for k in SEGMENT_OUTPUTS}
+    for stem in ('wet', 'dry'):
+        if not errs[stem] <= SLICE_TOL:
+            fail(f"{config}: {stem} render on cuda differs from the cpu "
+                 f"render by {errs[stem]} of peak > {SLICE_TOL}; max-abs / "
+                 f"peak of each output: {errs}")
+    print(f"{config} cuda vs cpu plain, {SEGMENT_SECONDS:g} s: max-abs / "
+          f"peak wet {errs['wet']:.3g}, dry {errs['dry']:.3g} (tolerance "
+          f"{SLICE_TOL:g}); f0_hz {errs['f0_hz']:.3g}, amplitudes "
+          f"{errs['amplitudes']:.3g}, reverb_ir {errs['reverb_ir']:.3g}",
+          flush=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -988,25 +1199,42 @@ def main():
           f"{np.round(m['peaks'], 2).tolist()} Hz on partials of "
           f"{m['n_pitches']} pitches (+-{2 * m['bin_hz']:.2f} Hz)",
           flush=True)
-    print("main path kernels at its own inputs: " + '; '.join(
-        f"{k} {shape} {ms:.4f} ms" for k, shape, ms in m['kernel_ms'])
-        + f"; sum {sum(ms for *_, ms in m['kernel_ms']):.3f} ms of the "
-        f"{m['forward'] * 1e3:.1f} ms forward", flush=True)
+    print("main path kernels at its own inputs, each against its plain "
+          "version (err: oscillator a share of peak, GRU absolute): "
+          + kernels_line(m['kernel_ms'])
+          + f"; sum {sum(r[2] for r in m['kernel_ms']):.3f} ms of the "
+          f"{m['forward'] * 1e3:.1f} ms forward", flush=True)
 
-    gpu = render_segment(DEV)
-    errs = {k: float(np.abs(gpu[k] - cpu[k]).max()
-                     / max(np.abs(cpu[k]).max(), 1e-30))
-            for k in SEGMENT_OUTPUTS}
-    for stem in ('wet', 'dry'):
-        if not errs[stem] <= SLICE_TOL:
-            fail(f"{stem} render on cuda differs from the cpu render by "
-                 f"{errs[stem]} of peak > {SLICE_TOL}; max-abs / peak of "
-                 f"each output: {errs}")
-    print(f"cuda vs cpu plain, {SEGMENT_SECONDS:g} s: max-abs / peak wet "
-          f"{errs['wet']:.3g}, dry {errs['dry']:.3g} (tolerance "
-          f"{SLICE_TOL:g}); f0_hz {errs['f0_hz']:.3g}, amplitudes "
-          f"{errs['amplitudes']:.3g}, reverb_ir {errs['reverb_ir']:.3g}",
-          flush=True)
+    compare_segment('maestro_v2', cpu)
+    del cpu
+
+    t0 = time.perf_counter()
+    capture = {}
+    cpu = render_segment('cpu', capture, config='dafx22')
+    print(f"dafx22 cpu render of the {SEGMENT_SECONDS:g} s segment: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    row, detail = check_oscillator_full(capture['oscillator_skip'])
+    print_full_row('segment', row, detail)
+    del capture
+
+    runs, osc_errs = dafx22_path()
+    for oscillator, r in runs.items():
+        print(f"dafx22 path, --oscillator {oscillator}: demo.mid "
+              f"{MAIN_PATH_SECONDS:g} s on cuda, forward "
+              f"{r['forward'] * 1e3:.1f} ms ({r['rtf']:.1f}x realtime); "
+              f"launches {r['launches']}; kernels at its own inputs, each "
+              f"against its plain version: " + kernels_line(r['kernel_ms']),
+              flush=True)
+    print(f"dafx22 --oscillator full vs skip: max-abs / peak wet "
+          f"{osc_errs['audio']:.3g}, dry {osc_errs['dry']:.3g} (tolerance "
+          f"{K8_K1_TOL:g})", flush=True)
+    row, detail = check_oscillator_full(
+        runs['full']['calls']['oscillator_full'])
+    kernels.append(row)
+    print_full_row('main path', row, detail)
+
+    compare_segment('dafx22', cpu)
+    del cpu
 
     t0 = time.perf_counter()
     seconds, rms = teacher_data()
@@ -1074,8 +1302,11 @@ def main():
 
     for row in kernels:
         route, source, replaces = KERNEL_SOURCES[row['name']]
-        launches = (m['launches'] if row['name'] in RENDER_KERNELS
-                    else t['launches'])[row['name']]
+        if row['name'] == 'oscillator_full':
+            launches = runs['full']['launches'][row['name']]
+        else:
+            launches = (m['launches'] if row['name'] in RENDER_KERNELS
+                        else t['launches'])[row['name']]
         row.update(route=route, source=source, replaces=replaces,
                    launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

@@ -66,17 +66,20 @@ def build(inference: bool = False,
           n_harmonics: int = 128,
           n_noise_bands: int = 96,
           regularize_early: bool = False,
-          first_phase: bool = True) -> PianoModel:
+          first_phase: bool = True,
+          oscillator: str = 'skip') -> PianoModel:
     """The v2 model, weights uninitialised (see configs.get_model).
     ``inference``, ``duration`` and ``first_phase`` are accepted for
     signature parity: in the JAX package ``inference`` only selects an
     envelope-pipeline fallback of the additive synth that the port does not
     have, and the training phase is applied by the trainer
-    (PianoModel.set_trainable)."""
+    (PianoModel.set_trainable). ``oscillator``: 'skip' (K1) or 'full'
+    (K8, forward only), processors.MultiInharmonic's."""
     del inference, duration, first_phase
     processor_group = VectorizedPolyphonicProcessorGroup(
         additive=processors.MultiInharmonic(frame_rate=frame_rate,
-                                            sample_rate=sample_rate),
+                                            sample_rate=sample_rate,
+                                            oscillator=oscillator),
         noise=processors.DynamicSizeFilteredNoise(frame_rate=frame_rate,
                                                   sample_rate=sample_rate),
         reverb=processors.Reverb(),

@@ -1,7 +1,7 @@
 """Model config registry and the ``get_model`` entry point.
 
-Counterpart of ddsp_piano_tpu/configs/registry.py. Only maestro_v2 is
-ported so far; other names raise with the list of what exists.
+Counterpart of ddsp_piano_tpu/configs/registry.py. maestro_v2, dafx22 and
+dafx22_24khz are ported; other names raise with the list of what exists.
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ from typing import Callable, Dict
 from ddsp_piano_torch.device import DeviceLike, resolve_device
 
 _CONFIGS: Dict[str, Callable] = {}
-_CONFIG_MODULES = ('ddsp_piano_torch.configs.maestro_v2',)
+_CONFIG_MODULES = ('ddsp_piano_torch.configs.maestro_v2',
+                   'ddsp_piano_torch.configs.dafx22')
 
 
 def register(name: str):
@@ -28,20 +29,35 @@ def available_configs():
     return sorted(_CONFIGS)
 
 
+def _build(config: str, inference: bool, duration: float, **overrides):
+    """A registered model on the CPU, its weights not initialised."""
+    name = config.replace('-', '_')
+    if name not in available_configs():
+        raise KeyError(f"Unknown config {config!r}; available: "
+                       f"{available_configs()}")
+    return _CONFIGS[name](inference=inference, duration=duration,
+                          **overrides)
+
+
+def config_rates(config: str = 'maestro_v2') -> Dict[str, int]:
+    """A config's sample rate, frame rate and polyphony (n_synths), read
+    without building weights on a device."""
+    model = _build(config, inference=True, duration=1.0)
+    return {'sample_rate': model.sample_rate, 'frame_rate': model.frame_rate,
+            'n_synths': model.n_synths}
+
+
 def get_model(config: str = 'maestro_v2', inference: bool = False,
               duration: float = 3.0, device: DeviceLike = None,
               seed: int = 0, **overrides):
     """Build a registered model, give it Keras-style initial weights from
     ``seed`` and move it to ``device`` (default ``cuda``; raises when CUDA
-    is missing, unless device='cpu')."""
+    is missing, unless device='cpu'). ``overrides`` go to the config's
+    builder, e.g. ``oscillator='full'`` for the all-partials oscillator."""
     from ddsp_piano_torch.nn import init_weights
 
     device = resolve_device(device)
-    name = config.replace('-', '_')
-    if name not in available_configs():
-        raise KeyError(f"Unknown config {config!r}; available: "
-                       f"{available_configs()}")
-    model = _CONFIGS[name](inference=inference, duration=duration,
-                           **overrides)
+    model = _build(config, inference=inference, duration=duration,
+                   **overrides)
     init_weights(model, seed)
     return model.to(device).eval()

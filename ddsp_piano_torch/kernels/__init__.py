@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels, with plain versions.
 
 - oscillator.py: skipping additive oscillator (csrc/oscillator_skip.cu)
-  and its backward (csrc/oscillator_skip_bwd.cu)
+  and its backward (csrc/oscillator_skip_bwd.cu); the all-partials
+  oscillator, forward only (csrc/oscillator_full.cu)
 - gru.py: GRU recurrence (csrc/gru_scan.cu) and its backward
   (csrc/gru_scan_bwd.cu)
 - note_release.py: NoteRelease recurrence (csrc/note_release.cu), its

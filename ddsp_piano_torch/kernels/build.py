@@ -39,6 +39,7 @@ SOURCE_FLAGS = {
     'note_release_bwd': ('--fmad=false',),
     'oscillator_skip_bwd': ('--fmad=false',),
     'gru_scan_bwd': (),
+    'oscillator_full': ('--fmad=false',),
 }
 
 _P = ctypes.c_void_p
@@ -70,13 +71,18 @@ SIGNATURES = {
         'osc_skip_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _F, _F, _P),
     },
+    'oscillator_full': {
+        'osc_full_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                            _F, _P),
+    },
 }
 
-# The kernels, by the name of their launch counter: K1-K3 (inference) and
-# K4-K7 (gradients). note_release_bwd.cu holds two of them.
+# The kernels, by the name of their launch counter: K1-K3 (inference),
+# K4-K7 (gradients) and K8 (the all-partials oscillator).
+# note_release_bwd.cu holds two of them.
 KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
            'oscillator_skip_bwd', 'gru_scan_bwd', 'note_release_res',
-           'note_release_bwd')
+           'note_release_bwd', 'oscillator_full')
 
 # Launches of each kernel, counted by its wrapper where it launches the
 # kernel and nowhere else (a run shows its path went through the kernels).

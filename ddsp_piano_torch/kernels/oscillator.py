@@ -1,13 +1,17 @@
-"""Skipping additive oscillator: CUDA kernels (csrc/oscillator_skip.cu,
-csrc/oscillator_skip_bwd.cu) and their plain PyTorch versions.
+"""Additive oscillators: CUDA kernels (csrc/oscillator_skip.cu,
+csrc/oscillator_skip_bwd.cu, csrc/oscillator_full.cu) and their plain
+PyTorch versions.
 
 Counterpart of ddsp_piano_tpu/kernels/oscillator_pallas.py
-render_framewise_pallas_skip (forward) and
-render_framewise_pallas_skip_vjp (backward), and of the custom_vjp that
-ties them together (ops/oscillator.py _render_skip_grad). The plain
-versions are ops.oscillator's render_framewise with the forward kernel's
-trig ('poly') and render_framewise_vjp with the backward kernel's
-('poly4', the TPU's gradient default when the forward runs 'poly').
+render_framewise_pallas_skip (forward, K1) and
+render_framewise_pallas_skip_vjp (backward, K4), and of the custom_vjp that
+ties them together (ops/oscillator.py _render_skip_grad); and of
+render_framewise_pallas (K8), the all-partials oscillator with native trig
+and no backward, which the JAX package runs under DDSP_PIANO_TPU_PALLAS=1.
+The plain versions are ops.oscillator's render_framewise with the forward
+kernel's trig ('poly' for K1, 'native' for K8) and render_framewise_vjp
+with the backward kernel's ('poly4', the TPU's gradient default when the
+forward runs 'poly').
 """
 
 from __future__ import annotations
@@ -26,6 +30,12 @@ from ddsp_piano_torch.ops.oscillator import (FramewiseOscControls,
 
 TRIG = 'poly'
 TRIG_BWD = 'poly4'
+TRIG_FULL = 'native'
+# Frames per block of K1 and K8, one thread per (frame, sample), so up is
+# at most 1024 // frames per block (csrc/oscillator_skip.cu
+# OSC_FRAMES_PER_BLOCK, csrc/oscillator_full.cu OSC_FULL_FRAMES_PER_BLOCK).
+SKIP_FRAMES_PER_BLOCK = 4
+FULL_FRAMES_PER_BLOCK = 4
 
 
 def render_framewise_plain(controls: FramewiseOscControls, upsampling: int,
@@ -75,29 +85,40 @@ def _check_controls(what, controls):
     return shape
 
 
-def render_framewise_skip_cuda(controls: FramewiseOscControls,
-                               upsampling: int,
-                               sample_rate: int) -> torch.Tensor:
-    """K1 on CUDA tensors; raises on anything it does not take."""
-    b, n_frames, k = _check_controls('render_framewise_skip_cuda', controls)
+def _launch_forward(name: str, symbol: str, frames_per_block: int,
+                    controls: FramewiseOscControls, upsampling: int,
+                    sample_rate: int) -> torch.Tensor:
+    """Launch the forward oscillator kernel ``name`` (K1 or K8, which take
+    the same arguments) through its C entry ``symbol``; raises on anything
+    it does not take."""
+    what = f'the {name} kernel'
+    b, n_frames, k = _check_controls(what, controls)
     up = int(upsampling)
-    if 4 * up > 1024:
-        raise ValueError(f"render_framewise_skip_cuda takes up <= 256, got "
-                         f"{up}")
+    if frames_per_block * up > 1024:
+        raise ValueError(f"{what} takes up <= "
+                         f"{1024 // frames_per_block}, got {up}")
     device = controls.f_lo.device
     table = torch.stack(sample_tables(up, device)).contiguous()   # (4, up)
     parts = [c.detach().contiguous() for c in controls]
     out = torch.empty((b, n_frames * up), dtype=torch.float32, device=device)
     if out.numel() == 0:
         return out
-    lib = build.library('oscillator_skip')
-    code = lib.osc_skip_launch(
+    code = getattr(build.library(name), symbol)(
         *(p.data_ptr() for p in parts), table.data_ptr(), out.data_ptr(),
         b, n_frames, k, up, 2.0 * math.pi / float(sample_rate),
         float(sample_rate) / 2.0, build.stream_handle(device))
-    build.check(code, 'osc_skip_launch')
-    build.LAUNCHES['oscillator_skip'] += 1
+    build.check(code, symbol)
+    build.LAUNCHES[name] += 1
     return out
+
+
+def render_framewise_skip_cuda(controls: FramewiseOscControls,
+                               upsampling: int,
+                               sample_rate: int) -> torch.Tensor:
+    """K1 on CUDA tensors; raises on anything it does not take."""
+    return _launch_forward('oscillator_skip', 'osc_skip_launch',
+                           SKIP_FRAMES_PER_BLOCK, controls, upsampling,
+                           sample_rate)
 
 
 def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
@@ -175,3 +196,35 @@ def render_framewise_skip(controls: FramewiseOscControls, upsampling: int,
     if device == 'cuda':
         return render_framewise_skip_cuda(controls, upsampling, sample_rate)
     return render_framewise_plain(controls, upsampling, sample_rate)
+
+
+def render_framewise_full_plain(controls: FramewiseOscControls,
+                                upsampling: int,
+                                sample_rate: int) -> torch.Tensor:
+    return render_framewise(controls, upsampling, sample_rate,
+                            trig=TRIG_FULL)
+
+
+def render_framewise_full_cuda(controls: FramewiseOscControls,
+                               upsampling: int,
+                               sample_rate: int) -> torch.Tensor:
+    """K8 on CUDA tensors; raises on anything it does not take."""
+    return _launch_forward('oscillator_full', 'osc_full_launch',
+                           FULL_FRAMES_PER_BLOCK, controls, upsampling,
+                           sample_rate)
+
+
+def render_framewise_full(controls: FramewiseOscControls, upsampling: int,
+                          sample_rate: int) -> torch.Tensor:
+    """Front door of the all-partials oscillator, forward only: K8 for CUDA
+    tensors, its plain version for CPU tensors. Raises when a control
+    requires grad: K8 has no backward, as the JAX package's
+    backend='pallas' has no VJP (train with the skipping oscillator)."""
+    device = tensor_device(controls.f_lo, 'render_framewise_full')
+    if torch.is_grad_enabled() and any(c.requires_grad for c in controls):
+        raise ValueError("render_framewise_full is forward-only (K8 has no "
+                         "backward): use the skipping oscillator for "
+                         "gradients")
+    if device == 'cuda':
+        return render_framewise_full_cuda(controls, upsampling, sample_rate)
+    return render_framewise_full_plain(controls, upsampling, sample_rate)

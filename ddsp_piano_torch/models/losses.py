@@ -1,8 +1,8 @@
 """Training losses.
 
-Counterpart of ddsp_piano_tpu/models/losses.py:13-82 (Loss and
-SpectralLoss, the v2 loss). ReverbRegularizer, InharmonicityLoss and
-LoudnessLoss come with the dafx22 slice.
+Counterpart of ddsp_piano_tpu/models/losses.py:13-98: Loss, SpectralLoss
+(the v2 loss) and ReverbRegularizer (in dafx22's loss list).
+InharmonicityLoss and LoudnessLoss are not ported yet.
 """
 
 from __future__ import annotations
@@ -69,3 +69,17 @@ class SpectralLoss(Loss):
             cumsum_freq_weight=self.cumsum_freq_weight,
             loudness_weight=self.loudness_weight,
             sample_rate=self.sample_rate)
+
+
+class ReverbRegularizer(Loss):
+    """L1 penalty on the reverb IR, per batch element (the JAX package's
+    default loss_type, the only one its configs use)."""
+
+    def __init__(self, weight: float = 0.01,
+                 name: str = 'reverb_regularizer'):
+        super().__init__(name=name)
+        self.weight = weight
+
+    def compute(self, outputs):
+        ir = outputs['reverb_ir']
+        return self.weight * torch.sum(torch.abs(ir)) / ir.shape[0]

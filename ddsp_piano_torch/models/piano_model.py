@@ -16,12 +16,13 @@ from torch import nn
 
 from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
 from ddsp_piano_torch.models.losses import Loss
-from ddsp_piano_torch.models.sub_modules import (JointParametricInharmTuning,
-                                                 Parallelizer)
+from ddsp_piano_torch.models.sub_modules import (InharmonicityNetwork,
+                                                 JointParametricInharmTuning,
+                                                 OneHotZEncoder, Parallelizer)
 
 # Slots whose parameters train in the second phase only (the frequency
 # modules) and in the first phase only (piano_model.py:28-33).
-_SECOND_PHASE_MODULES = ('inharm_model',)
+_SECOND_PHASE_MODULES = ('inharm_model', 'detuner')
 _FIRST_PHASE_MODULES = ('note_release', 'context_network',
                         'monophonic_network', 'reverb_model')
 
@@ -29,10 +30,11 @@ _FIRST_PHASE_MODULES = ('note_release', 'context_network',
 class PianoModel(nn.Module):
     """Polyphonic differentiable piano synthesizer."""
 
-    # The slots of the v2 model, in the JAX package's order
+    # The slots of the v2 and dafx22 models, in the JAX package's order
     # (piano_model.py:39-43); other configs' slots come with their slices.
-    GLOBAL_SLOTS = ('context_network', 'reverb_model')
-    MONO_SLOTS = ('note_release', 'inharm_model', 'monophonic_network')
+    GLOBAL_SLOTS = ('z_encoder', 'context_network', 'reverb_model')
+    MONO_SLOTS = ('note_release', 'inharm_model', 'detuner',
+                  'monophonic_network')
 
     def __init__(self, parallelizer: Parallelizer,
                  processor_group: VectorizedPolyphonicProcessorGroup,
@@ -76,8 +78,12 @@ class PianoModel(nn.Module):
 
         Pretrained JointParametricInharmTuning weights stay frozen in every
         phase; otherwise first-phase slots train in phase 1 and the
-        frequency slots in phase 2 (piano_model.py:105-180). The processor
-        group's parameters (none for v2) train in every phase."""
+        frequency slots in phase 2 (piano_model.py:105-180). Two modules
+        split (:147-171): OneHotZEncoder's z ``embedding`` trains in phase
+        1 and its inharm/detune embeddings in phase 2;
+        InharmonicityNetwork's slopes and offsets are frozen in every
+        phase. The processor group's parameters (none for v2 and dafx22)
+        train in every phase."""
         mask = {}
         for slot, module in self._module_slots():
             if (isinstance(module, JointParametricInharmTuning)
@@ -91,8 +97,14 @@ class PianoModel(nn.Module):
                 trainable = first_phase
             else:
                 trainable = True
-            for name, _ in module.named_parameters(prefix=slot):
-                mask[name] = trainable
+            for name, _ in module.named_parameters():
+                leaf = trainable
+                if (isinstance(module, OneHotZEncoder)
+                        and first_phase is not None):
+                    leaf = first_phase == name.startswith('embedding.')
+                elif isinstance(module, InharmonicityNetwork):
+                    leaf = trainable and name not in module.FROZEN
+                mask[f'{slot}.{name}'] = leaf
         for name, _ in self.processor_group.named_parameters(
                 prefix='processor_group'):
             mask[name] = True

@@ -1,16 +1,18 @@
-"""Piano model sub-modules of the v2 model.
+"""Piano model sub-modules of the v2 and dafx22 models.
 
-Counterpart of ddsp_piano_tpu/models/sub_modules.py: FiLMContextNetwork
-(:123-171), MultiInstrumentFeedbackDelayReverb (:295-370),
-MonophonicDeepNetwork (:415-462), Parallelizer (:470-523),
-JointParametricInharmTuning (:623-680), F0ProcessorCell and NoteRelease
-(:875-933). Attribute names follow the JAX params pytree, so
-params.load_jax_params can fill them by name.
+Counterpart of ddsp_piano_tpu/models/sub_modules.py: ContextNetwork
+(:52-87), FiLMContextNetwork (:123-171), OneHotZEncoder (:174-216),
+MultiInstrumentReverb (:253-292), MultiInstrumentFeedbackDelayReverb
+(:295-370), MonophonicNetwork (:378-412), MonophonicDeepNetwork
+(:415-462), Parallelizer (:470-523), InharmonicityNetwork (:538-582),
+JointParametricInharmTuning (:623-680), Detuner (:716-741),
+F0ProcessorCell and NoteRelease (:875-933). Attribute names follow the JAX
+params pytree, so params.load_jax_params can fill them by name.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn as tnn
@@ -34,6 +36,108 @@ def _norm_conditioning(conditioning: torch.Tensor) -> torch.Tensor:
     the scale (which would synchronise the stream)."""
     return torch.cat([conditioning[..., :1] * (1.0 / MIDI_NORM),
                       conditioning[..., 1:]], dim=-1)
+
+
+def _split_outputs(x: torch.Tensor, output_splits) -> tuple:
+    outs = nn.split_to_dict(x, output_splits)
+    return tuple(outs[k] for k, _ in output_splits)
+
+
+class ContextNetwork(nn.DictModule):
+    """Global context from conditioning, pedal and z: a config-driven layer
+    list (dafx22: Dense32 leaky -> GRU64 -> Normalize), then a dense_out
+    head split into ``output_splits``."""
+
+    input_keys = ('conditioning', 'pedal', 'z')
+
+    def __init__(self, layers: Sequence[tnn.Module], out_features: int,
+                 output_splits=(('context', 32),)):
+        super().__init__()
+        self.model = tnn.Sequential(*layers)
+        self.output_splits = tuple(output_splits)
+        self.output_keys = tuple(k for k, _ in self.output_splits)
+        self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
+                                  out_features)
+
+    def forward(self, conditioning, pedal, z):
+        x = torch.cat([_collapse_last_axis(conditioning), pedal, z], dim=-1)
+        return _split_outputs(self.dense_out(self.model(x)),
+                              self.output_splits)
+
+
+class OneHotZEncoder(nn.DictModule):
+    """Instrument id -> z embedding and the global inharmonicity and
+    detuning scalars, each resampled (linear) to duration * frame_rate
+    frames: the model is built for one duration."""
+
+    input_keys = ('piano_model',)
+    output_keys = ('z', 'global_inharm', 'global_detuning')
+
+    def __init__(self, n_instruments=16, z_dim=16, duration=None,
+                 frame_rate=250):
+        super().__init__()
+        self.n_instruments = n_instruments
+        self.duration = duration
+        self.frame_rate = frame_rate
+        self.embedding = nn.Embedding(n_instruments, z_dim)
+        self.inharm_embedding = nn.Embedding(n_instruments, 1)
+        self.detune_embedding = nn.Embedding(n_instruments, 1)
+
+    @property
+    def n_frames(self) -> int:
+        return int(self.duration * self.frame_rate) if self.duration else 1
+
+    def forward(self, piano_model):
+        if self.n_instruments == 1:
+            piano_model = torch.zeros_like(torch.as_tensor(piano_model))
+        outs = []
+        for emb in (self.embedding, self.inharm_embedding,
+                    self.detune_embedding):
+            x = emb(piano_model)
+            if x.dim() == 2:
+                x = x[:, None, :]
+            outs.append(core.resample(x, self.n_frames))
+        return tuple(outs)
+
+
+class MultiInstrumentReverb(nn.DictModule):
+    """A learned raw IR per recording environment; at inference its tail
+    past ``decay_start`` samples is faded by exp(-4 t)."""
+
+    input_keys = ('piano_model',)
+    output_keys = ('reverb_ir',)
+
+    def __init__(self, n_instruments=16, reverb_duration=1.5,
+                 sample_rate=16000, inference=False):
+        super().__init__()
+        self.n_instruments = n_instruments
+        self.reverb_length = int(reverb_duration * sample_rate)
+        self.inference = inference
+        self.reverb_dict = nn.Embedding(n_instruments, self.reverb_length,
+                                        embeddings_init='normal',
+                                        init_mean=0.0, init_stddev=1e-6)
+
+    def exponential_decay_mask(self, ir):
+        """The mask of sub_modules.py:277-282: 1 for the first 16000
+        samples (at every rate), then exp(-4 t) for t from 0 to 1; evaluated
+        in float64 and rounded once (the same on every device)."""
+        decay_start = 16000
+        t = torch.linspace(0.0, 1.0, self.reverb_length - decay_start,
+                           dtype=torch.float64, device=ir.device)
+        mask = torch.cat([torch.ones(decay_start, dtype=torch.float64,
+                                     device=ir.device),
+                          torch.exp(-4.0 * t)]).float()
+        return ir * mask[None, :]
+
+    def forward(self, piano_model):
+        if self.n_instruments == 1:
+            piano_model = torch.zeros_like(torch.as_tensor(piano_model))
+        ir = self.reverb_dict(piano_model)
+        if ir.dim() == 3:
+            ir = ir[:, 0]
+        if self.inference:
+            ir = self.exponential_decay_mask(ir)
+        return ir
 
 
 class FiLMContextNetwork(nn.DictModule):
@@ -133,6 +237,32 @@ class MultiInstrumentFeedbackDelayReverb(nn.DictModule):
             early_ir=gather('_early_ir'))
 
 
+class MonophonicNetwork(nn.DictModule):
+    """Monophonic controls from the folded per-voice inputs: a
+    config-driven layer list (dafx22: Dense128 leaky -> GRU192 -> Dense192
+    leaky -> Normalize), then a dense_out head split into
+    ``output_splits``."""
+
+    input_keys = ('conditioning', 'extended_pitch', 'context')
+
+    def __init__(self, layers: Sequence[tnn.Module], out_features: int,
+                 output_splits=(('amplitudes', 1),
+                                ('harmonic_distribution', 96),
+                                ('magnitudes', 64))):
+        super().__init__()
+        self.model = tnn.Sequential(*layers)
+        self.output_splits = tuple(output_splits)
+        self.output_keys = tuple(k for k, _ in self.output_splits)
+        self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
+                                  out_features)
+
+    def forward(self, conditioning, extended_pitch, context):
+        x = torch.cat([extended_pitch / MIDI_NORM,
+                       _norm_conditioning(conditioning), context], dim=-1)
+        return _split_outputs(self.dense_out(self.model(x)),
+                              self.output_splits)
+
+
 class MonophonicDeepNetwork(nn.DictModule):
     """3 input FcStacks -> GRU -> skip concat -> out FcStack -> dense_out."""
 
@@ -162,8 +292,7 @@ class MonophonicDeepNetwork(nn.DictModule):
         xz = self.input_stacks[2](context)
         x = self.model(torch.cat([xp, xc, xz], dim=-1))
         x = self.out_stack(torch.cat([xp, xc, xz, x], dim=-1))
-        outs = nn.split_to_dict(self.dense_out(x), self.output_splits)
-        return tuple(outs[k] for k in self.output_keys)
+        return _split_outputs(self.dense_out(x), self.output_splits)
 
 
 class Parallelizer:
@@ -210,6 +339,85 @@ class Parallelizer:
             features[k] = x.reshape((self.n_synths, batch_size)
                                     + tuple(x.shape[1:]))
         return features
+
+
+# Rigaud et al. (DAFx-11) two-asymptote initial values, frozen
+# (sub_modules.py:530-535).
+_TREBLE_SLOPE = 9.26e-2
+_TREBLE_INTERCEPT = -13.64
+_BASS_SLOPE = -8.47e-2
+_BASS_INTERCEPT = -5.82
+
+
+class InharmonicityNetwork(nn.DictModule):
+    """beta(m) = sum over the two bridges of exp(slope (m/128 + offset)),
+    from frozen Rigaud slopes and offsets plus trainable L1-regularised
+    modifiers, with a model-specific weight on the bass bridge through
+    global_inharm."""
+
+    input_keys = ('extended_pitch', 'global_inharm')
+    output_keys = ('inharm_coef',)
+    FROZEN = ('slopes', 'offsets')
+
+    def __init__(self):
+        super().__init__()
+        for name, width in (('model_specific_weight', 1), ('slopes', 2),
+                            ('offsets', 2), ('slopes_modifier', 2),
+                            ('offsets_modifier', 2)):
+            setattr(self, name, tnn.Parameter(torch.zeros(width)))
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            for p in (self.model_specific_weight, self.slopes_modifier,
+                      self.offsets_modifier):
+                p.zero_()
+            self.slopes.copy_(torch.tensor(
+                [_TREBLE_SLOPE * MIDI_NORM, _BASS_SLOPE * MIDI_NORM]))
+            self.offsets.copy_(torch.tensor(
+                [_TREBLE_INTERCEPT / (MIDI_NORM * _TREBLE_SLOPE),
+                 _BASS_INTERCEPT / (MIDI_NORM * _BASS_SLOPE)]))
+
+    def forward(self, extended_pitch, global_inharm=None):
+        reduced = core.f32(extended_pitch) / MIDI_NORM
+        slopes = self.slopes + self.slopes_modifier
+        offsets = self.offsets + self.offsets_modifier
+        asymptotes = slopes * (reduced + offsets)
+        if global_inharm is not None:
+            gi = 10.0 * core.f32(global_inharm)
+            gi = torch.cat([torch.zeros_like(gi), gi], dim=-1)
+            asymptotes = asymptotes + self.model_specific_weight * gi
+        return torch.sum(core.rounded(torch.exp, asymptotes), dim=-1,
+                         keepdim=True)
+
+    def regularization(self) -> torch.Tensor:
+        return 0.1 * (torch.sum(torch.abs(self.slopes_modifier))
+                      + torch.sum(torch.abs(self.offsets_modifier)))
+
+
+class Detuner(nn.DictModule):
+    """One f0 per substring: midi_to_hz(pitch + tanh(dense(pitch / 128)) +
+    tanh(global_detuning)), the dense zero-initialised. Without
+    ``use_detune`` (phase 1 of training) every substring sits at the
+    pitch."""
+
+    input_keys = ('extended_pitch', 'global_detuning')
+    output_keys = ('f0_hz',)
+
+    def __init__(self, n_substrings=2, use_detune=True):
+        super().__init__()
+        self.use_detune = use_detune
+        self.layer = nn.Dense(n_substrings, 1, kernel_init='zeros')
+
+    def forward(self, extended_pitch, global_detuning=None):
+        extended_pitch = core.f32(extended_pitch)
+        if self.use_detune:
+            detuning = core.rounded(torch.tanh,
+                                    self.layer(extended_pitch / MIDI_NORM))
+            if global_detuning is not None:
+                detuning = detuning + core.rounded(torch.tanh,
+                                                   global_detuning)
+            extended_pitch = extended_pitch + detuning
+        return core.midi_to_hz(extended_pitch)
 
 
 class JointParametricInharmTuning(nn.DictModule):

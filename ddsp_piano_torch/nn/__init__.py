@@ -2,8 +2,10 @@
 
 from ddsp_piano_torch.nn.layers import (GRU, Activation, Dense, Embedding, Fc,
                                         FcStack, LayerNormalization,
-                                        init_weights, split_to_dict)
+                                        Normalize, init_weights,
+                                        split_to_dict)
 from ddsp_piano_torch.nn.module import DictModule
 
 __all__ = ['DictModule', 'GRU', 'Activation', 'Dense', 'Embedding', 'Fc',
-           'FcStack', 'LayerNormalization', 'init_weights', 'split_to_dict']
+           'FcStack', 'LayerNormalization', 'Normalize', 'init_weights',
+           'split_to_dict']

@@ -54,16 +54,24 @@ def _param(*shape) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """y = act(x @ kernel + bias)."""
+    """y = act(x @ kernel + bias); the kernel starts glorot_uniform or, with
+    kernel_init='zeros', at zero (the Detuner's)."""
 
-    def __init__(self, units: int, in_features: int, activation=None):
+    def __init__(self, units: int, in_features: int, activation=None,
+                 kernel_init: str = 'glorot_uniform'):
         super().__init__()
+        if kernel_init not in ('glorot_uniform', 'zeros'):
+            raise ValueError(f"Unknown kernel_init {kernel_init!r}")
         self.activation = _resolve_activation(activation)
+        self.kernel_init = kernel_init
         self.kernel = _param(in_features, units)
         self.bias = _param(units)
 
     def reset_parameters(self, generator: torch.Generator):
-        glorot_uniform_(self.kernel, generator)
+        if self.kernel_init == 'zeros':
+            nn.init.zeros_(self.kernel)
+        else:
+            glorot_uniform_(self.kernel, generator)
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
@@ -97,6 +105,32 @@ class LayerNormalization(nn.Module):
         var = torch.mean(torch.square(x - mean), dim=-1, keepdim=True)
         xn = (x - mean) * torch.rsqrt(var + self.epsilon)
         return xn * self.gamma + self.beta
+
+
+class Normalize(nn.Module):
+    """ddsp nn.Normalize ('layer'): the statistics pool over every axis but
+    the batch, so over time and channels jointly for a sequence: a render
+    normalises the whole file at once. epsilon = 1e-5; scale and shift are
+    (1, 1, 1, ch) as in the JAX package (layers.py:151-194), so its leaves
+    load unchanged."""
+
+    EPSILON = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(1, 1, 1, features))
+        self.shift = _param(1, 1, 1, features)
+
+    def reset_parameters(self, generator: torch.Generator):
+        nn.init.ones_(self.scale)
+        nn.init.zeros_(self.shift)
+
+    def forward(self, x):
+        axes = tuple(range(1, x.dim()))
+        mean = torch.mean(x, dim=axes, keepdim=True)
+        var = torch.mean(torch.square(x - mean), dim=axes, keepdim=True)
+        xn = (x - mean) * torch.rsqrt(var + self.EPSILON)
+        return xn * self.scale.reshape(-1) + self.shift.reshape(-1)
 
 
 class Embedding(nn.Module):

@@ -1,12 +1,13 @@
-"""Core signal ops: the subset of ddsp_piano_tpu/ops/core.py the v2 render
-and its training loss call (core.py:31-136, 201-211). Resampling is not on
-that path and is not ported.
+"""Core signal ops: the subset of ddsp_piano_tpu/ops/core.py that the v2
+and dafx22 renders and the training loss call (core.py:31-136, 162-277).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 
 _2PI = 2.0 * math.pi
@@ -79,10 +80,36 @@ def remove_above_nyquist(frequency_envelopes, amplitude_envelopes,
     return f32(amplitude_envelopes) * mask
 
 
+def linspace_f32(start: float, stop: float, num: int) -> np.ndarray:
+    """The JAX package's float32 ``jnp.linspace(start, stop, num)``, value
+    for value: ``a = start (1 - i c)`` and ``fma(i, stop c, a)`` with
+    ``c = 1 / (num - 1)`` rounded to float32, the last point ``stop`` (the
+    program XLA compiles for jnp.linspace on the CPU). It is not exact on
+    integers: linspace(1, 96, 96) puts 3 at 3.0000002. num >= 2."""
+    f32_ = np.float32
+    i = np.arange(num - 1, dtype=f32_)
+    c = f32_(1.0 / (num - 1))
+    a = f32_(start) * (f32_(1.0) - i * c)
+    out = (i.astype(np.float64) * np.float64(f32_(stop) * c)
+           + a.astype(np.float64)).astype(f32_)
+    return np.append(out, f32_(stop))
+
+
+@functools.lru_cache(maxsize=None)
+def _harmonic_numbers_on(n_harmonics: int, device: torch.device):
+    with torch.inference_mode(False):
+        return torch.from_numpy(
+            linspace_f32(1.0, float(n_harmonics), n_harmonics)).to(device)
+
+
 def harmonic_numbers(n_harmonics: int, device) -> torch.Tensor:
-    """1, 2, ..., n as float32 (jnp.linspace(1, n, n))."""
-    return torch.linspace(1.0, float(n_harmonics), n_harmonics,
-                          dtype=torch.float32, device=device)
+    """The harmonic numbers 1, ..., n as the JAX package makes them
+    (jnp.linspace(1, n, n), see linspace_f32): an ulp off the integer
+    for some k at n = 96 or 192. A harmonic number one ulp away moves
+    partial k by ~6e-8 of its frequency, which grows into a phase error
+    2 pi df t. Copied to ``device`` once, outside inference mode (as
+    ops.filters' constants)."""
+    return _harmonic_numbers_on(n_harmonics, torch.device(device))
 
 
 def get_inharmonic_freq(f0_hz, inharm_coef, n_harmonics: int):
@@ -95,3 +122,116 @@ def get_inharmonic_freq(f0_hz, inharm_coef, n_harmonics: int):
     k = harmonic_numbers(n_harmonics, f0_hz.device)
     inharm_factor = rounded(torch.sqrt, k * k * f32(inharm_coef) + 1.0)
     return f0_hz * k * inharm_factor, inharm_factor - 1.0
+
+
+# -- resampling ----------------------------------------------------------------
+
+
+def _ensure_3d(x: torch.Tensor):
+    """1-D/2-D inputs as (batch, time, channels), and the original rank."""
+    rank = x.dim()
+    if rank == 1:
+        x = x[None, :, None]
+    elif rank == 2:
+        x = x[:, :, None]
+    return x, rank
+
+
+def _restore_rank(x: torch.Tensor, rank: int) -> torch.Tensor:
+    if rank == 1:
+        return x[0, :, 0]
+    if rank == 2:
+        return x[:, :, 0]
+    return x
+
+
+def linear_resample(x, n_timesteps: int, align_corners: bool = False
+                    ) -> torch.Tensor:
+    """Linear resampling along axis 1 of a (batch, time, ...) tensor, in the
+    legacy ``tf.compat.v1.image.resize_bilinear`` coordinates (core.py:
+    162-189): output index j reads source position ``j * n_in / n_out``, or
+    ``j * (n_in - 1) / (n_out - 1)`` with align_corners. Not
+    F.interpolate, whose coordinates are half-pixel centred: the legacy ones
+    are what the released checkpoints were trained with."""
+    x = f32(x)
+    n_in = x.shape[1]
+    if n_in == n_timesteps:
+        return x
+    if align_corners and n_timesteps > 1:
+        scale = (n_in - 1) / (n_timesteps - 1)
+    else:
+        scale = n_in / n_timesteps
+    src = torch.arange(n_timesteps, dtype=torch.float32,
+                       device=x.device) * scale
+    lo = torch.clamp(torch.floor(src).long(), 0, n_in - 1)
+    hi = torch.clamp(lo + 1, 0, n_in - 1)
+    frac = (src - lo.to(torch.float32)).reshape(
+        [1, n_timesteps] + [1] * (x.dim() - 2))
+    x_lo = torch.index_select(x, 1, lo)
+    x_hi = torch.index_select(x, 1, hi)
+    return x_lo + (x_hi - x_lo) * frac
+
+
+def nearest_resample(x, n_timesteps: int) -> torch.Tensor:
+    """Nearest-neighbour resampling along axis 1 (legacy TF v1 convention,
+    core.py:192-198)."""
+    x = f32(x)
+    n_in = x.shape[1]
+    src = torch.arange(n_timesteps, dtype=torch.float32,
+                       device=x.device) * (n_in / n_timesteps)
+    idx = torch.clamp(torch.floor(src).long(), 0, n_in - 1)
+    return torch.index_select(x, 1, idx)
+
+
+def upsample_with_windows(inputs, n_timesteps: int,
+                          add_endpoint: bool = True) -> torch.Tensor:
+    """Upsample (batch, n_frames, ch) by half-overlapping Hann windows, as
+    the raised-cosine crossfade of core.py:214-250:
+    out[k hop + s] = a[k] (1 - h[s]) + a[k+1] h[s], h[s] = sin^2(pi s /
+    (2 hop)). The window is evaluated in float64 and rounded once."""
+    if inputs.dim() != 3:
+        raise ValueError("upsample_with_windows expects (batch, time, ch), "
+                         f"got shape {tuple(inputs.shape)}")
+    inputs = f32(inputs)
+    if add_endpoint:
+        inputs = torch.cat([inputs, inputs[:, -1:, :]], dim=1)
+    n_frames = inputs.shape[1]
+    n_intervals = n_frames - 1
+    if n_frames >= n_timesteps:
+        raise ValueError(f"upsample_with_windows can only upsample: "
+                         f"{n_frames} frames -> {n_timesteps} timesteps.")
+    if n_timesteps % n_intervals != 0:
+        raise ValueError(f"n_timesteps ({n_timesteps}) must be divisible by "
+                         f"n_intervals ({n_intervals}).")
+    hop = n_timesteps // n_intervals
+    s = torch.arange(hop, dtype=torch.float64, device=inputs.device)
+    h = (torch.sin(math.pi * s / (2.0 * hop)) ** 2).float()
+    h = h[None, None, :, None]
+    left = inputs[:, :-1, None, :]
+    right = inputs[:, 1:, None, :]
+    out = left * (1.0 - h) + right * h          # (b, n_intervals, hop, ch)
+    return out.reshape(out.shape[0], n_timesteps, out.shape[-1])
+
+
+def resample(inputs, n_timesteps: int, method: str = 'linear',
+             add_endpoint: bool = True) -> torch.Tensor:
+    """Resample along the time axis (axis 1) of a 1-D to 4-D input:
+    'nearest', 'linear' (legacy coordinates) or 'window' (overlapping Hann),
+    as core.py:253-277."""
+    inputs = f32(inputs)
+    if inputs.dim() == 4:
+        b, t, c1, c2 = inputs.shape
+        out = resample(inputs.reshape(b, t, c1 * c2), n_timesteps,
+                       method=method, add_endpoint=add_endpoint)
+        return out.reshape(b, n_timesteps, c1, c2)
+    x, rank = _ensure_3d(inputs)
+    if method == 'nearest':
+        out = nearest_resample(x, n_timesteps)
+    elif method == 'linear':
+        out = linear_resample(x, n_timesteps, align_corners=not add_endpoint)
+    elif method == 'window':
+        out = upsample_with_windows(x, n_timesteps, add_endpoint=add_endpoint)
+    else:
+        raise ValueError(f"Unknown resample method: {method!r} "
+                         "(expected 'nearest', 'linear' or 'window').")
+    return _restore_rank(out, rank)

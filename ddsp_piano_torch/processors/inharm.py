@@ -1,9 +1,11 @@
-"""Inharmonic additive synthesizer (v2: one substring, K = 128).
+"""Inharmonic additive synthesizer (v2: one substring, K = 128; dafx22:
+two substrings x 96 harmonics, K = 192).
 
 Counterpart of ddsp_piano_tpu/processors/inharm.py:26-174. InHarmonic here
 carries only the control scaling (get_controls); the render is
-MultiInharmonic's, through the framewise oscillator front door
-(kernels.oscillator.render_framewise_skip: the CUDA kernel on the card).
+MultiInharmonic's, through a framewise oscillator front door: the skipping
+oscillator (kernels.oscillator.render_framewise_skip, K1 on the card) or
+the all-partials one (render_framewise_full, K8, forward only).
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
-from ddsp_piano_torch.kernels.oscillator import render_framewise_skip
+from ddsp_piano_torch.kernels.oscillator import (render_framewise_full,
+                                                 render_framewise_skip)
 from ddsp_piano_torch.ops import core, oscillator
 from ddsp_piano_torch.processors.base import Processor
 
@@ -69,10 +72,26 @@ class InHarmonic(Processor):
                 'f0_hz': core.f32(f0_hz)}
 
 
+OSCILLATORS = ('skip', 'full')
+
+
 class MultiInharmonic(InHarmonic):
     """One f0 per substring, (b, t, n_substrings); partial amplitudes and
     shifts are shared and the global amplitude is split evenly. All
-    substrings render in one oscillator call."""
+    substrings render in one oscillator call.
+
+    ``oscillator`` picks the front door: 'skip' (the default, K1, with
+    gradients through K4) or 'full' (K8, every partial, native cosine,
+    forward only). It is the port's explicit form of the JAX package's
+    render_framewise backend 'pallas_skip' or 'pallas', which
+    DDSP_PIANO_TPU_PALLAS selects there."""
+
+    def __init__(self, oscillator: str = 'skip', **kwargs):
+        super().__init__(**kwargs)
+        if oscillator not in OSCILLATORS:
+            raise ValueError(f"oscillator={oscillator!r}: expected one of "
+                             f"{OSCILLATORS}")
+        self.oscillator = oscillator
 
     def get_controls(self, amplitudes, harmonic_distribution, inharm_coef,
                      f0_hz):
@@ -109,4 +128,6 @@ class MultiInharmonic(InHarmonic):
                                            harmonic_shifts, f0_hz)
         controls = oscillator.framewise_osc_controls(freqs, amps, up,
                                                      self.sample_rate)
-        return render_framewise_skip(controls, up, self.sample_rate)
+        render = (render_framewise_skip if self.oscillator == 'skip'
+                  else render_framewise_full)
+        return render(controls, up, self.sample_rate)

@@ -1,13 +1,19 @@
 """Synthesize a MIDI file to audio with the PyTorch DDSP-Piano model.
 
-    python -m ddsp_piano_torch.synthesize_midi_file [-c maestro_v2]
-        [--piano_type N] [-wu S] [-d S] [-n DBFS] [-u] [--seed N]
+    python -m ddsp_piano_torch.synthesize_midi_file
+        [-c maestro_v2|dafx22|dafx22_24khz] [--piano_type N] [-wu S] [-d S]
+        [-n DBFS] [-u] [--seed N] [--oscillator skip|full]
         [--device cuda|cpu] midi_file out.wav
 
 The flags mean what they mean for the JAX package's synthesize_midi_file.py.
-The forward runs once, on ``cuda`` unless --device cpu is given, under
-torch.inference_mode(). No checkpoint can be loaded yet, so the weights are
-the Keras-style initial weights (seed 0); --seed seeds the noise synth.
+The MIDI is read at the config's frame rate and polyphony, then the model
+is built for the file's duration (dafx22's z encoder is built for one
+length). The forward runs once, on ``cuda`` unless --device cpu is given,
+under torch.inference_mode(). No checkpoint can be loaded yet, so the
+weights are the Keras-style initial weights (seed 0); --seed seeds the
+noise synth. --oscillator full renders every partial with the all-partials
+kernel (forward only), as DDSP_PIANO_TPU_PALLAS=1 does in the JAX package;
+the default skips silent and above-Nyquist partials.
 """
 
 from __future__ import annotations
@@ -42,6 +48,11 @@ def process_args(argv=None):
                         help="RNG seed for the noise synthesizer.")
     parser.add_argument('--streaming', action='store_true',
                         help="Chunked rendering (not supported yet).")
+    parser.add_argument('--oscillator', choices=('skip', 'full'),
+                        default='skip',
+                        help="Additive oscillator: skip silent partials, "
+                             "or compute them all (forward only). "
+                             "(default: %(default)s)")
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
                         help="Device to synthesize on (default: %(default)s)")
     parser.add_argument('midi_file', type=str,
@@ -53,7 +64,7 @@ def process_args(argv=None):
 def main(args) -> dict:
     """Render and write the wav(s). Returns the wet and dry audio (numpy,
     warm-up cropped), the sample rate and the forward's wall seconds."""
-    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.configs import config_rates, get_model
     from ddsp_piano_torch.data import audio_io
     from ddsp_piano_torch.data.io import load_midi_as_conditioning
     from ddsp_piano_torch.device import resolve_device
@@ -65,13 +76,16 @@ def main(args) -> dict:
         raise SystemExit("--ckpt is not supported by ddsp_piano_torch yet: "
                          "checkpoint loading comes with a later port slice.")
     device = resolve_device(args.device)
-    model = get_model(args.config, inference=True, device=device)
-    log.warning("No checkpoint: synthesizing with initial weights.")
+    rates = config_rates(args.config)
     inputs = load_midi_as_conditioning(args.midi_file,
                                        duration=args.duration,
                                        warm_up_duration=args.warm_up,
-                                       frame_rate=model.frame_rate,
-                                       n_synths=model.n_synths)
+                                       frame_rate=rates['frame_rate'],
+                                       n_synths=rates['n_synths'])
+    model = get_model(args.config, inference=True,
+                      duration=inputs['duration'], device=device,
+                      oscillator=args.oscillator)
+    log.warning("No checkpoint: synthesizing with initial weights.")
     features = {
         'conditioning': torch.from_numpy(inputs['conditioning']).to(device),
         'pedal': torch.from_numpy(inputs['pedal']).to(device),

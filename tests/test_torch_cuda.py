@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-K1-K3 (forward) and K4-K7 (gradients), each with its launch counter, and
+K1-K3 and K8 (forward) and K4-K7 (gradients), each with its launch
+counter, and
 each autograd Function on CUDA tensors against the same Function on CPU
 tensors (its plain versions). Every test here needs an NVIDIA GPU and
 skips without one (a CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on a machine
@@ -82,6 +83,34 @@ def test_note_release_kernel_bit_exact(cuda_device):
     want, want_state = tnr.note_release_scan_plain(x, thr, s0)
     assert torch.equal(got, want) and torch.equal(got_state, want_state)
     assert build.LAUNCHES['note_release'] == 1
+
+
+@pytest.mark.cuda
+def test_oscillator_full_kernel_matches_plain(cuda_device):
+    """K8 at the dafx22 widths (96 harmonics x 2 substrings, 16 kHz, 64
+    samples per frame), against its plain version and against K1."""
+    rng = np.random.RandomState(5)
+    f0 = rng.uniform(20, 3000, (16, 80, 2)).astype(np.float32)
+    f0[:, :, 1] *= 1.0005
+    f0[0, :30] = 0.0
+    freqs = (f0[:, :, None, :] * np.arange(1, 97, dtype=np.float32)[:, None]
+             ).reshape(16, 80, 192)
+    amps = rng.rand(16, 80, 192).astype(np.float32) / 96.0
+    amps[0, :30] = 0.0
+    controls = tosc.framewise_osc_controls(
+        _t(freqs, cuda_device), _t(amps, cuda_device), 64, 16000)
+    build.reset_launches()
+    got = tosck.render_framewise_full_cuda(controls, 64, 16000)
+    want = tosck.render_framewise_full_plain(controls, 64, 16000)
+    skip = tosck.render_framewise_skip_cuda(controls, 64, 16000)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['oscillator_full'] == 1
+    scale = want.abs().max().item()
+    # Same terms bit for bit (--fmad=false, the same cosf); the sum over
+    # 192 partials in another order: 1e-5 of peak.
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    # K1: polynomial against native trig, another order: 1e-4 of peak.
+    assert (skip - got).abs().max().item() <= 1e-4 * scale
 
 
 def _osc_controls(device, b=4, n_frames=60, seed=2):

@@ -86,6 +86,8 @@ def test_kernel_wrappers_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match='CUDA'):
         oscillator.render_framewise_skip_bwd_cuda(
             controls, torch.zeros(1, 192), 96, 24000)
+    with pytest.raises(ValueError, match='CUDA'):
+        oscillator.render_framewise_full_cuda(controls, 64, 16000)
 
 
 @pytest.mark.parametrize('alone', [False, True], ids=['repo', 'alone'])

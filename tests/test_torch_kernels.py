@@ -1,4 +1,4 @@
-"""The port's three kernels against the JAX package's Pallas kernels.
+"""The port's forward kernels against the JAX package's Pallas kernels.
 
 On the CPU the port's front doors run each kernel's plain PyTorch version;
 the JAX kernels run in Pallas interpret mode, as the JAX package's own
@@ -20,7 +20,7 @@ from ddsp_piano_torch.kernels import oscillator as tosck  # noqa: E402
 from ddsp_piano_torch.ops import oscillator as tosc  # noqa: E402
 from ddsp_piano_tpu.kernels import gru_pallas as gp  # noqa: E402
 from ddsp_piano_tpu.kernels.oscillator_pallas import (  # noqa: E402
-    render_framewise_pallas_skip)
+    render_framewise_pallas, render_framewise_pallas_skip)
 from ddsp_piano_tpu.ops import oscillator as josc  # noqa: E402
 
 
@@ -100,6 +100,64 @@ def test_active_partials_bound_covers_every_live_partial():
     assert int(k_last[0, 0]) == 0 and int(k_last.max()) > 0
 
 
+# -- K8: all-partials oscillator -------------------------------------------
+
+
+def _full_controls(b, n_frames, K, n_sub, seed):
+    """test_oscillator.py:14-19's controls (f0 in 50-2050 Hz, amplitude
+    times a normalised distribution) with K = harmonics x n_sub substrings
+    folded harmonic-major as MultiInharmonic folds them, a silent stretch
+    and partials above Nyquist."""
+    rng = np.random.RandomState(seed)
+    n_harm = K // n_sub
+    f0 = (rng.rand(b, n_frames, n_sub) * 2000.0 + 50.0).astype(np.float32)
+    f0[..., 1:] *= 1.0007                          # detuned substrings
+    freqs = (f0[..., None, :] * np.arange(1, n_harm + 1, dtype=np.float32)
+             [:, None]).reshape(b, n_frames, K).astype(np.float32)
+    dist = rng.rand(b, n_frames, K).astype(np.float32)
+    amps = (rng.rand(b, n_frames, 1) * dist / dist.sum(-1, keepdims=True)
+            ).astype(np.float32)
+    amps[0, :n_frames // 4] = 0.0
+    return josc.framewise_osc_controls(jnp.asarray(freqs), jnp.asarray(amps),
+                                       64, 16000)
+
+
+@pytest.mark.parametrize('b,n_frames,K,n_sub', [
+    (3, 20, 8, 1),       # test_oscillator.py:155-166
+    (2, 30, 192, 2),     # the dafx22 widths: 96 harmonics x 2 substrings
+])
+def test_oscillator_full_plain_matches_pallas(b, n_frames, K, n_sub):
+    sr, up = 16000, 64
+    controls = _full_controls(b, n_frames, K, n_sub, seed=K)
+    want = np.asarray(render_framewise_pallas(controls, up, sr, True))
+    port = tosc.FramewiseOscControls(*(_t(c) for c in controls))
+    got = tosck.render_framewise_full(port, up, sr).numpy()
+    assert got.shape == want.shape == (b, n_frames * up)
+    if K == 8:
+        # atol 1e-5: test_oscillator.py:166.
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    else:
+        # 1e-4 x peak: test_oscillator.py:190 (f32 reassociation of the
+        # sum over 192 partials).
+        np.testing.assert_allclose(got, want,
+                                   atol=1e-4 * np.abs(want).max())
+    # The same render as the skipping front door's, to the trig's and the
+    # sum order's rounding.
+    skip = tosck.render_framewise_skip(port, up, sr).numpy()
+    np.testing.assert_allclose(skip, got, atol=1e-4 * np.abs(want).max())
+
+
+def test_oscillator_full_front_door_refuses_gradients():
+    controls = _full_controls(1, 6, 8, 1, seed=0)
+    port = tosc.FramewiseOscControls(*(_t(c).requires_grad_()
+                                       for c in controls))
+    with pytest.raises(ValueError, match='forward-only'):
+        tosck.render_framewise_full(port, 64, 16000)
+    with torch.no_grad():
+        assert tosck.render_framewise_full(port, 64, 16000).shape == (
+            1, 6 * 64)
+
+
 # -- K2: GRU ------------------------------------------------------------------
 
 
@@ -163,4 +221,8 @@ def test_cpu_front_doors_do_not_launch():
     x = _t(_note_release_inputs(T=20, B=2))
     tnr.note_release_scan(x, _t([5.0]), torch.zeros(2, 2))
     tgru.gru_scan(*(_t(a) for a in _gru_inputs(5, 2, 8, seed=0)))
+    controls = tosc.FramewiseOscControls(*(
+        _t(c) for c in _full_controls(1, 6, 8, 1, seed=0)))
+    tosck.render_framewise_full(controls, 64, 16000)
+    tosck.render_framewise_skip(controls, 64, 16000)
     assert all(v == 0 for v in build.LAUNCHES.values())

@@ -16,7 +16,9 @@ non-zero exit code and no result line:
    kernels' front doors (K1-K3); then hold each kernel against its plain
    version on the card at exactly those inputs, and time kernel, plain
    version and, where one PyTorch call computes the same function, that
-   call.
+   call. The GRU rows (K2 here, K5 in phase 10) also give the time a step
+   and the launch plan: CTAs per cluster, rows per cluster, clusters,
+   shared memory and the co-resident clusters.
 4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
    at full width on ``cuda``, with every launch counter set to 0 just
    before and read just after; K1-K3 must have launched. Each launch is
@@ -29,7 +31,8 @@ non-zero exit code and no result line:
    oscillator's inputs; the all-partials oscillator (K8) and the skipping
    one (K1) are each held against their plain versions on the card at
    those inputs, K8 against K1, and both are timed with K8's plain
-   version and library yardstick.
+   version and library yardstick; K2 is held and timed at the segment's
+   dafx22 GRU inputs.
 7. The dafx22 render path: ``synthesize_midi_file.main -c dafx22``
    renders 10 s of demo.mid on ``cuda`` twice, with the default
    oscillator and with ``--oscillator full``, every launch counter set to
@@ -38,7 +41,8 @@ non-zero exit code and no result line:
    renders must agree. Each launch is held against its plain version at
    the inputs the run gave it, and K8's row of the kernel line (error,
    times, bound) is taken at the full run's oscillator inputs, as in
-   phase 6.
+   phase 6. Then K2 against its plain version step by step at the 10 s
+   renders' inputs: the error over the first 750 steps and over the rest.
 8. The dafx22 segment on the card against its CPU render of phase 6.
 9. Teacher data: ``synthesize_midi_file.main`` renders all of demo.mid
    (weights seed 0) to a 24 kHz wav, and a mini-MAESTRO (csv with a train
@@ -48,6 +52,7 @@ non-zero exit code and no result line:
    inputs of the gradient kernels (K4-K7) inside their autograd
    Functions; each is held against its plain version on the card at those
    inputs and timed beside its plain version and its library yardstick.
+   K2 is also held and timed at the step's B = 96.
 11. The training path: ``train_single_phase.main`` trains maestro_v2
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
@@ -56,7 +61,9 @@ non-zero exit code and no result line:
    view of three more steps: the device's busy share and the operators
    with the most device and host time.
 12. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
-   same step on the CPU plain path (same weights, batch and noise).
+   same step on the CPU plain path (same weights, batch and noise); then
+   the step on ``cuda`` with the GRU kernels' plain versions in their
+   place, against both, to tell the kernels' share of the gap.
 13. One JSON line of kernel numbers, then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO and the training
@@ -118,8 +125,8 @@ K8_K1_TOL = 1e-4
 # oscillator backward computes the plain VJP's terms bit for bit and sums
 # the 96 samples of a frame in another order (share of each gradient's
 # peak); the GRU backward differs from its plain version as the forward
-# does (expf/tanhf, dot-product order), absolute as GRU_TOL; NoteRelease
-# bit-exact.
+# does (expf/tanhf, dot-product order), a share of each stream's peak
+# (tests/test_torch_cuda.py); NoteRelease bit-exact.
 OSC_BWD_TOL = 1e-5
 GRU_BWD_TOL = 1e-5
 # One training step on cuda against the CPU plain path, per trainable
@@ -464,6 +471,17 @@ def _library_gru(x_proj, rec_kernel, rec_bias, h0):
     return lambda: gru(x_proj, h0)[0]
 
 
+def plan_text(kernel, b, u):
+    """The launch plan a GRU kernel takes at B rows of width u."""
+    from ddsp_piano_torch.kernels import gru as kgru
+
+    p = kgru.launch_plan(kernel, b, u)
+    return (f"plan N={p['cluster']} R={p['rows']}: {p['clusters']} clusters "
+            f"of {p['threads']} threads, {p['smem_bytes']} B shared a CTA, "
+            f"{p['active_clusters']} co-resident, {p['exclusive_clusters']} "
+            f"with an SM to each CTA")
+
+
 def check_gru(calls):
     from ddsp_piano_torch.kernels import gru as kgru
 
@@ -493,7 +511,8 @@ def check_gru(calls):
                       + b * u)
         rows.append(dict(u=u, b=b, t=t, err=err, lib_err=lib_err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
-                         bound=bound(flops, nbytes)))
+                         bound=bound(flops, nbytes),
+                         plan=plan_text('gru_scan', b, u)))
     total = dict(name='gru_scan', max_abs_err=max(r['err'] for r in rows))
     for key in ('ms', 'plain_ms', 'library_ms'):
         total[key] = sum(r[key] for r in rows)
@@ -502,10 +521,36 @@ def check_gru(calls):
     total['bound_by'] = by.pop() if len(by) == 1 else 'operations'
     detail = '; '.join(
         f"u={r['u']} x_proj ({r['t']}, {r['b']}, {3 * r['u']}): "
-        f"err {r['err']:.3g} (cuDNN {r['lib_err']:.3g}), {r['ms']:.4f} ms, "
-        f"plain {r['plain_ms']:.3f} ms, cuDNN {r['library_ms']:.4f} ms, "
-        f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]})" for r in rows)
+        f"err {r['err']:.3g} (cuDNN {r['lib_err']:.3g}), {r['ms']:.4f} ms = "
+        f"{1e3 * r['ms'] / r['t']:.3f} us/step, plain {r['plain_ms']:.3f} "
+        f"ms, cuDNN {r['library_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
+        f"({r['bound'][1]}); {r['plan']}" for r in rows)
     return total, detail
+
+
+def print_gru_row(where, row, detail):
+    print(f"kernel gru_scan at {where}: {detail}; sum {row['ms']:.4f} ms "
+          f"(cuDNN {row['library_ms']:.4f} ms)", flush=True)
+
+
+def gru_error_by_length(calls, head=750):
+    """Each recorded GRU call's kernel against its plain version, the error
+    split at step ``head``: the recurrence is causal, so the first ``head``
+    steps of a longer run are a run of ``head`` steps on the same inputs."""
+    from ddsp_piano_torch.kernels import gru as kgru
+
+    parts = []
+    with torch.inference_mode():
+        for args in calls:
+            got, want = kgru.gru_scan_cuda(*args), kgru.gru_scan_plain(*args)
+            diff = (got - want).abs()
+            t, b, u = got.shape
+            parts.append(
+                f"u={u} T={t}: max err steps < {head} "
+                f"{diff[:head].max().item():.3g}, steps >= {head} "
+                f"{diff[head:].max().item() if t > head else 0.0:.3g}; "
+                f"max |h| {want.abs().max().item():.4f}")
+    return '; '.join(parts)
 
 
 def check_note_release(calls):
@@ -682,7 +727,7 @@ def main_path():
         fail(f"dry spectral peaks {miss} Hz lie on no partial of the "
              f"played notes")
     return dict(launches=launches, wall=wall, forward=result['seconds'],
-                kernel_ms=kernel_ms,
+                kernel_ms=kernel_ms, calls=shapes,
                 rtf=MAIN_PATH_SECONDS / result['seconds'], peaks=peaks,
                 bin_hz=bin_hz, n_pitches=len(pitches))
 
@@ -891,11 +936,16 @@ def check_gru_bwd(calls):
         want = kgru.gru_scan_plain_bwd(x_proj, rec_kernel, rec_bias, h0, hs,
                                        g)
         sync()
-        err = max((a - w).abs().max().item() for a, w in zip(got, want))
-        peak = max(w.abs().max().item() for w in want)
-        if not (np.isfinite(err) and err <= GRU_BWD_TOL):
+        # Each stream (dxz, dxr, dxh, drh, dh0) against its own peak.
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        peaks = [w.abs().max().item() for w in want]
+        medians = [w.abs().median().item() for w in want]
+        rel = max(e / max(p, 1e-30) for e, p in zip(errs, peaks))
+        err, peak = max(errs), max(peaks)
+        if not (np.isfinite(rel) and rel <= GRU_BWD_TOL):
             fail(f"GRU backward kernel (u={u}, B={b}) differs from its plain "
-                 f"version: {err} > {GRU_BWD_TOL} (streams' peak {peak})")
+                 f"version: {rel} of a stream's peak > {GRU_BWD_TOL} (errors "
+                 f"{errs}, peaks {peaks})")
         ms = median_ms(lambda: kgru.gru_scan_bwd_cuda(
             x_proj, rec_kernel, rec_bias, h0, hs, g))
         plain_ms = median_ms(lambda: kgru.gru_scan_plain_bwd(
@@ -911,10 +961,12 @@ def check_gru_bwd(calls):
                          + GRU_BWD_GATE_FLOPS_PER_UNIT * u)
         nbytes = 4 * (t * b * three_u + 2 * t * b * u + 2 * u * three_u
                       + three_u + b * u + 4 * t * b * u + b * u)
-        rows.append(dict(u=u, b=b, t=t, err=err, peak=peak, ms=ms,
+        rows.append(dict(u=u, b=b, t=t, err=err, peak=peak, rel=rel,
+                         median=(min(medians), max(medians)), ms=ms,
                          plain_ms=plain_ms,
                          library_ms=fwd_bwd_ms - fwd_ms,
-                         bound=bound(flops, nbytes)))
+                         bound=bound(flops, nbytes),
+                         plan=plan_text('gru_scan_bwd', b, u)))
     total = dict(name='gru_scan_bwd', max_abs_err=max(r['err'] for r in rows))
     for key in ('ms', 'plain_ms', 'library_ms'):
         total[key] = sum(r[key] for r in rows)
@@ -922,10 +974,14 @@ def check_gru_bwd(calls):
     by = {r['bound'][1] for r in rows}
     total['bound_by'] = by.pop() if len(by) == 1 else 'operations'
     detail = '; '.join(
-        f"u={r['u']} ({r['t']}, {r['b']}): err {r['err']:.3g} (peak "
-        f"{r['peak']:.3g}), {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms, "
-        f"cuDNN backward {r['library_ms']:.4f} ms, bound "
-        f"{r['bound'][0]:.5f} ms ({r['bound'][1]})" for r in rows)
+        f"u={r['u']} ({r['t']}, {r['b']}): err {r['err']:.3g}, at most "
+        f"{r['rel']:.3g} of a stream's peak (peaks up to {r['peak']:.3g}, "
+        f"median |stream| {r['median'][0]:.3g}-{r['median'][1]:.3g}), "
+        f"{r['ms']:.4f} ms = "
+        f"{1e3 * r['ms'] / r['t']:.3f} us/step, plain {r['plain_ms']:.3f} "
+        f"ms, cuDNN backward {r['library_ms']:.4f} ms, bound "
+        f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {r['plan']}"
+        for r in rows)
     return total, detail + "; the chain of 750 serial steps bounds it"
 
 
@@ -1092,9 +1148,42 @@ def step_gradients(device, batch, noise, logmag_weight):
             {n: p.grad.detach().cpu() for n, p in trainer.named_params})
 
 
+@contextlib.contextmanager
+def plain_gru(dtype=torch.float32):
+    """The GRU kernels' plain versions in their place, on the card too,
+    computing in ``dtype`` and returning float32."""
+    from ddsp_piano_torch.kernels import gru as kgru
+
+    saved = kgru.gru_scan_cuda, kgru.gru_scan_bwd_cuda
+    kgru.gru_scan_cuda = lambda *args: kgru.gru_scan_plain(
+        *(a.to(dtype) for a in args)).float()
+    kgru.gru_scan_bwd_cuda = lambda *args: tuple(
+        s.float() for s in kgru.gru_scan_plain_bwd(
+            *(a.to(dtype) for a in args)))
+    try:
+        yield
+    finally:
+        kgru.gru_scan_cuda, kgru.gru_scan_bwd_cuda = saved
+
+
+def gradient_gap(got, want):
+    """Per leaf, max-abs difference over the leaf's peak in ``want``; the
+    cosine between the two whole gradients."""
+    errs = {k: ((got[k] - g).abs().max()
+                / max(g.abs().max().item(), 1e-30)).item()
+            for k, g in want.items()}
+    a = torch.cat([g.flatten() for g in got.values()]).double()
+    b = torch.cat([g.flatten() for g in want.values()]).double()
+    return errs, float(a @ b / (a.norm() * b.norm()))
+
+
 def gradient_check():
     """One step's gradients at batch 1, 1 s: cuda against the CPU plain
-    path, with the v2 loss and with its magnitude term alone."""
+    path, with the v2 loss and with its magnitude term alone. Two more
+    steps on cuda with the GRU kernels' plain versions in their place, in
+    float32 and in float64, tell the kernels' share of the gap from the
+    rest of the path's, and how far a GRU that rounds otherwise (here, less)
+    moves the gradients."""
     batch = first_batch(1, seconds=GRAD_CHECK_SECONDS)
     batch.pop('filename', None)
     n_samples = batch['audio'].shape[-1]
@@ -1106,13 +1195,22 @@ def gradient_check():
                                              logmag_weight)
         loss_cpu, grads_cpu = step_gradients('cpu', batch, noise,
                                              logmag_weight)
-        errs = {k: ((grads_gpu[k] - g).abs().max()
-                    / max(g.abs().max().item(), 1e-30)).item()
-                for k, g in grads_cpu.items()}
-        a = torch.cat([g.flatten() for g in grads_gpu.values()]).double()
-        b = torch.cat([g.flatten() for g in grads_cpu.values()]).double()
-        cosine = float(a @ b / (a.norm() * b.norm()))
+        with plain_gru():
+            _, grads_plain_gru = step_gradients(DEV, batch, noise,
+                                                logmag_weight)
+        with plain_gru(torch.float64):
+            _, grads_f64_gru = step_gradients(DEV, batch, noise,
+                                              logmag_weight)
+        errs, cosine = gradient_gap(grads_gpu, grads_cpu)
         worst = max(errs, key=errs.get)
+        witness = {}
+        for key, (got, want) in (
+                ('plain_gru_vs_cpu', (grads_plain_gru, grads_cpu)),
+                ('kernels_vs_plain_gru', (grads_gpu, grads_plain_gru)),
+                ('f64_gru_vs_plain_gru', (grads_f64_gru, grads_plain_gru))):
+            gap = gradient_gap(got, want)[0]
+            leaf = max(gap, key=gap.get)
+            witness[key] = (leaf, gap[leaf])
         tol = STEP_TOL_MAG if name == 'magnitudes' else STEP_TOL_V2
         if not (np.isfinite(loss_gpu) and errs[worst] <= tol
                 and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)
@@ -1124,7 +1222,7 @@ def gradient_check():
         out[name] = dict(loss_gpu=loss_gpu, loss_cpu=loss_cpu,
                          worst=worst, worst_err=errs[worst],
                          median_err=statistics.median(errs.values()),
-                         cosine=cosine, n_leaves=len(errs))
+                         cosine=cosine, n_leaves=len(errs), **witness)
     return out
 
 
@@ -1215,6 +1313,8 @@ def main():
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     row, detail = check_oscillator_full(capture['oscillator_skip'])
     print_full_row('segment', row, detail)
+    row, detail = check_gru(capture['gru_scan'])
+    print_gru_row("the dafx22 segment's inputs", row, detail)
     del capture
 
     runs, osc_errs = dafx22_path()
@@ -1225,6 +1325,10 @@ def main():
               f"launches {r['launches']}; kernels at its own inputs, each "
               f"against its plain version: " + kernels_line(r['kernel_ms']),
               flush=True)
+    print("GRU kernel against its plain version by step, at the 10 s "
+          "renders' inputs: v2 " + gru_error_by_length(m['calls']['gru_scan'])
+          + "; dafx22 " + gru_error_by_length(
+              runs['skip']['calls']['gru_scan']), flush=True)
     print(f"dafx22 --oscillator full vs skip: max-abs / peak wet "
           f"{osc_errs['audio']:.3g}, dry {osc_errs['dry']:.3g} (tolerance "
           f"{K8_K1_TOL:g})", flush=True)
@@ -1247,6 +1351,8 @@ def main():
           f"total loss {loss:.4f}; kernel calls "
           f"{ {k: len(v) for k, v in capture.items()} }", flush=True)
     step_kernel_ms = kernel_ms_per_step(capture)
+    row, detail = check_gru(capture['gru_scan'])
+    print_gru_row("the training step's inputs", row, detail)
     for kernel, check in (('oscillator_skip_bwd', check_oscillator_bwd),
                           ('gru_scan_bwd', check_gru_bwd)):
         row, detail = check(capture[kernel])
@@ -1299,6 +1405,12 @@ def main():
               for name, r in g.items())
           + f" (tolerances {STEP_TOL_MAG:g} magnitudes; {STEP_TOL_V2:g} and "
           f"cosine {STEP_MIN_COSINE} v2)", flush=True)
+    print("gradients with the GRU kernels' plain versions on cuda, worst "
+          "leaf of each pair as a share of its peak: " + '; '.join(
+              f"{name} loss: them against the cpu {r['plain_gru_vs_cpu']}, "
+              f"the kernels against them {r['kernels_vs_plain_gru']}, them "
+              f"in float64 against them {r['f64_gru_vs_plain_gru']}"
+              for name, r in g.items()), flush=True)
 
     for row in kernels:
         route, source, replaces = KERNEL_SOURCES[row['name']]

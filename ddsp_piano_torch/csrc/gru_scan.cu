@@ -2,7 +2,8 @@
 //
 // Replaces: ddsp_piano_tpu/kernels/gru_pallas.py, gru_scan_pallas
 // (_gru_kernel): the recurrence of both GRUs on the v2 inference path
-// (FiLMContextNetwork GRU(64), MonophonicDeepNetwork GRU(192)).
+// (FiLMContextNetwork GRU(64), MonophonicDeepNetwork GRU(192)) and of the
+// dafx22 ContextNetwork and MonophonicNetwork.
 //
 // Work, per step t and batch row b (gate order [z, r, h]):
 //   rec = h U + b_rec                                  (1 x 3u)
@@ -11,167 +12,164 @@
 // The bias association (rec = h U + b_rec, then + x) is the TPU kernel's
 // (gru_pallas.py:66-82) and the plain version's (kernels/gru.py).
 //
-// Bound on the H100: at v2 shapes the whole call moves a few MB and does
-// 2 * T * B * u * 3u flops (0.8 Gflop for the mono GRU at T = 750, B = 16):
-// tens of microseconds at the card's rates. What bounds it is the serial
-// chain of T steps, each a (rows x u) @ (u x 3u) product, a block barrier,
-// the gate math and a second barrier; within one block a step costs at
-// least the product's shared-memory loads and FMAs on one SM.
+// Bound on the H100: at the paths' shapes the whole call moves a few MB
+// and does 2 * T * B * u * 3u flops (0.8 Gflop for the mono GRU at
+// T = 750, B = 16): tens of microseconds at the card's rates. What bounds
+// it is the latency of T dependent steps, each a (rows x u) @ (u x 3u)
+// product, the gate math and an exchange of h. At u = 192, U is 442 KB,
+// twice an SM's shared memory, so one SM cannot hold it.
 //
-// Design: batch rows are independent, so each block owns `rows` rows for
-// all T steps (a persistent launch, no inter-block sync). h (rows x u) and
-// the step's recurrent product (rows x 3u) live in shared memory. Thread j
-// computes column j of the product for all of the block's rows, so each
-// weight it loads is used `rows` times; consecutive threads read
-// consecutive columns (coalesced), and h is read four units at a time as
-// a float4 broadcast. Each step's input projections are loaded into
-// registers before the product, so their latency hides behind it.
+// Design: a thread-block cluster of N CTAs (sm_90) owns `rows` batch rows
+// for all T steps (a persistent launch; clusters never talk to each
+// other). CTA c owns units I_c (m = ceil(u / N) of them) and the z, r and
+// h columns of U that produce them: u x 3m floats, held in registers for
+// the whole launch (72 a thread at u = 192, N = 8), so no step reads U
+// from memory. Thread (unit j, slice s), s in [0, 8): the eight lanes of a
+// unit split the product's k range into interleaved float4 chunks, so no
+// thread chains more than 4 ceil(u / 32) dependent FMAs a row, and each
+// weight in a register feeds every row. The eight partial sums of each
+// (row, gate) are reduced with a reduce-scatter over the eight lanes
+// (7 shuffles for 8 rows), after which lane s holds row s's three
+// pre-activations and does its gate math itself: no shared-memory round
+// trip and no block barrier for the gates.
 //
-// Where U lives: the first `k_staged` rows of the recurrent kernel are
-// staged into shared memory once, as many as fit beside h and the product.
-// At u = 64 that is all of it (48 KB). At u = 192 it is 442 KB, more than
-// an SM's 227 KB, so the remaining rows are read from global memory every
-// step, where they stay resident in the 50 MB L2. Splitting U's columns
-// over a thread-block cluster and swapping h through distributed shared
-// memory removes that traffic and spreads a step over several SMs; it is
-// later work (ROADMAP B.2).
+// The shared pieces (the thread layout, the product, the reduction, the
+// cluster barrier and the launch plan) are in gru_cluster.cuh.
+//
+// The exchange: every CTA keeps the whole h (rows x u) in shared memory,
+// double-buffered. Lane (j, s) writes its h'[s, j] into buffer (t+1) % 2
+// of every CTA of the cluster through distributed shared memory
+// (map_shared_rank), then the cluster meets at one barrier a step
+// (barrier.cluster.arrive.release / wait.acquire). That barrier publishes
+// h_{t+1}, and also proves that every peer has finished reading buffer
+// (t+1) % 2 at step t-1, so one barrier a step is enough. Between arrive
+// and wait each lane loads step t+1's input projections and asks L2 for
+// step t+2's. The plan (gru_scan_plan) picks N, rows and the number of
+// clusters; the row stride u + 4 keeps the eight rows' writes in distinct
+// banks.
 
-#include <cuda_runtime.h>
+#include "gru_cluster.cuh"
 
-#define GRU_MAX_ROWS 8
-// Gate-phase (row, unit) items per thread: rows * u <= 3 * blockDim.x
-// because blockDim.x >= 3u and rows <= GRU_MAX_ROWS.
-#define GRU_MAX_ITEMS ((GRU_MAX_ROWS + 2) / 3)
-#define GRU_SMEM_LIMIT 232448
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-// acc[r] += sum_{k in [k0, k1)} h[r, k] * W[k, j], h read as float4 from
-// shared memory (k0 and k1 multiples of 4).
-__device__ __forceinline__ void gru_dot(const float* __restrict__ W,
-                                        const float* __restrict__ h_s,
-                                        int k0, int k1, int u, int three_u,
-                                        int j, int nrows,
-                                        float acc[GRU_MAX_ROWS]) {
-#pragma unroll 2
-  for (int k = k0; k < k1; k += 4) {
-    const float w0 = W[(size_t)k * three_u + j];
-    const float w1 = W[(size_t)(k + 1) * three_u + j];
-    const float w2 = W[(size_t)(k + 2) * three_u + j];
-    const float w3 = W[(size_t)(k + 3) * three_u + j];
-#pragma unroll
-    for (int r = 0; r < GRU_MAX_ROWS; ++r) {
-      if (r < nrows) {
-        const float4 hv = *reinterpret_cast<const float4*>(h_s + r * u + k);
-        acc[r] += hv.x * w0;
-        acc[r] += hv.y * w1;
-        acc[r] += hv.z * w2;
-        acc[r] += hv.w * w3;
-      }
-    }
-  }
-}
-
-__global__ void gru_scan_kernel(const float* __restrict__ x_proj,
-                                const float* __restrict__ U,
-                                const float* __restrict__ rec_bias,
-                                const float* __restrict__ h0,
-                                float* __restrict__ out,
-                                int T, int B, int u, int rows, int k_staged) {
-  extern __shared__ __align__(16) float smem[];
-  const int three_u = 3 * u;
-  const int row0 = blockIdx.x * rows;
+template <int KC, int RM>
+__global__ void __launch_bounds__(KC <= 2 ? 512 : 256)
+gru_scan_kernel(const float* __restrict__ x_proj, const float* __restrict__ U,
+                const float* __restrict__ rec_bias,
+                const float* __restrict__ h0, float* __restrict__ out, int T,
+                int B, int u, int rows, int m) {
+  extern __shared__ __align__(16) float smem[];   // 2 x rows x (u + 4): h
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / n_cta) * rows;
   const int nrows = min(rows, B - row0);
-  float* h_s = smem;                        // rows * u
-  float* rec_s = h_s + rows * u;            // rows * 3u
-  float* u_s = rec_s + rows * three_u;      // k_staged * 3u
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int n_items = nrows * u;
+  const int three_u = 3 * u;
+  const int hstride = u + 4;
+  const int hplane = rows * hstride;
+  const int s = threadIdx.x & (GRU_SLICES - 1);
+  const int jl = threadIdx.x / GRU_SLICES;
+  const int j = rank * m + jl;
+  const bool unit_ok = jl < m && j < u;
+  const bool gate_ok = unit_ok && s < nrows;
 
-  for (int i = tid; i < n_items; i += nthreads) {
-    h_s[i] = h0[(size_t)row0 * u + i];
+  float4 wz[KC], wr[KC], wh[KC];
+  load_columns<KC>(U, u, j, s, unit_ok, wz, wr, wh);
+  const float bz = unit_ok ? rec_bias[j] : 0.0f;
+  const float br = unit_ok ? rec_bias[u + j] : 0.0f;
+  const float bh = unit_ok ? rec_bias[2 * u + j] : 0.0f;
+
+  for (int i = threadIdx.x; i < nrows * u; i += blockDim.x) {
+    const int r = i / u;
+    smem[r * hstride + (i - r * u)] = h0[(size_t)row0 * u + i];
   }
-  for (int i = tid; i < k_staged * three_u; i += nthreads) u_s[i] = U[i];
-  __syncthreads();
-  const int j = tid;
-  const float bj = (j < three_u) ? rec_bias[j] : 0.0f;
+  float xz = 0.0f, xr = 0.0f, xh = 0.0f;
+  if (gate_ok) {
+    const float* x = x_proj + (size_t)(row0 + s) * three_u;
+    xz = x[j];
+    xr = x[u + j];
+    xh = x[2 * u + j];
+  }
+  if (T > 1) {
+    prefetch_span(x_proj + ((size_t)B + row0) * three_u, nrows * three_u,
+                  rank, n_cta);
+  }
+  cluster.sync();   // h0 staged; every CTA of the cluster is running
 
   for (int t = 0; t < T; ++t) {
-    // This step's input projections, loaded ahead of the product.
-    float xz[GRU_MAX_ITEMS], xr[GRU_MAX_ITEMS], xh[GRU_MAX_ITEMS];
-#pragma unroll
-    for (int it = 0; it < GRU_MAX_ITEMS; ++it) {
-      const int idx = tid + it * nthreads;
-      if (idx < n_items) {
-        const int r = idx / u;
-        const int i = idx - r * u;
-        const float* x = x_proj + ((size_t)t * B + row0 + r) * three_u;
-        xz[it] = x[i];
-        xr[it] = x[u + i];
-        xh[it] = x[2 * u + i];
+    const float* hc = smem + (t & 1) * hplane;
+    float rz, rr, rh;
+    product<KC, RM>(hc, hstride, u, nrows, s, wz, wr, wh, &rz, &rr, &rh);
+    if (gate_ok) {
+      const float z = sigmoidf_(xz + (rz + bz));
+      const float rg = sigmoidf_(xr + (rr + br));
+      const float hh = tanhf(xh + rg * (rh + bh));
+      const float h_new = z * hc[s * hstride + j] + (1.0f - z) * hh;
+      out[((size_t)t * B + row0 + s) * u + j] = h_new;
+      if (t + 1 < T) {
+        float* dst = smem + ((t + 1) & 1) * hplane + s * hstride + j;
+        for (int p = 0; p < n_cta; ++p) {
+          *cluster.map_shared_rank(dst, p) = h_new;
+        }
       }
     }
-    if (j < three_u) {
-      float acc[GRU_MAX_ROWS];
-#pragma unroll
-      for (int r = 0; r < GRU_MAX_ROWS; ++r) acc[r] = 0.0f;
-      gru_dot(u_s, h_s, 0, k_staged, u, three_u, j, nrows, acc);
-      gru_dot(U, h_s, k_staged, u, u, three_u, j, nrows, acc);
-#pragma unroll
-      for (int r = 0; r < GRU_MAX_ROWS; ++r) {
-        if (r < nrows) rec_s[r * three_u + j] = acc[r] + bj;
+    if (t + 1 < T) {
+      cluster_arrive();
+      if (gate_ok) {
+        const float* x = x_proj + ((size_t)(t + 1) * B + row0 + s) * three_u;
+        xz = x[j];
+        xr = x[u + j];
+        xh = x[2 * u + j];
       }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < GRU_MAX_ITEMS; ++it) {
-      const int idx = tid + it * nthreads;
-      if (idx < n_items) {
-        const int r = idx / u;
-        const int i = idx - r * u;
-        const float* rec = rec_s + r * three_u;
-        const float z = sigmoidf_(xz[it] + rec[i]);
-        const float rg = sigmoidf_(xr[it] + rec[u + i]);
-        const float hh = tanhf(xh[it] + rg * rec[2 * u + i]);
-        const float h_new = z * h_s[idx] + (1.0f - z) * hh;
-        h_s[idx] = h_new;
-        out[((size_t)t * B + row0 + r) * u + i] = h_new;
+      if (t + 2 < T) {
+        prefetch_span(x_proj + ((size_t)(t + 2) * B + row0) * three_u,
+                      nrows * three_u, rank, n_cta);
       }
+      cluster_wait();
     }
-    __syncthreads();
   }
 }
 
-// Rows of U staged in shared memory for a launch (a multiple of 4, at most
-// u), or -1 if h and the product alone do not fit.
-extern "C" int gru_scan_staged_rows(int u, int rows) {
-  const long fixed = 4L * rows * 4L * u;    // h and the product
-  if (fixed > GRU_SMEM_LIMIT) return -1;
-  const long per_row = 4L * 3L * u;
-  long k = (GRU_SMEM_LIMIT - fixed) / per_row;
-  k = k < u ? k : u;
-  return (int)(k - k % 4);
+typedef void (*GruKernel)(const float*, const float*, const float*,
+                          const float*, float*, int, int, int, int, int);
+
+#define GRU_KERNELS(RM)                                                     \
+  {(const void*)gru_scan_kernel<1, RM>, (const void*)gru_scan_kernel<2, RM>, \
+   (const void*)gru_scan_kernel<3, RM>, (const void*)gru_scan_kernel<4, RM>, \
+   (const void*)gru_scan_kernel<5, RM>, (const void*)gru_scan_kernel<6, RM>, \
+   (const void*)gru_scan_kernel<7, RM>, (const void*)gru_scan_kernel<8, RM>}
+
+// By compiled rows (1, 2, 4, 8) and float4 chunks per lane (1 .. 8).
+static const void* const kKernels[4][GRU_MAX_CHUNKS] = {
+    GRU_KERNELS(1), GRU_KERNELS(2), GRU_KERNELS(4), GRU_KERNELS(8)};
+
+// Shared bytes: h, double-buffered, rows of u + 4.
+static int smem_of(int u, int m, int rows) { return 4 * 2 * rows * (u + 4); }
+
+// The launch plan (gru_plan in gru_cluster.cuh): plan[0..7] = cluster
+// size, rows per cluster, clusters, threads per CTA, shared bytes per CTA,
+// co-resident clusters, those with an SM to each CTA, units per CTA.
+extern "C" int gru_scan_plan(int B, int u, int* plan) {
+  return gru_plan(B, u, smem_of, kKernels, plan);
 }
 
+// cluster and rows: plan[0] and plan[1] of gru_scan_plan for B and u.
 extern "C" int gru_scan_launch(const float* x_proj, const float* U,
                                const float* rec_bias, const float* h0,
-                               float* out, int T, int B, int u, int rows,
-                               cudaStream_t stream) {
-  if (rows < 1 || rows > GRU_MAX_ROWS || 3 * u > 1024 || u % 4 != 0) {
+                               float* out, int T, int B, int u, int cluster,
+                               int rows, cudaStream_t stream) {
+  int kc, m, threads, smem;
+  if (T < 1 || !launch_shape(B, u, cluster, rows, smem_of, &kc, &m, &threads,
+                             &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int k_staged = gru_scan_staged_rows(u, rows);
-  if (k_staged < 0) return (int)cudaErrorInvalidValue;
-  const int smem = 4 * (rows * u + rows * 3 * u + k_staged * 3 * u);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const void* fn = kKernels[rows_index(rows)][kc - 1];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_launch(fn, B, cluster, rows, threads, smem,
+                                   stream, &cfg, &attr);
+  if (err == cudaSuccess) {
+    err = cudaLaunchKernelEx(&cfg, (GruKernel)fn, x_proj, U, rec_bias, h0,
+                             out, T, B, u, rows, m);
+  }
   if (err != cudaSuccess) return (int)err;
-  const int threads = ((3 * u + 31) / 32) * 32;
-  const int blocks = (B + rows - 1) / rows;
-  gru_scan_kernel<<<blocks, threads, smem, stream>>>(
-      x_proj, U, rec_bias, h0, out, T, B, u, rows, k_staged);
   return (int)cudaGetLastError();
 }

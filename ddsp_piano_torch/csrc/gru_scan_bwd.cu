@@ -14,7 +14,7 @@
 //   dpre   = dh (1 - z) (1 - hh^2)         (the stream dxh)
 //   drh    = dpre r
 //   dr_pre = dpre rh r (1 - r)
-//   dh     = dh z + dz_pre Uz^T + dr_pre Ur^T + drh Uh^T
+//   dh     = dh z + [dz_pre | dr_pre | drh] U^T
 // It emits dxz = dz_pre, dxr = dr_pre, dxh = dpre, drh for every step and
 // dh0, the final carry. The weight gradients (h_prev^T d*, over T * B) and
 // the bias sums are formed outside, by the wrapper, as the TPU wrapper does
@@ -24,287 +24,247 @@
 // Bound on the H100: at v2 training shapes (T = 750, B = 96, u = 192) the
 // call moves ~500 MB and does 2 * 2 * T * B * u * 3u = 32 Gflop of
 // products: ~0.15 ms of bytes, ~0.5 ms of float32 operations. What bounds
-// it is the serial chain of T steps: only the U^T product feeds the carry
-// (h_prev comes from the saved hs), but each step still runs, in one block,
-// the recompute product, the gate math, the U^T product and the sum, with
-// a block barrier between each.
+// it is the latency of the T dependent steps. Only the carry's product
+// (the gate cotangents times U^T) lies on that chain: the recompute reads
+// h_prev from the saved hs.
 //
-// Design (the structure of gru_scan.cu): batch rows are independent, so
-// each block owns `rows` rows for all T steps and the carry dh stays in
-// registers of the threads that own its (row, unit) items. Per step:
-//   A. thread j < 3u: rec[r, j] = sum_k h_prev[r, k] U[k, j] + b[j] for the
-//      block's rows (h_prev read from shared memory as float4 broadcasts);
-//   B. items (r, i): the gate math; the four streams go to global memory
-//      and (dz_pre, dr_pre, drh) overwrite rec[r, i], rec[r, u+i],
-//      rec[r, 2u+i] in place (each item owns exactly those three);
-//   C. thread (p, i) with p = j / u: part[r, j] = sum_{c < u} d[r, pu + c]
-//      U[i, pu + c], the three U^T products; meanwhile h_prev of the next
-//      step is loaded into shared memory and its x_proj and g into
-//      registers;
-//   D. items (r, i): dh = dh z + part_z + part_r + part_h.
-// U at u = 192 is 442 KB, twice an SM's shared memory: its first k_staged
-// rows are staged once in shared memory with a row stride of 3u + 1, so
-// that phase A's column reads (thread j, row k) and phase C's row reads
-// (thread i, row i) both fall in distinct banks. The rows past k_staged
-// come from global memory, where they stay in the 50 MB L2: phase A reads
-// U[k, j] (coalesced over j) and phase C reads a transposed copy
-// U^T[j, i] (coalesced over i), so both products read the same weights
-// without uncoalesced loads. Splitting U over a thread-block cluster is
-// later work (ROADMAP B.2).
+// Design (the cluster of gru_scan.cu): a cluster of N CTAs owns `rows`
+// batch rows for all T steps; CTA c owns units I_c (m of them).
+//   - The recompute: thread (unit j, slice s) holds the z, r and h columns
+//     of U for unit j over its k slice in registers, as in the forward
+//     (the shared pieces are in gru_cluster.cuh); the cluster's rows of
+//     h_prev are copied from hs into a triple buffer in shared memory by
+//     cp.async three steps ahead, and the eight lanes of a unit
+//     reduce-scatter their partials, so that lane s holds row s's
+//     pre-activations.
+//   - The gates are then local: lane s computes row s's four streams.
+//   - The carry needs dh[i] = dhz + sum over all 3u columns k of
+//     D[k] U[i, k], where D = [dz_pre | dr_pre | drh]. Of the two ways to
+//     split it this takes the all-gather: each CTA keeps the rows of U for
+//     its own units (U[I_c, :], m x 3u floats, 55 KB at u = 192, N = 8) in
+//     shared memory, and each lane writes its row's three cotangents into
+//     every CTA's D buffer (rows x 3u, double-buffered) through
+//     distributed shared memory. After one cluster barrier each CTA
+//     finishes its units' dot products locally: no transposed copy of U,
+//     one summation order per dot, and the carry stays in the registers of
+//     the lane that computes the next step's gates. The other way, a
+//     reduce-scatter of the rows x u partials, would need N partial slots
+//     per unit and a second pass over them.
+//   - The recompute of step t-1 does not depend on the carry, so it runs
+//     between the barrier's arrive and its wait: one cluster barrier a
+//     step, and only the carry product, its reduction and the gate math
+//     on the serial chain. The barrier that publishes D_t also proves
+//     every peer has finished reading the buffer that step t-1 writes.
 
-#include <cuda_runtime.h>
+#include "gru_cluster.cuh"
 
-#define GRUB_MAX_ROWS 8
-#define GRUB_MAX_ITEMS ((GRUB_MAX_ROWS + 2) / 3)
-#define GRUB_SMEM_LIMIT 232448
-
-__device__ __forceinline__ float sigmoidf_(float x) {
-  return 1.0f / (1.0f + expf(-x));
+// Copy 16 bytes from global to shared memory without passing registers.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(d), "l"(src) : "memory");
 }
 
-__global__ void gru_scan_bwd_kernel(const float* __restrict__ x_proj,
-                                    const float* __restrict__ U,
-                                    const float* __restrict__ UT,
-                                    const float* __restrict__ rec_bias,
-                                    const float* __restrict__ h0,
-                                    const float* __restrict__ hs,
-                                    const float* __restrict__ g,
-                                    float* __restrict__ streams,
-                                    float* __restrict__ dh0,
-                                    int T, int B, int u, int rows,
-                                    int k_staged) {
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+template <int KC, int RM>
+__global__ void __launch_bounds__(KC <= 2 ? 512 : 256)
+gru_scan_bwd_kernel(const float* __restrict__ x_proj,
+                    const float* __restrict__ U,
+                    const float* __restrict__ rec_bias,
+                    const float* __restrict__ h0,
+                    const float* __restrict__ hs,
+                    const float* __restrict__ g,
+                    float* __restrict__ streams, float* __restrict__ dh0,
+                    int T, int B, int u, int rows, int m) {
   extern __shared__ __align__(16) float smem[];
-  const int three_u = 3 * u;
-  const int stride = three_u + 1;
-  const int row0 = blockIdx.x * rows;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int n_cta = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int row0 = (blockIdx.x / n_cta) * rows;
   const int nrows = min(rows, B - row0);
-  float* hp_s = smem;                        // rows * u
-  float* rec_s = hp_s + rows * u;            // rows * 3u: rec, then d
-  float* part_s = rec_s + rows * three_u;    // rows * 3u
-  float* u_s = part_s + rows * three_u;      // k_staged * (3u + 1)
-  const int tid = threadIdx.x;
-  const int nthreads = blockDim.x;
-  const int n_items = nrows * u;
-  const size_t plane = (size_t)T * B * u;    // one stream
+  const int three_u = 3 * u;
+  const int dstride = three_u + 4;
+  const int dplane = rows * dstride;
+  float* u_rows = smem;                    // m x 3u: U[j, :] of the units
+  float* dbuf = u_rows + m * three_u;      // 2 x rows x (3u + 4): D
+  float* pbuf = dbuf + 2 * dplane;         // 3 x rows x u: h_prev
+  const int s = threadIdx.x & (GRU_SLICES - 1);
+  const int jl = threadIdx.x / GRU_SLICES;
+  const int j = rank * m + jl;
+  const bool unit_ok = jl < m && j < u;
+  const bool gate_ok = unit_ok && s < nrows;
+  const size_t plane = (size_t)T * B * u;  // one stream
   float* dxz = streams;
   float* dxr = streams + plane;
   float* dxh = streams + 2 * plane;
   float* drh_out = streams + 3 * plane;
 
-  for (int i = tid; i < k_staged * three_u; i += nthreads) {
-    const int k = i / three_u;
-    const int j = i - k * three_u;
-    u_s[k * stride + j] = U[i];
+  for (int i = threadIdx.x; i < m * three_u; i += blockDim.x) {
+    const int unit = rank * m + i / three_u;
+    u_rows[i] = unit < u ? U[(size_t)rank * m * three_u + i] : 0.0f;
   }
-  // h_prev of step T-1.
-  for (int i = tid; i < n_items; i += nthreads) {
-    const int r = i / u;
-    const int c = i - r * u;
-    hp_s[i] = (T > 1) ? hs[((size_t)(T - 2) * B + row0 + r) * u + c]
-                      : h0[(size_t)(row0 + r) * u + c];
-  }
-  float xz[GRUB_MAX_ITEMS], xr[GRUB_MAX_ITEMS], xh[GRUB_MAX_ITEMS];
-  float gv[GRUB_MAX_ITEMS], dh[GRUB_MAX_ITEMS], dhz[GRUB_MAX_ITEMS];
-#pragma unroll
-  for (int it = 0; it < GRUB_MAX_ITEMS; ++it) {
-    dh[it] = 0.0f;
-    dhz[it] = 0.0f;
-    const int idx = tid + it * nthreads;
-    if (idx < n_items) {
-      const int r = idx / u;
-      const int c = idx - r * u;
-      const size_t row = (size_t)(T - 1) * B + row0 + r;
-      xz[it] = x_proj[row * three_u + c];
-      xr[it] = x_proj[row * three_u + u + c];
-      xh[it] = x_proj[row * three_u + 2 * u + c];
-      gv[it] = g[row * u + c];
+  float4 wz[KC], wr[KC], wh[KC];
+  load_columns<KC>(U, u, j, s, unit_ok, wz, wr, wh);
+  const float bz = unit_ok ? rec_bias[j] : 0.0f;
+  const float br = unit_ok ? rec_bias[u + j] : 0.0f;
+  const float bh = unit_ok ? rec_bias[2 * u + j] : 0.0f;
+
+  // h_prev of step t (hs[t-1] or h0) for the cluster's rows, staged in
+  // buffer t % 3: issued here, landed after this thread's
+  // cp_async_wait_all, visible to the CTA after the next cluster barrier.
+  auto pbuf_of = [&](int t) { return pbuf + (t % 3) * rows * u; };
+  auto stage = [&](int t) {
+    const float* src =
+        (t > 0 ? hs + (size_t)(t - 1) * B * u : h0) + (size_t)row0 * u;
+    float* dst = pbuf_of(t);
+    for (int i = threadIdx.x; i < nrows * u / 4; i += blockDim.x) {
+      cp_async16(dst + 4 * i, src + 4 * i);
     }
-  }
-  __syncthreads();
-  const int j = tid;
-  const float bj = (j < three_u) ? rec_bias[j] : 0.0f;
-  const int p = j / u;                // phase C: which U^T block
-  const int ci = j - p * u;           // phase C: output unit
+  };
+  // The gate lane's inputs of step t (h_prev from its staged buffer).
+  float xz = 0.0f, xr = 0.0f, xh = 0.0f, gv = 0.0f, hp = 0.0f;
+  auto load_inputs = [&](int t) {
+    if (gate_ok) {
+      const size_t row = (size_t)t * B + row0 + s;
+      xz = x_proj[row * three_u + j];
+      xr = x_proj[row * three_u + u + j];
+      xh = x_proj[row * three_u + 2 * u + j];
+      gv = g[row * u + j];
+      hp = pbuf_of(t)[s * u + j];
+    }
+  };
+
+  for (int t = T - 1; t >= 0 && t >= T - 3; --t) stage(t);
+  cp_async_wait_all();
+  cluster.sync();   // U's rows and h_prev staged; every CTA is running
+  float rz, rr, rh;
+  product<KC, RM>(pbuf_of(T - 1), u, u, nrows, s, wz, wr, wh, &rz, &rr,
+                  &rh);
+  load_inputs(T - 1);
+  float dh = 0.0f;
 
   for (int t = T - 1; t >= 0; --t) {
-    // A. Recompute rec = h_prev U + b.
-    if (j < three_u) {
-      float acc[GRUB_MAX_ROWS];
-#pragma unroll
-      for (int r = 0; r < GRUB_MAX_ROWS; ++r) acc[r] = 0.0f;
-      for (int k = 0; k < u; k += 4) {
-        float w0, w1, w2, w3;
-        if (k < k_staged) {
-          w0 = u_s[k * stride + j];
-          w1 = u_s[(k + 1) * stride + j];
-          w2 = u_s[(k + 2) * stride + j];
-          w3 = u_s[(k + 3) * stride + j];
-        } else {
-          w0 = U[(size_t)k * three_u + j];
-          w1 = U[(size_t)(k + 1) * three_u + j];
-          w2 = U[(size_t)(k + 2) * three_u + j];
-          w3 = U[(size_t)(k + 3) * three_u + j];
-        }
-#pragma unroll
-        for (int r = 0; r < GRUB_MAX_ROWS; ++r) {
-          if (r < nrows) {
-            const float4 hv =
-                *reinterpret_cast<const float4*>(hp_s + r * u + k);
-            acc[r] += hv.x * w0;
-            acc[r] += hv.y * w1;
-            acc[r] += hv.z * w2;
-            acc[r] += hv.w * w3;
-          }
-        }
+    float* dcur = dbuf + (t & 1) * dplane;
+    float dhz = 0.0f;
+    if (gate_ok) {
+      const float rhb = rh + bh;
+      const float z = sigmoidf_(xz + (rz + bz));
+      const float rg = sigmoidf_(xr + (rr + br));
+      const float hh = tanhf(xh + rg * rhb);
+      const float d = dh + gv;
+      const float dz = d * (hp - hh);
+      const float dpre = (d * (1.0f - z)) * (1.0f - hh * hh);
+      const float drh = dpre * rg;
+      const float dr_pre = (dpre * rhb) * (rg * (1.0f - rg));
+      const float dz_pre = dz * (z * (1.0f - z));
+      const size_t o = ((size_t)t * B + row0 + s) * u + j;
+      dxz[o] = dz_pre;
+      dxr[o] = dr_pre;
+      dxh[o] = dpre;
+      drh_out[o] = drh;
+      float* dst = dcur + s * dstride + j;
+      for (int p = 0; p < n_cta; ++p) {
+        float* peer = cluster.map_shared_rank(dst, p);
+        peer[0] = dz_pre;
+        peer[u] = dr_pre;
+        peer[2 * u] = drh;
       }
-#pragma unroll
-      for (int r = 0; r < GRUB_MAX_ROWS; ++r) {
-        if (r < nrows) rec_s[r * three_u + j] = acc[r] + bj;
-      }
+      dhz = d * z;
     }
-    __syncthreads();
-    // B. Gate math and the streams; the gate cotangents replace rec.
-#pragma unroll
-    for (int it = 0; it < GRUB_MAX_ITEMS; ++it) {
-      const int idx = tid + it * nthreads;
-      if (idx < n_items) {
-        const int r = idx / u;
-        const int c = idx - r * u;
-        float* rec = rec_s + r * three_u;
-        const float rh = rec[2 * u + c];
-        const float z = sigmoidf_(xz[it] + rec[c]);
-        const float rg = sigmoidf_(xr[it] + rec[u + c]);
-        const float hh = tanhf(xh[it] + rg * rh);
-        const float hp = hp_s[idx];
-        const float d = dh[it] + gv[it];
-        const float dz = d * (hp - hh);
-        const float dpre = (d * (1.0f - z)) * (1.0f - hh * hh);
-        const float drh = dpre * rg;
-        const float dr_pre = (dpre * rh) * (rg * (1.0f - rg));
-        const float dz_pre = dz * (z * (1.0f - z));
-        const size_t o = ((size_t)t * B + row0 + r) * u + c;
-        dxz[o] = dz_pre;
-        dxr[o] = dr_pre;
-        dxh[o] = dpre;
-        drh_out[o] = drh;
-        rec[c] = dz_pre;
-        rec[u + c] = dr_pre;
-        rec[2 * u + c] = drh;
-        dhz[it] = d * z;
-      }
-    }
-    __syncthreads();
-    // C. The three U^T products; prefetch the next step's inputs.
-    if (j < three_u) {
-      float acc[GRUB_MAX_ROWS];
-#pragma unroll
-      for (int r = 0; r < GRUB_MAX_ROWS; ++r) acc[r] = 0.0f;
-      const int col0 = p * u;
-      for (int c = 0; c < u; c += 4) {
-        float w0, w1, w2, w3;
-        if (ci < k_staged) {
-          const float* ur = u_s + ci * stride + col0 + c;
-          w0 = ur[0];
-          w1 = ur[1];
-          w2 = ur[2];
-          w3 = ur[3];
-        } else {
-          const float* ut = UT + (size_t)(col0 + c) * u + ci;
-          w0 = ut[0];
-          w1 = ut[u];
-          w2 = ut[2 * u];
-          w3 = ut[3 * u];
-        }
-#pragma unroll
-        for (int r = 0; r < GRUB_MAX_ROWS; ++r) {
-          if (r < nrows) {
-            const float4 dv = *reinterpret_cast<const float4*>(
-                rec_s + r * three_u + col0 + c);
-            acc[r] += dv.x * w0;
-            acc[r] += dv.y * w1;
-            acc[r] += dv.z * w2;
-            acc[r] += dv.w * w3;
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < GRUB_MAX_ROWS; ++r) {
-        if (r < nrows) part_s[r * three_u + j] = acc[r];
-      }
-    }
+    cp_async_wait_all();   // h_prev of step t-2, issued a step ago
+    cluster_arrive();
     if (t > 0) {
-      for (int i = tid; i < n_items; i += nthreads) {
-        const int r = i / u;
-        const int c = i - r * u;
-        hp_s[i] = (t > 1) ? hs[((size_t)(t - 2) * B + row0 + r) * u + c]
-                          : h0[(size_t)(row0 + r) * u + c];
-      }
-#pragma unroll
-      for (int it = 0; it < GRUB_MAX_ITEMS; ++it) {
-        const int idx = tid + it * nthreads;
-        if (idx < n_items) {
-          const int r = idx / u;
-          const int c = idx - r * u;
-          const size_t row = (size_t)(t - 1) * B + row0 + r;
-          xz[it] = x_proj[row * three_u + c];
-          xr[it] = x_proj[row * three_u + u + c];
-          xh[it] = x_proj[row * three_u + 2 * u + c];
-          gv[it] = g[row * u + c];
-        }
+      product<KC, RM>(pbuf_of(t - 1), u, u, nrows, s, wz, wr, wh, &rz, &rr,
+                      &rh);
+      load_inputs(t - 1);
+      if (t > 1) {
+        prefetch_span(x_proj + ((size_t)(t - 2) * B + row0) * three_u,
+                      nrows * three_u, rank, n_cta);
+        prefetch_span(g + ((size_t)(t - 2) * B + row0) * u, nrows * u, rank,
+                      n_cta);
       }
     }
-    __syncthreads();
-    // D. The carry.
+    cluster_wait();
+    // Every thread has passed its reads of buffer t % 3 (h_prev of step t,
+    // read a step ago): refill it with step t-3's.
+    if (t > 2) stage(t - 3);
+    // The carry: sum over the 3u columns of D[r, k] U[j, k]. Lanes of no
+    // unit read the last unit's row; their sums are unused.
+    float acc[GRU_MAX_ROWS];
 #pragma unroll
-    for (int it = 0; it < GRUB_MAX_ITEMS; ++it) {
-      const int idx = tid + it * nthreads;
-      if (idx < n_items) {
-        const int r = idx / u;
-        const int c = idx - r * u;
-        const float* part = part_s + r * three_u;
-        dh[it] = dhz[it] + part[c] + part[u + c] + part[2 * u + c];
+    for (int r = 0; r < GRU_MAX_ROWS; ++r) acc[r] = 0.0f;
+    const float* urow = u_rows + min(jl, m - 1) * three_u;
+#pragma unroll 2
+    for (int c = s; c < three_u / 4; c += GRU_SLICES) {
+      const float4 w = *reinterpret_cast<const float4*>(urow + 4 * c);
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const float4 dv = *reinterpret_cast<const float4*>(
+            dcur + min(r, nrows - 1) * dstride + 4 * c);
+        acc[r] = fmaf(dv.x, w.x, acc[r]);
+        acc[r] = fmaf(dv.y, w.y, acc[r]);
+        acc[r] = fmaf(dv.z, w.z, acc[r]);
+        acc[r] = fmaf(dv.w, w.w, acc[r]);
       }
     }
+    dh = dhz + reduce_rows(acc, s);
   }
-#pragma unroll
-  for (int it = 0; it < GRUB_MAX_ITEMS; ++it) {
-    const int idx = tid + it * nthreads;
-    if (idx < n_items) dh0[(size_t)row0 * u + idx] = dh[it];
-  }
+  if (gate_ok) dh0[(size_t)(row0 + s) * u + j] = dh;
 }
 
-// Rows of U staged in shared memory (a multiple of 4, at most u), or -1
-// if the per-row buffers alone do not fit.
-extern "C" int gru_scan_bwd_staged_rows(int u, int rows) {
-  const long fixed = 4L * rows * 7L * u;    // h_prev, rec/d, part
-  if (fixed > GRUB_SMEM_LIMIT) return -1;
-  const long per_row = 4L * (3L * u + 1);
-  long k = (GRUB_SMEM_LIMIT - fixed) / per_row;
-  k = k < u ? k : u;
-  return (int)(k - k % 4);
+typedef void (*GruBwdKernel)(const float*, const float*, const float*,
+                             const float*, const float*, const float*, float*,
+                             float*, int, int, int, int, int);
+
+#define GRUB_KERNELS(RM)                                                  \
+  {(const void*)gru_scan_bwd_kernel<1, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<2, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<3, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<4, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<5, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<6, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<7, RM>,                               \
+   (const void*)gru_scan_bwd_kernel<8, RM>}
+
+// By compiled rows (1, 2, 4, 8) and float4 chunks per lane (1 .. 8).
+static const void* const kKernels[4][GRU_MAX_CHUNKS] = {
+    GRUB_KERNELS(1), GRUB_KERNELS(2), GRUB_KERNELS(4), GRUB_KERNELS(8)};
+
+// Shared bytes: the units' rows of U, D double-buffered in rows of 3u + 4,
+// h_prev triple-buffered.
+static int smem_of(int u, int m, int rows) {
+  return 4 * (m * 3 * u + 2 * rows * (3 * u + 4) + 3 * rows * u);
 }
 
+// The launch plan, as gru_scan_plan (gru_plan in gru_cluster.cuh).
+extern "C" int gru_scan_bwd_plan(int B, int u, int* plan) {
+  return gru_plan(B, u, smem_of, kKernels, plan);
+}
+
+// cluster and rows: plan[0] and plan[1] of gru_scan_bwd_plan for B and u.
 extern "C" int gru_scan_bwd_launch(const float* x_proj, const float* U,
-                                   const float* UT, const float* rec_bias,
-                                   const float* h0, const float* hs,
-                                   const float* g, float* streams,
-                                   float* dh0, int T, int B, int u, int rows,
+                                   const float* rec_bias, const float* h0,
+                                   const float* hs, const float* g,
+                                   float* streams, float* dh0, int T, int B,
+                                   int u, int cluster, int rows,
                                    cudaStream_t stream) {
-  if (rows < 1 || rows > GRUB_MAX_ROWS || 3 * u > 1024 || u % 4 != 0
-      || T < 1 || B < 1) {
+  int kc, m, threads, smem;
+  if (T < 1 || !launch_shape(B, u, cluster, rows, smem_of, &kc, &m, &threads,
+                             &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int k_staged = gru_scan_bwd_staged_rows(u, rows);
-  if (k_staged < 0) return (int)cudaErrorInvalidValue;
-  const int smem = 4 * (rows * 7 * u + k_staged * (3 * u + 1));
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_scan_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const void* fn = kKernels[rows_index(rows)][kc - 1];
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_launch(fn, B, cluster, rows, threads, smem,
+                                   stream, &cfg, &attr);
+  if (err == cudaSuccess) {
+    err = cudaLaunchKernelEx(&cfg, (GruBwdKernel)fn, x_proj, U, rec_bias, h0,
+                             hs, g, streams, dh0, T, B, u, rows, m);
+  }
   if (err != cudaSuccess) return (int)err;
-  const int threads = ((3 * u + 31) / 32) * 32;
-  const int blocks = (B + rows - 1) / rows;
-  gru_scan_bwd_kernel<<<blocks, threads, smem, stream>>>(
-      x_proj, U, UT, rec_bias, h0, hs, g, streams, dh0, T, B, u, rows,
-      k_staged);
   return (int)cudaGetLastError();
 }

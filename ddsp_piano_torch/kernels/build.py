@@ -1,8 +1,10 @@
 """Build the CUDA kernels at first use and load them through ctypes.
 
-Each ``csrc/*.cu`` file is compiled on its own by ``nvcc`` into a shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds); all sources compile in parallel. Outputs go to
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
+compiled on its own by ``nvcc`` into a shared library with a plain C
+interface (no PyTorch headers, so a build takes
+seconds; the GRU sources, 32 kernel instances each, about half a minute);
+all sources compile in parallel. Outputs go to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
@@ -50,8 +52,8 @@ SIGNATURES = {
         'note_release_launch': (_P, _P, _P, _P, _P, _I, _I, _P),
     },
     'gru_scan': {
-        'gru_scan_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-        'gru_scan_staged_rows': (_I, _I),
+        'gru_scan_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        'gru_scan_plan': (_I, _I, _P),
     },
     'oscillator_skip': {
         'osc_skip_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
@@ -63,9 +65,9 @@ SIGNATURES = {
                                     _I, _P),
     },
     'gru_scan_bwd': {
-        'gru_scan_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+        'gru_scan_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _P),
-        'gru_scan_bwd_staged_rows': (_I, _I),
+        'gru_scan_bwd_plan': (_I, _I, _P),
     },
     'oscillator_skip_bwd': {
         'osc_skip_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -116,6 +118,8 @@ def _build_dir() -> Path:
         digest.update(name.encode())
         digest.update((CSRC / f'{name}.cu').read_bytes())
         digest.update(' '.join(_flags(name)).encode())
+    for header in sorted(CSRC.glob('*.cuh')):
+        digest.update(header.read_bytes())
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 

@@ -11,15 +11,22 @@ ported: a shape a kernel cannot take raises.
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+import functools
+from typing import Dict, Tuple
 
 import torch
 
 from ddsp_piano_torch.device import tensor_device
 from ddsp_piano_torch.kernels import build
 
-# Batch rows per block: each loaded weight feeds this many rows' products.
-ROWS_PER_BLOCK = 4
+# A launch plan's fields, as gru_scan_plan and gru_scan_bwd_plan fill them
+# (gru_plan, csrc/gru_cluster.cuh): CTAs per cluster, batch rows per
+# cluster, clusters, threads and shared bytes per CTA, the clusters the
+# card keeps resident at once (cudaOccupancyMaxActiveClusters), those
+# among them with an SM to each CTA, and units per CTA.
+PLAN_FIELDS = ('cluster', 'rows', 'clusters', 'threads', 'smem_bytes',
+               'active_clusters', 'exclusive_clusters', 'units_per_cta')
 
 
 def gru_scan_plain(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
@@ -112,29 +119,46 @@ def _check_gru(what, x_proj, rec_kernel, rec_bias, h0):
             f"{what}: shapes x_proj {tuple(x_proj.shape)}, rec_kernel "
             f"{tuple(rec_kernel.shape)}, rec_bias {tuple(rec_bias.shape)}, "
             f"h0 {tuple(h0.shape)} do not form a GRU of width u = {u}")
-    if three_u > 1024 or u % 4 != 0:
-        raise ValueError(f"{what} takes u <= 340, a multiple of 4; "
-                         f"got u = {u}")
     return t, b, u
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(kernel: str, device: int, b: int, u: int) -> Tuple[int, ...]:
+    fields = (ctypes.c_int * len(PLAN_FIELDS))()
+    code = getattr(build.library(kernel), f'{kernel}_plan')(b, u, fields)
+    if code == 1:          # cudaErrorInvalidValue: no plan takes the shape
+        raise ValueError(
+            f"{kernel}: no launch plan takes B = {b}, u = {u}; u must be a "
+            "multiple of 4 up to 256")
+    build.check(code, f'{kernel}_plan')
+    return tuple(fields)
+
+
+def launch_plan(kernel: str, b: int, u: int) -> Dict[str, int]:
+    """The C plan of ``kernel`` ('gru_scan' or 'gru_scan_bwd') for B rows
+    of width u on the current card. Raises ValueError on a shape that no
+    plan takes."""
+    return dict(zip(PLAN_FIELDS, _plan(kernel, torch.cuda.current_device(),
+                                       b, u)))
 
 
 def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
                   rec_bias: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
     """K2 on CUDA tensors; raises on anything it does not take."""
     t, b, u = _check_gru('gru_scan_cuda', x_proj, rec_kernel, rec_bias, h0)
-    lib = build.library('gru_scan')
-    rows = min(ROWS_PER_BLOCK, max(b, 1))
-    if lib.gru_scan_staged_rows(u, rows) < 0:
-        raise ValueError(f"gru_scan_cuda: u = {u} needs more shared memory "
-                         "than a block has")
     x, w, bias, h = (a.detach().contiguous()
                      for a in (x_proj, rec_kernel, rec_bias, h0))
     out = torch.empty((t, b, u), dtype=torch.float32, device=x.device)
-    if t == 0 or b == 0:
+    if b == 0:
         return out
-    code = lib.gru_scan_launch(
+    with torch.cuda.device(x.device):
+        plan = launch_plan('gru_scan', b, u)
+    if t == 0:
+        return out
+    code = build.library('gru_scan').gru_scan_launch(
         x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
-        out.data_ptr(), t, b, u, rows, build.stream_handle(x.device))
+        out.data_ptr(), t, b, u, plan['cluster'], plan['rows'],
+        build.stream_handle(x.device))
     build.check(code, 'gru_scan_launch')
     build.LAUNCHES['gru_scan'] += 1
     return out
@@ -152,25 +176,21 @@ def gru_scan_bwd_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
                 or tuple(a.shape) != (t, b, u)):
             raise ValueError(f"gru_scan_bwd_cuda: {name} must be a float32 "
                              f"CUDA tensor of ({t}, {b}, {u})")
-    lib = build.library('gru_scan_bwd')
-    rows = min(ROWS_PER_BLOCK, max(b, 1))
-    if lib.gru_scan_bwd_staged_rows(u, rows) < 0:
-        raise ValueError(f"gru_scan_bwd_cuda: u = {u} needs more shared "
-                         "memory than a block has")
     x, w, bias, h, hs_c, g_c = (a.detach().contiguous() for a in
                                 (x_proj, rec_kernel, rec_bias, h0, hs, g))
-    w_t = w.t().contiguous()
     streams = torch.empty((4, t, b, u), dtype=torch.float32, device=x.device)
     dh0 = torch.empty((b, u), dtype=torch.float32, device=x.device)
     if b == 0:
         return tuple(streams) + (dh0,)
+    with torch.cuda.device(x.device):
+        plan = launch_plan('gru_scan_bwd', b, u)
     if t == 0:
         dh0.zero_()
         return tuple(streams) + (dh0,)
-    code = lib.gru_scan_bwd_launch(
-        x.data_ptr(), w.data_ptr(), w_t.data_ptr(), bias.data_ptr(),
-        h.data_ptr(), hs_c.data_ptr(), g_c.data_ptr(), streams.data_ptr(),
-        dh0.data_ptr(), t, b, u, rows, build.stream_handle(x.device))
+    code = build.library('gru_scan_bwd').gru_scan_bwd_launch(
+        x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
+        hs_c.data_ptr(), g_c.data_ptr(), streams.data_ptr(), dh0.data_ptr(),
+        t, b, u, plan['cluster'], plan['rows'], build.stream_handle(x.device))
     build.check(code, 'gru_scan_bwd_launch')
     build.LAUNCHES['gru_scan_bwd'] += 1
     return tuple(streams) + (dh0,)

@@ -55,19 +55,51 @@ def test_oscillator_kernel_matches_plain(cuda_device):
     assert (got - want).abs().max().item() <= 1e-5 * scale
 
 
+# (u, B, T) for the GRU kernels: the paths' widths at the render's B = 16
+# and the training step's B = 96; B that no row count divides; a single
+# step; u whose k range or units the plan splits unevenly.
+GRU_CASES = [
+    (64, 1, 60), (64, 16, 60), (192, 16, 60), (64, 96, 60), (192, 96, 60),
+    (192, 6, 60), (192, 13, 60), (64, 13, 60),
+    (192, 16, 1), (64, 13, 1),
+    (20, 5, 60),       # one CTA: 5 float4 chunks of k over 8 lanes
+    (196, 16, 60),     # 25 units a CTA, 21 in the last
+]
+
+
+def _gru_inputs(u, B, T, device, x_scale=1.0):
+    rng = np.random.RandomState(u + B + T)
+    x_proj = _t(x_scale * rng.randn(T, B, 3 * u), device)
+    rec = _t(np.linalg.qr(rng.randn(3 * u, u))[0].T, device)
+    bias = _t(0.1 * rng.randn(3 * u), device)
+    h0 = _t(0.5 * rng.randn(B, u), device)
+    g = _t(rng.randn(T, B, u), device)
+    return x_proj, rec, bias, h0, g
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('u,B', [(64, 1), (192, 16)])
-def test_gru_kernel_matches_plain(cuda_device, u, B):
-    rng = np.random.RandomState(u)
-    x_proj = _t(rng.randn(50, B, 3 * u), cuda_device)
-    rec = _t(np.linalg.qr(rng.randn(3 * u, u))[0].T, cuda_device)
-    bias = _t(0.1 * rng.randn(3 * u), cuda_device)
-    h0 = _t(0.5 * rng.randn(B, u), cuda_device)
+@pytest.mark.parametrize('u,B,T', GRU_CASES)
+def test_gru_kernel_matches_plain(cuda_device, u, B, T):
+    x_proj, rec, bias, h0, _ = _gru_inputs(u, B, T, cuda_device)
+    build.reset_launches()
     got = tgru.gru_scan_cuda(x_proj, rec, bias, h0)
     want = tgru.gru_scan_plain(x_proj, rec, bias, h0)
     torch.cuda.synchronize()
-    # Dot-product summation order: 1e-5 over 50 steps.
+    assert build.LAUNCHES['gru_scan'] == 1
+    # Dot-product summation order: 1e-5 over 60 steps.
     assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('u', [18, 260])
+def test_gru_kernels_refuse_what_no_plan_takes(cuda_device, u):
+    x_proj, rec, bias, h0, g = _gru_inputs(u, 4, 3, cuda_device)
+    build.reset_launches()
+    with pytest.raises(ValueError, match='no launch plan'):
+        tgru.gru_scan_cuda(x_proj, rec, bias, h0)
+    with pytest.raises(ValueError, match='no launch plan'):
+        tgru.gru_scan_bwd_cuda(x_proj, rec, bias, h0, g[:, :, :u], g)
+    assert build.LAUNCHES['gru_scan'] == build.LAUNCHES['gru_scan_bwd'] == 0
 
 
 @pytest.mark.cuda
@@ -141,14 +173,9 @@ def test_oscillator_bwd_kernel_matches_plain(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('u,B', [(64, 6), (192, 16)])
-def test_gru_bwd_kernel_matches_plain(cuda_device, u, B):
-    rng = np.random.RandomState(u)
-    x_proj = _t(0.5 * rng.randn(70, B, 3 * u), cuda_device)
-    rec = _t(np.linalg.qr(rng.randn(3 * u, u))[0].T, cuda_device)
-    bias = _t(0.1 * rng.randn(3 * u), cuda_device)
-    h0 = _t(0.5 * rng.randn(B, u), cuda_device)
-    g = _t(rng.randn(70, B, u), cuda_device)
+@pytest.mark.parametrize('u,B,T', GRU_CASES)
+def test_gru_bwd_kernel_matches_plain(cuda_device, u, B, T):
+    x_proj, rec, bias, h0, g = _gru_inputs(u, B, T, cuda_device, 0.5)
     hs = tgru.gru_scan_plain(x_proj, rec, bias, h0)
     build.reset_launches()
     got = tgru.gru_scan_bwd_cuda(x_proj, rec, bias, h0, hs, g)
@@ -156,7 +183,7 @@ def test_gru_bwd_kernel_matches_plain(cuda_device, u, B):
     torch.cuda.synchronize()
     assert build.LAUNCHES['gru_scan_bwd'] == 1
     for name, a, w in zip(('dxz', 'dxr', 'dxh', 'drh', 'dh0'), got, want):
-        # expf/tanhf and dot-product order over 70 steps: 1e-5 of each
+        # expf/tanhf and dot-product order over 60 steps: 1e-5 of each
         # stream's peak.
         assert (a - w).abs().max().item() <= 1e-5 * max(
             1.0, w.abs().max().item()), name

@@ -21,9 +21,10 @@ non-zero exit code and no result line:
    shared memory and the co-resident clusters.
 4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
    at full width on ``cuda``, with every launch counter set to 0 just
-   before and read just after; K1-K3 must have launched. Each launch is
-   then held against its plain version on the card at the inputs the run
-   gave it, and timed.
+   before and read just after; K1-K3 must have launched. Two more renders
+   time the forward again: the line gives the median of the three. Each
+   launch is then held against its plain version on the card at the
+   inputs the run gave it, and timed.
 5. The same 3 s segment on the card, against the CPU render of phase 3
    (same initial weights, same injected noise).
 6. dafx22 kernels: the 3 s segment through the dafx22 model (16 kHz, 96
@@ -38,8 +39,9 @@ non-zero exit code and no result line:
    oscillator and with ``--oscillator full``, every launch counter set to
    0 just before each run and read just after: the first must launch K1,
    K2 and K3 and not K8, the second K8, K2 and K3 and not K1; the two
-   renders must agree. Each launch is held against its plain version at
-   the inputs the run gave it, and K8's row of the kernel line (error,
+   renders must agree. Each forward time is the median of three renders.
+   Each launch is held against its plain version at the inputs the run
+   gave it, and K8's row of the kernel line (error,
    times, bound) is taken at the full run's oscillator inputs, as in
    phase 6. Then K2 against its plain version step by step at the 10 s
    renders' inputs: the error over the first 750 steps and over the rest.
@@ -52,7 +54,10 @@ non-zero exit code and no result line:
    inputs of the gradient kernels (K4-K7) inside their autograd
    Functions; each is held against its plain version on the card at those
    inputs and timed beside its plain version and its library yardstick.
-   K2 is also held and timed at the step's B = 96.
+   K2 and K1 are also held and timed at the step's inputs (B = 96 voice
+   rows). K1 and K4 lines give each call's time (median, least-most of
+   25); K4's line the shares of sounding and silent cells below Nyquist.
+   (chip_oscillator_ab.py reads K1's and K4's time on the card alone.)
 11. The training path: ``train_single_phase.main`` trains maestro_v2
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
@@ -64,7 +69,9 @@ non-zero exit code and no result line:
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-13. One JSON line of kernel numbers, then the result line.
+13. One JSON line of kernel numbers (K1's row at the training step's
+   inputs, its launches those of the v2 render and the CLI run), then the
+   result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO and the training
 run's checkpoints go to build/ in the checkout.
@@ -110,11 +117,14 @@ PEAK_BYTES_PER_S = 3.35e12
 
 # Whole-slice tolerance, a share of peak (tests/test_torch_render.py).
 SLICE_TOL = 1.1e-4
-# Kernel vs plain version on the same card. Oscillator: the same terms
-# bit for bit (both round every operation on its own), summed over up to
-# 128 partials in another order. GRU: expf/tanhf against PyTorch's own
-# and another dot-product order, over 750 steps of a contracting
-# recurrence. NoteRelease: bit-exact.
+# Kernel vs plain version on the same card. Oscillator (K1, K8): the same
+# phase, crossfade, frequency and range reduction, each operation rounded
+# on its own as the plain version rounds it; K1's degree-6 polynomial and
+# its accumulation round once per multiply-add
+# (csrc/oscillator_common.cuh), and the sum over up to 192 partials runs in
+# another order. GRU: expf/tanhf against PyTorch's own and another
+# dot-product order, over 750 steps of a contracting recurrence.
+# NoteRelease: bit-exact.
 OSC_TOL = 1e-5                 # share of peak
 GRU_TOL = 1e-5                 # absolute (|h| < 1)
 # K8 against K1, and the dafx22 render with one against the other: the
@@ -122,11 +132,13 @@ GRU_TOL = 1e-5                 # absolute (|h| < 1)
 # sum (tests/test_oscillator.py:190), a share of peak.
 K8_K1_TOL = 1e-4
 # Gradient kernels against their plain versions on the card: the
-# oscillator backward computes the plain VJP's terms bit for bit and sums
-# the 96 samples of a frame in another order (share of each gradient's
-# peak); the GRU backward differs from its plain version as the forward
-# does (expf/tanhf, dot-product order), a share of each stream's peak
-# (tests/test_torch_cuda.py); NoteRelease bit-exact.
+# oscillator backward computes the plain VJP's phase, mask, crossfade and
+# range reduction as the plain version rounds them, its degree-4
+# polynomials and its five sums with one rounding per multiply-add, and
+# sums the up samples of a frame in another order (share of each
+# gradient's peak); the GRU backward differs from its plain version as
+# the forward does (expf/tanhf, dot-product order), a share of each
+# stream's peak (tests/test_torch_cuda.py); NoteRelease bit-exact.
 OSC_BWD_TOL = 1e-5
 GRU_BWD_TOL = 1e-5
 # One training step on cuda against the CPU plain path, per trainable
@@ -149,9 +161,12 @@ OSC_FULL_FLOPS_PER_TERM = 33   # per (partial, sample), all computed:
 #   6, degree-4 polynomial in r^2 9, sign 1)
 GRU_GATE_FLOPS_PER_UNIT = 17   # per (step, row, unit), besides h U + b
 NR_FLOPS_PER_STEP = 14         # per (step, lane)
-OSC_BWD_FLOPS_PER_TERM = 50    # per computed (partial, sample): phase 5,
-#   frequency and mask 3, crossfade 4, range reduction 8, two degree-4
-#   polynomials 17, cotangents 4, five sums 9
+OSC_BWD_FLOPS_SOUNDING = 50    # per (partial, sample) of a sounding cell
+#   below Nyquist: phase 5, frequency and mask 3, crossfade 4, range
+#   reduction 8, two degree-4 polynomials 17, cotangents 4, five sums 9
+OSC_BWD_FLOPS_SILENT = 30      # per (partial, sample) of a silent cell
+#   (a_lo = a_hi = 0) below Nyquist: phase 5, frequency and mask 3, range
+#   reduction 8, degree-4 cosine 8, gc 2, two sums 4
 GRU_BWD_GATE_FLOPS_PER_UNIT = 34   # per (step, row, unit), besides the
 #   recompute h U + b and the chain's three U^T products
 NR_BWD_FLOPS_PER_STEP = 40     # per (step, lane)
@@ -166,8 +181,10 @@ def sync():
     torch.cuda.synchronize()
 
 
-def median_ms(fn, n=N_TIMED, warmup=3):
-    """Median over ``n`` launches of ``fn`` of its CUDA-event time, ms."""
+def event_times(fn, n=N_TIMED, warmup=3):
+    """CUDA-event ms of each of ``n`` calls of ``fn`` after ``warmup``: from
+    before the call's host work to after its last launch, so a call's host
+    time counts where the card waits for it."""
     for _ in range(warmup):
         fn()
     sync()
@@ -180,7 +197,18 @@ def median_ms(fn, n=N_TIMED, warmup=3):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def median_ms(fn, n=N_TIMED, warmup=3):
+    """Median over ``n`` calls of ``fn`` of its CUDA-event time, ms."""
+    return statistics.median(event_times(fn, n, warmup))
+
+
+def spread_text(times):
+    """A kernel's call times: median (least-most)."""
+    return (f"call {statistics.median(times):.4f} ms ({min(times):.4f}-"
+            f"{max(times):.4f}) over {len(times)}")
 
 
 def bound(flops, nbytes):
@@ -343,23 +371,24 @@ def to_card(args):
     return args
 
 
-def check_oscillator(calls):
+def check_oscillator(calls, where='the v2 segment'):
     from ddsp_piano_torch.kernels import oscillator as kosc
 
     (controls, up, sr), = calls
     controls = to_card(controls)
     b, n_frames, k = controls.f_lo.shape
+    kernel = lambda: kosc.render_framewise_skip_cuda(controls, up, sr)
     with torch.inference_mode():
-        got = kosc.render_framewise_skip_cuda(controls, up, sr)
+        got = kernel()
         want = kosc.render_framewise_plain(controls, up, sr)
         sync()
         peak = want.abs().max().item()
         err = (got - want).abs().max().item()
         if not (np.isfinite(err) and err <= OSC_TOL * peak):
-            fail(f"oscillator kernel differs from its plain version: "
-                 f"{err} > {OSC_TOL} x peak {peak}")
-        ms = median_ms(lambda: kosc.render_framewise_skip_cuda(controls, up,
-                                                              sr))
+            fail(f"oscillator kernel at {(b, n_frames, k)} differs from its "
+                 f"plain version: {err} > {OSC_TOL} x peak {peak}")
+        del got, want
+        times = event_times(kernel)
         plain_ms = median_ms(lambda: kosc.render_framewise_plain(controls, up,
                                                                  sr))
         library_ms = library_osc_ms(controls, up, sr)
@@ -367,9 +396,11 @@ def check_oscillator(calls):
     bound_ms, bound_by = osc_bound(OSC_FLOPS_PER_TERM * live * up, controls,
                                    up)
     detail = (f"controls 5 x {(b, n_frames, k)}, live partials "
-              f"{live}/{controls.f_lo.numel()}")
-    return dict(name='oscillator_skip', max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+              f"{live}/{controls.f_lo.numel()}, max err / peak "
+              f"{err / peak:.3g}; {spread_text(times)}")
+    return dict(name='oscillator_skip', max_abs_err=err,
+                ms=statistics.median(times), plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by), detail
 
 
@@ -707,6 +738,7 @@ def main_path():
     sync()
     wall = time.perf_counter() - start
     launches = dict(build.LAUNCHES)
+    forwards = [result['seconds']] + timed_renders(cli, args)
     missing = [k for k in RENDER_KERNELS if launches[k] == 0]
     if missing:
         fail(f"the render path launched no {missing} kernel: {launches}")
@@ -726,10 +758,22 @@ def main_path():
     if miss:
         fail(f"dry spectral peaks {miss} Hz lie on no partial of the "
              f"played notes")
-    return dict(launches=launches, wall=wall, forward=result['seconds'],
-                kernel_ms=kernel_ms, calls=shapes,
-                rtf=MAIN_PATH_SECONDS / result['seconds'], peaks=peaks,
+    forward = statistics.median(forwards)
+    return dict(launches=launches, wall=wall, forward=forward,
+                forwards=forwards, kernel_ms=kernel_ms, calls=shapes,
+                rtf=MAIN_PATH_SECONDS / forward, peaks=peaks,
                 bin_hz=bin_hz, n_pitches=len(pitches))
+
+
+def timed_renders(cli, args, n=2):
+    """The forward seconds of ``n`` more renders with ``args``, after the
+    counted one: the render's time outside the kernels is host work that
+    moves by milliseconds between renders of the same code."""
+    return [cli.main(args)['seconds'] for _ in range(n)]
+
+
+def forwards_text(forwards):
+    return ' / '.join(f"{1e3 * f:.1f}" for f in forwards)
 
 
 # -- phase 7 ------------------------------------------------------------------
@@ -761,6 +805,7 @@ def dafx22_path():
         result = cli.main(args)
         sync()
         launches = dict(build.LAUNCHES)
+        forwards = [result['seconds']] + timed_renders(cli, args)
         other = DAFX22_PATH_KERNELS['full' if oscillator == 'skip'
                                     else 'skip'][0]
         missing = [k for k in kernels if launches[k] == 0]
@@ -774,9 +819,10 @@ def dafx22_path():
             rms = float(np.sqrt(np.mean(x.astype(np.float64) ** 2)))
             if not np.isfinite(x).all() or rms <= 1e-4:
                 fail(f"dafx22 {name} audio not finite or silent (rms {rms})")
+        forward = statistics.median(forwards)
         runs[oscillator] = dict(
-            launches=launches, forward=result['seconds'],
-            rtf=MAIN_PATH_SECONDS / result['seconds'], audio=audio,
+            launches=launches, forward=forward, forwards=forwards,
+            rtf=MAIN_PATH_SECONDS / forward, audio=audio,
             dry=result['dry'], calls=shapes, kernel_ms=path_kernels(
                 shapes, f'dafx22 --oscillator {oscillator}'))
     errs = {}
@@ -875,21 +921,35 @@ def check_oscillator_bwd(calls):
                  f"version in d{name}: {err} > {OSC_BWD_TOL} x peak {peak}")
         errs.append(err)
         rel.append(err / max(peak, 1e-30))
-    computed = kosc.audible_partials(controls, sr).sum().item()
-    ms = median_ms(lambda: kosc.render_framewise_skip_bwd_cuda(controls, g,
-                                                               up, sr))
+    f_lo, f_hi, a_lo, a_hi, _ = controls
+    audible = torch.minimum(f_lo, f_hi) < sr / 2.0
+    silent = audible & (a_lo == 0) & (a_hi == 0)
+    if not all(bool((d[silent] == 0).all()) for d in (got.f_lo, got.f_hi,
+                                                       got.phase0)):
+        fail("oscillator backward kernel: a silent cell's d f_lo, d f_hi or "
+             "d phase0 is not 0")
+    n_silent = silent.sum().item()
+    n_sounding = audible.sum().item() - n_silent
+    del got, want
+    kernel = lambda: kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
+    times = event_times(kernel)
     plain_ms = median_ms(lambda: kosc.render_framewise_vjp_plain(
         controls, g, up, sr), n=5, warmup=1)
     library_ms, slices = library_osc_bwd_ms(controls, g, up, sr)
-    flops = OSC_BWD_FLOPS_PER_TERM * computed * up
+    flops = (OSC_BWD_FLOPS_SOUNDING * n_sounding
+             + OSC_BWD_FLOPS_SILENT * n_silent) * up
     nbytes = 4 * (10 * b * n_frames * k + b * n_frames * up)
     bound_ms, bound_by = bound(flops, nbytes)
+    computed = n_sounding + n_silent
     detail = (f"controls 5 x {tuple(controls.f_lo.shape)}, g "
-              f"{tuple(g.shape)}; computed partials {computed}/"
-              f"{controls.f_lo.numel()} (Nyquist-only bound); max err / peak "
-              f"{max(rel):.3g}; library = autograd of the library forward "
-              f"over {slices}")
-    return dict(name='oscillator_skip_bwd', max_abs_err=max(errs), ms=ms,
+              f"{tuple(g.shape)}; cells below Nyquist {computed}/"
+              f"{controls.f_lo.numel()}: sounding {n_sounding} "
+              f"({100 * n_sounding / max(computed, 1):.1f} %), silent "
+              f"{n_silent} ({100 * n_silent / max(computed, 1):.1f} %); max "
+              f"err / peak {max(rel):.3g}; {spread_text(times)}; "
+              f"library = autograd of the library forward over {slices}")
+    return dict(name='oscillator_skip_bwd', max_abs_err=max(errs),
+                ms=statistics.median(times),
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by), detail
 
@@ -1292,7 +1352,8 @@ def main():
 
     m = main_path()
     print(f"main path: demo.mid {MAIN_PATH_SECONDS:g} s on cuda, forward "
-          f"{m['forward'] * 1e3:.1f} ms ({m['rtf']:.1f}x realtime), wall "
+          f"{m['forward'] * 1e3:.1f} ms ({m['rtf']:.1f}x realtime; median of "
+          f"{forwards_text(m['forwards'])} ms), wall "
           f"{m['wall']:.2f} s; launches {m['launches']}; dry peaks "
           f"{np.round(m['peaks'], 2).tolist()} Hz on partials of "
           f"{m['n_pitches']} pitches (+-{2 * m['bin_hz']:.2f} Hz)",
@@ -1321,7 +1382,8 @@ def main():
     for oscillator, r in runs.items():
         print(f"dafx22 path, --oscillator {oscillator}: demo.mid "
               f"{MAIN_PATH_SECONDS:g} s on cuda, forward "
-              f"{r['forward'] * 1e3:.1f} ms ({r['rtf']:.1f}x realtime); "
+              f"{r['forward'] * 1e3:.1f} ms ({r['rtf']:.1f}x realtime; "
+              f"median of {forwards_text(r['forwards'])} ms); "
               f"launches {r['launches']}; kernels at its own inputs, each "
               f"against its plain version: " + kernels_line(r['kernel_ms']),
               flush=True)
@@ -1353,6 +1415,16 @@ def main():
     step_kernel_ms = kernel_ms_per_step(capture)
     row, detail = check_gru(capture['gru_scan'])
     print_gru_row("the training step's inputs", row, detail)
+    # K1's row of the kernel line: the step's inputs (all but one of its
+    # launches on the two paths are the CLI run's steps).
+    row, detail = check_oscillator(capture['oscillator_skip'],
+                                   'the training step')
+    kernels[[r['name'] for r in kernels].index('oscillator_skip')] = row
+    print(f"kernel oscillator_skip at the training step's inputs: {detail}; "
+          f"max_abs_err {row['max_abs_err']:.3g}; kernel_ms {row['ms']:.4f} "
+          f"plain_ms {row['plain_ms']:.4f} library_ms "
+          f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
+          f"({row['bound_by']})", flush=True)
     for kernel, check in (('oscillator_skip_bwd', check_oscillator_bwd),
                           ('gru_scan_bwd', check_gru_bwd)):
         row, detail = check(capture[kernel])
@@ -1384,13 +1456,12 @@ def main():
               step_kernel_ms.items())), flush=True)
 
     prof = profile_training_steps()
-    if prof['busy_ms'] > 0:
-        busy = (f"device busy {prof['busy_ms']:.2f} ms "
-                f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %)")
-    else:
-        busy = "device time not measured (the profiler saw no device events)"
+    if not prof['busy_ms'] > 0:
+        fail("the profiler recorded no device time over the training steps")
     print(f"profile of {TRAIN_BATCH}-row training steps (torch.profiler): "
-          f"wall {prof['wall_ms']:.2f} ms per step, {busy}; most device "
+          f"wall {prof['wall_ms']:.2f} ms per step, device busy "
+          f"{prof['busy_ms']:.2f} ms "
+          f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %); most device "
           f"ms per step (calls): {'; '.join(prof['device'])}", flush=True)
     print(f"most host ms per step (calls): {'; '.join(prof['host'])}",
           flush=True)
@@ -1416,6 +1487,9 @@ def main():
         route, source, replaces = KERNEL_SOURCES[row['name']]
         if row['name'] == 'oscillator_full':
             launches = runs['full']['launches'][row['name']]
+        elif row['name'] == 'oscillator_skip':
+            launches = (m['launches'][row['name']]
+                        + t['launches'][row['name']])
         else:
             launches = (m['launches'] if row['name'] in RENDER_KERNELS
                         else t['launches'])[row['name']]

@@ -2,7 +2,8 @@
 //
 // Replaces: ddsp_piano_tpu/kernels/oscillator_pallas.py,
 // render_framewise_pallas_skip (_osc_skip_kernel, with the trig of
-// _range_reduce / _COS6): the additive synth of the v2 inference path.
+// _range_reduce / _COS6): the additive synth of the v2 inference path and
+// the forward of its training step.
 //
 // Work: for voice v, frame f and intra-frame sample s (0 <= s < up),
 //   out[v, f*up + s] = sum_{k < k_last(v, f)} amp_k(s) * cos(phase_k(s))
@@ -15,115 +16,127 @@
 // zeros, so any skip granularity gives the plain render up to the order of
 // the sum over partials.
 //
-// Bound on the H100: operations. Each live (partial, sample) pair costs
-// ~32 float32 operations (phase, crossfade, mask, range reduction, a
-// degree-6 polynomial, accumulate) against 20 bytes of controls per
-// (frame, partial) shared by `up` samples, so at up = 96 it is far above
-// the card's ~20 flop/byte balance point for non-tensor float32.
+// Bound on the H100: issued instructions of the live terms, ~30 float32
+// instructions per live (partial, sample) (phase, crossfade, mask, range
+// reduction, a degree-6 polynomial, the sum); dead frames (a voice with no
+// note, or every partial above Nyquist) are most frames and cost only the
+// bytes that find k_last = 0. At the training step's inputs the live terms
+// alone take ~0.16 ms at full issue; bytes ~0.06 ms.
 //
-// Design: one block per (voice, run of FPB frames); thread (frame, s)
-// renders one output sample, so a frame's 96 samples are exactly 3 warps
-// and the frame's k_last bound is uniform within each warp: a per-frame
-// skip, finer than the TPU's 128-frame x 8-partial tile. The block stages
-// its frames' five control rows in shared memory (coalesced loads), finds
-// each frame's k_last with a shared-memory atomicMax, then every thread
-// loops over k < k_last reading the controls as broadcasts. The cosine is
-// the TPU kernel's default numerics contract: Cody-Waite reduction by a
-// two-part 2*pi, then the degree-6 _COS6 polynomial. Phases reach ~300 rad
-// for audible partials, where __cosf's error grows.
-//
-// Built with --fmad=false: every operation rounds as in the plain PyTorch
-// version (kernels/oscillator.py, render_framewise(trig='poly')), so each
-// term is the plain version's term and only the order of the sum differs.
-// The per-sample tables (h, s(s+1)/(2 up), s + 1, s/up) are computed once
-// by the wrapper with the plain version's own expressions.
+// Design: one block per (run of FPB = 4 frames, voice), runs fastest (the
+// voice allocator fills the low voices first, so the blocks that sound are
+// scheduled first and the dead ones fill in behind them). Thread (frame,
+// s) renders one output sample; a frame's samples are up / 32 warps, so
+// the k_last bound is uniform in each warp.
+// 1. All threads load the frames' five control rows in one pass (coalesced;
+//    one round trip to memory, so a block that sounds waits once), keep
+//    (f_lo, f_hi - f_lo, a_lo, a_hi) as one float4 per cell and phase0 beside
+//    it in shared memory, and find each frame's k_last with a warp max and
+//    one shared atomic per warp.
+// 2. Each thread walks its frame's partials below k_last with two
+//    accumulators (even and odd k: two independent chains in flight), two
+//    shared loads a term, both broadcasts; dead frames write zeros.
+// Measured against other layouts (PERF.md, section 6): splitting a live
+// frame's partials into slices across more warps, reading phase0 only for
+// live frames in a second pass, and voice-fastest grids were each slower
+// on the card at the paths' inputs; the work of the training step already
+// fills the card, and each extra pass is another wait per block.
+// The per-sample values (h, 1 - h, tri, s + 1, s/up) are one thread's
+// constants, read once from the cached table (kernels/oscillator.py).
+// Rounding: oscillator_common.cuh (the polynomial and the accumulation
+// fused, the phase, crossfade, frequency and reduction not).
 
-#include <cuda_runtime.h>
+#include "oscillator_common.cuh"
 
 #define OSC_FRAMES_PER_BLOCK 4
 
-__device__ __forceinline__ float cos_poly6(float phi) {
-  const float inv_2pi = 0.15915494309189535f;
-  const float two_pi_hi = 6.28125f;
-  const float two_pi_lo = 0.0019353071795864769f;
-  const float n = rintf(phi * inv_2pi);
-  float xr = phi - n * two_pi_hi;
-  xr = xr - n * two_pi_lo;
-  const float x = xr * inv_2pi;
-  const float t = x * x;
-  float acc = 6.503441062e+00f;
-  acc = acc * t + -2.595008830e+01f;
-  acc = acc * t + 6.016310858e+01f;
-  acc = acc * t + -8.544960659e+01f;
-  acc = acc * t + 6.493908942e+01f;
-  acc = acc * t + -1.973920397e+01f;
-  acc = acc * t + 9.999999875e-01f;
-  return acc;
+__device__ __forceinline__ float osc_term(float4 c, float p0, float h,
+                                          float omh, float tri, float s1,
+                                          float sf, float w_scale,
+                                          float nyquist, float acc) {
+  // c: f_lo, f_hi - f_lo, a_lo, a_hi
+  const float phase = p0 + w_scale * (s1 * c.x + c.y * tri);
+  float amp = c.z * omh + c.w * h;
+  const float freq = c.x + c.y * sf;
+  amp = freq < nyquist ? amp : 0.0f;
+  const float x = osc_range_reduce(phase);
+  return OSC_MAD(amp, osc_cos6(x * x), acc);
 }
 
-__global__ void osc_skip_kernel(const float* __restrict__ f_lo,
-                                const float* __restrict__ f_hi,
-                                const float* __restrict__ a_lo,
-                                const float* __restrict__ a_hi,
-                                const float* __restrict__ phase0,
-                                const float* __restrict__ table,
-                                float* __restrict__ out,
-                                int n_frames, int K, int up,
-                                float w_scale, float nyquist) {
-  extern __shared__ float sm[];
+__global__ void __launch_bounds__(1024)
+osc_skip_kernel(const float* __restrict__ f_lo, const float* __restrict__ f_hi,
+                const float* __restrict__ a_lo, const float* __restrict__ a_hi,
+                const float* __restrict__ phase0,
+                const float* __restrict__ table, float* __restrict__ out,
+                int n_frames, int K, int up, float w_scale, float nyquist) {
+  extern __shared__ float4 sm4[];
   const int fpb = OSC_FRAMES_PER_BLOCK;
+  float4* ctl = sm4;                                         // fpb * K
+  float* p0s = reinterpret_cast<float*>(ctl + fpb * K);      // fpb * K
+  int* k_last = reinterpret_cast<int*>(p0s + fpb * K);       // fpb
   const int v = blockIdx.y;
   const int frame0 = blockIdx.x * fpb;
   const int nfb = min(fpb, n_frames - frame0);
   const int tid = threadIdx.x;
   const int n = nfb * K;
   const size_t base = ((size_t)v * n_frames + frame0) * K;
-  float* s_flo = sm;
-  float* s_fhi = s_flo + fpb * K;
-  float* s_alo = s_fhi + fpb * K;
-  float* s_ahi = s_alo + fpb * K;
-  float* s_ph0 = s_ahi + fpb * K;
-  int* k_last = (int*)(s_ph0 + fpb * K);
 
   if (tid < fpb) k_last[tid] = 0;
-  for (int i = tid; i < n; i += blockDim.x) {
-    s_flo[i] = f_lo[base + i];
-    s_fhi[i] = f_hi[base + i];
-    s_alo[i] = a_lo[base + i];
-    s_ahi[i] = a_hi[base + i];
-    s_ph0[i] = phase0[base + i];
-  }
   __syncthreads();
-  for (int i = tid; i < n; i += blockDim.x) {
-    const bool active = fminf(s_flo[i], s_fhi[i]) < nyquist
-                        && (s_alo[i] != 0.0f || s_ahi[i] != 0.0f);
-    if (active) atomicMax(&k_last[i / K], i % K + 1);
+  // 1. Controls and k_last. With K a multiple of 32 (and blockDim.x one by
+  //    construction) a warp's cells lie in one frame: one atomic per warp.
+  const bool warp_frames = (K & 31) == 0;
+  for (int i0 = 0; i0 < n; i0 += blockDim.x) {
+    const int i = i0 + tid;
+    const bool valid = i < n;
+    const int f = valid ? i / K : 0;
+    int kk = 0;
+    if (valid) {
+      const float flo = f_lo[base + i];
+      const float fhi = f_hi[base + i];
+      const float alo = a_lo[base + i];
+      const float ahi = a_hi[base + i];
+      p0s[i] = phase0[base + i];
+      ctl[i] = make_float4(flo, fhi - flo, alo, ahi);
+      if (fminf(flo, fhi) < nyquist && (alo != 0.0f || ahi != 0.0f)) {
+        kk = i - f * K + 1;
+      }
+    }
+    if (warp_frames) {
+      const int m = __reduce_max_sync(0xffffffffu, kk);
+      if ((tid & 31) == 0 && m > 0) atomicMax(&k_last[f], m);
+    } else if (kk > 0) {
+      atomicMax(&k_last[f], kk);
+    }
   }
   __syncthreads();
 
+  // 2. Thread (fl, s): sample s of frame fl.
   const int fl = tid / up;
   const int s = tid - fl * up;
   if (fl >= nfb) return;
-  const float h = table[s];
-  const float tri = table[up + s];
-  const float s1 = table[2 * up + s];
-  const float s_frac = table[3 * up + s];
-  const float one_minus_h = 1.0f - h;
-  const int off = fl * K;
+  const float h = table[OSC_T_H * up + s];
+  const float tri = table[OSC_T_TRI * up + s];
+  const float s1 = table[OSC_T_S1 * up + s];
+  const float sf = table[OSC_T_SF * up + s];
+  const float omh = table[OSC_T_OMH * up + s];
+  const float4* c = ctl + fl * K;
+  const float* p = p0s + fl * K;
   const int kl = k_last[fl];
-  float acc = 0.0f;
-  for (int k = 0; k < kl; ++k) {
-    const float flo = s_flo[off + k];
-    const float df = s_fhi[off + k] - flo;
-    const float phase = s_ph0[off + k] + w_scale * (s1 * flo + df * tri);
-    float amp = s_alo[off + k] * one_minus_h + s_ahi[off + k] * h;
-    const float freq = flo + df * s_frac;
-    amp = freq < nyquist ? amp : 0.0f;
-    acc += amp * cos_poly6(phase);
+  float a0 = 0.0f, a1 = 0.0f;
+  int k = 0;
+  for (; k + 1 < kl; k += 2) {
+    a0 = osc_term(c[k], p[k], h, omh, tri, s1, sf, w_scale, nyquist, a0);
+    a1 = osc_term(c[k + 1], p[k + 1], h, omh, tri, s1, sf, w_scale, nyquist,
+                  a1);
   }
-  out[(size_t)v * n_frames * up + (size_t)(frame0 + fl) * up + s] = acc;
+  if (k < kl) {
+    a0 = osc_term(c[k], p[k], h, omh, tri, s1, sf, w_scale, nyquist, a0);
+  }
+  out[((size_t)v * n_frames + frame0 + fl) * up + s] = a0 + a1;
 }
 
+// table: the cached OSC_TABLES x up table on the card.
 extern "C" int osc_skip_launch(const float* f_lo, const float* f_hi,
                                const float* a_lo, const float* a_hi,
                                const float* phase0, const float* table,
@@ -131,9 +144,13 @@ extern "C" int osc_skip_launch(const float* f_lo, const float* f_hi,
                                int up, float w_scale, float nyquist,
                                cudaStream_t stream) {
   const int fpb = OSC_FRAMES_PER_BLOCK;
-  const int threads = fpb * up;
-  if (threads > 1024 || batch > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * 5 * fpb * K + sizeof(int) * fpb;
+  if (up < 1 || K < 1 || fpb * up > 1024 || batch > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Whole warps: the warp max names all 32 lanes; lanes past fpb * up idle.
+  const int threads = (fpb * up + 31) / 32 * 32;
+  const size_t smem = (sizeof(float4) + sizeof(float)) * fpb * K
+                      + sizeof(int) * fpb;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   if (smem > 49152) {
     cudaError_t err = cudaFuncSetAttribute(

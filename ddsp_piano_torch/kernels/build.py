@@ -70,8 +70,8 @@ SIGNATURES = {
         'gru_scan_bwd_plan': (_I, _I, _P),
     },
     'oscillator_skip_bwd': {
-        'osc_skip_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _F, _F, _P),
+        'osc_skip_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _F, _F, _P),
     },
     'oscillator_full': {
         'osc_full_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,

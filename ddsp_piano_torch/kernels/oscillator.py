@@ -17,6 +17,7 @@ forward runs 'poly').
 from __future__ import annotations
 
 import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -31,11 +32,34 @@ from ddsp_piano_torch.ops.oscillator import (FramewiseOscControls,
 TRIG = 'poly'
 TRIG_BWD = 'poly4'
 TRIG_FULL = 'native'
-# Frames per block of K1 and K8, one thread per (frame, sample), so up is
-# at most 1024 // frames per block (csrc/oscillator_skip.cu
-# OSC_FRAMES_PER_BLOCK, csrc/oscillator_full.cu OSC_FULL_FRAMES_PER_BLOCK).
+# Frames per block of K1 and K8; both take up <= 1024 // frames per block
+# (csrc/oscillator_skip.cu OSC_FRAMES_PER_BLOCK, csrc/oscillator_full.cu
+# OSC_FULL_FRAMES_PER_BLOCK).
 SKIP_FRAMES_PER_BLOCK = 4
 FULL_FRAMES_PER_BLOCK = 4
+
+# (up, sample_rate, device) -> (table on the device, its host copy).
+_TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def osc_tables(upsampling: int, sample_rate: int,
+               device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The oscillator kernels' per-sample table, (7, up) float32, rows h,
+    tri, s + 1, s / up (what K8 reads), 1 - h and the two frequency weights
+    (csrc/oscillator_common.cuh), computed on ``device`` by the plain
+    version's own sample_tables / gradient_tables, so bit for bit its
+    values. Cached per (up, sample_rate, device) with a host copy, which K4
+    takes as a kernel parameter: only a key's first call waits for the
+    device."""
+    key = (int(upsampling), int(sample_rate), torch.device(device))
+    tables = _TABLES.get(key)
+    if tables is None:
+        h, tri, s1, s_frac = sample_tables(key[0], key[2])
+        w_alo, _, w_flo, w_fhi = gradient_tables(key[0], key[1], key[2])
+        table = torch.stack([h, tri, s1, s_frac, w_alo, w_flo,
+                             w_fhi]).contiguous()
+        tables = _TABLES[key] = (table, table.cpu())
+    return tables
 
 
 def render_framewise_plain(controls: FramewiseOscControls, upsampling: int,
@@ -98,7 +122,7 @@ def _launch_forward(name: str, symbol: str, frames_per_block: int,
         raise ValueError(f"{what} takes up <= "
                          f"{1024 // frames_per_block}, got {up}")
     device = controls.f_lo.device
-    table = torch.stack(sample_tables(up, device)).contiguous()   # (4, up)
+    table, _ = osc_tables(up, sample_rate, device)
     parts = [c.detach().contiguous() for c in controls]
     out = torch.empty((b, n_frames * up), dtype=torch.float32, device=device)
     if out.numel() == 0:
@@ -137,9 +161,7 @@ def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
     if k > 1024:
         raise ValueError(f"render_framewise_skip_bwd_cuda takes K <= 1024 "
                          f"partials, got {k}")
-    h, tri, s1, s_frac = sample_tables(up, device)
-    _, _, w_flo, w_fhi = gradient_tables(up, sample_rate, device)
-    table = torch.stack([h, tri, s1, s_frac, w_flo, w_fhi]).contiguous()
+    table, table_host = osc_tables(up, sample_rate, device)
     parts = [c.detach().contiguous() for c in controls]
     g_c = g.detach().contiguous()
     grads = torch.empty((5, b, n_frames, k), dtype=torch.float32,
@@ -149,7 +171,7 @@ def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
     lib = build.library('oscillator_skip_bwd')
     code = lib.osc_skip_bwd_launch(
         *(p.data_ptr() for p in parts), g_c.data_ptr(), table.data_ptr(),
-        grads.data_ptr(), b, n_frames, k, up,
+        table_host.data_ptr(), grads.data_ptr(), b, n_frames, k, up,
         2.0 * math.pi / float(sample_rate), float(sample_rate) / 2.0,
         build.stream_handle(device))
     build.check(code, 'osc_skip_bwd_launch')

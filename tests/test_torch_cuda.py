@@ -49,8 +49,10 @@ def test_oscillator_kernel_matches_plain(cuda_device):
     want = tosck.render_framewise_plain(controls, 96, 24000)
     got = tosck.render_framewise_skip_cuda(controls, 96, 24000)
     torch.cuda.synchronize()
-    # Same terms, bit for bit (--fmad=false); only the order of the sum
-    # over 128 partials differs: 1e-5 of peak.
+    # The phase, crossfade, frequency and range reduction round as the
+    # plain version's; the polynomial and the accumulation round once per
+    # multiply-add, and the sum over 128 partials runs in another order:
+    # 1e-5 of peak.
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-5 * scale
 
@@ -166,10 +168,88 @@ def test_oscillator_bwd_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert build.LAUNCHES['oscillator_skip_bwd'] == 1
     for name, a, w in zip(controls._fields, got, want):
-        # Same terms bit for bit (--fmad=false); the 96-sample sums in
-        # another order: 1e-5 of each gradient's peak.
+        # The phase, mask, crossfade and range reduction round as the plain
+        # VJP's; the polynomials and the five sums round once per
+        # multiply-add, and the 96-sample sums run in another order: 1e-5
+        # of each gradient's peak.
         scale = w.abs().max().item()
         assert (a - w).abs().max().item() <= 1e-5 * scale, name
+
+
+# midi_to_hz(0): the f0 the model holds for a voice with no note.
+_SILENT_F0 = 440.0 * 2.0 ** (-69.0 / 12.0)
+
+
+def _osc_batch(kind, up, sr, K, B, n_frames, device):
+    """Controls for K1 and K4 at (B, n_frames, K): 'silent', every voice
+    held at midi_to_hz(0) with zero amplitudes; 'sounding', every partial
+    below Nyquist live; 'mixed', silent and sounding voices, frames whose
+    warps mix silent and sounding partials (partials 8-19 silent), frames
+    whose last active partial is 45 (not a multiple of any slice count
+    but 1, 3, 5, 9, 15, 45) and a stretch wholly above Nyquist."""
+    rng = np.random.RandomState(up + K + B)
+    f0 = rng.uniform(20.0, sr / (2.5 * K), (B, n_frames, 1))
+    amps = rng.rand(B, n_frames, K) + 0.01
+    if kind in ('silent', 'mixed'):
+        silent = slice(None) if kind == 'silent' else slice(0, B, 2)
+        f0[silent] = _SILENT_F0
+        amps[silent] = 0.0
+    if kind == 'mixed':
+        amps[1::2, 5:15, 8:20] = 0.0
+        amps[1::2, 20:30, 45:] = 0.0
+        f0[-1, n_frames - 6:] = sr
+        f0[1::4] *= 3.0                       # some partials above Nyquist
+    freqs = f0 * np.arange(1, K + 1)
+    controls = tosc.framewise_osc_controls(_t(freqs, device),
+                                           _t(amps, device), up, sr)
+    g = _t(rng.randn(B, n_frames * up), device)
+    return controls, g
+
+
+# (up, sample rate, K): v2 and dafx22_24khz (96), dafx22 (64, 2 x 96
+# harmonics) and a generic up that takes no unrolled instance.
+OSC_RATES = [(96, 24000, 128), (64, 16000, 192), (32, 8000, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['silent', 'sounding', 'mixed'])
+@pytest.mark.parametrize('up,sr,K', OSC_RATES)
+def test_oscillator_kernels_match_plain_by_cell_kind(cuda_device, up, sr,
+                                                     K, kind):
+    _check_oscillator_pair(*_osc_batch(kind, up, sr, K, 6, 40, cuda_device),
+                           up, sr)
+
+
+@pytest.mark.cuda
+def test_oscillator_kernels_match_plain_at_the_training_step_rows(
+        cuda_device):
+    """The training step's B = 96 voice rows (batch 6 x 16 voices)."""
+    _check_oscillator_pair(*_osc_batch('mixed', 96, 24000, 128, 96, 24,
+                                       cuda_device), 96, 24000)
+
+
+def _check_oscillator_pair(controls, g, up, sr):
+    """K1 and K4 against their plain versions (1e-5 of peak, as in the
+    tests above; an all-zero plain result must be matched exactly), each
+    launch counter moving once a call, and the silent cells' d f_lo, d f_hi
+    and d phase0 exactly 0."""
+    build.reset_launches()
+    got = tosck.render_framewise_skip_cuda(controls, up, sr)
+    assert build.LAUNCHES['oscillator_skip'] == 1
+    grads = tosck.render_framewise_skip_bwd_cuda(controls, g, up, sr)
+    assert build.LAUNCHES['oscillator_skip_bwd'] == 1
+    want = tosck.render_framewise_plain(controls, up, sr)
+    want_grads = tosck.render_framewise_vjp_plain(controls, g, up, sr)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    for name, a, w in zip(controls._fields, grads, want_grads):
+        assert (a - w).abs().max().item() <= 1e-5 * w.abs().max().item(), name
+    f_lo, f_hi, a_lo, a_hi, _ = controls
+    silent = ((torch.minimum(f_lo, f_hi) < sr / 2.0) & (a_lo == 0.0)
+              & (a_hi == 0.0))
+    for d in (grads.f_lo, grads.f_hi, grads.phase0):
+        assert torch.all(d[silent] == 0.0)
+    assert sum(v for v in build.LAUNCHES.values()) == 2
 
 
 @pytest.mark.cuda

@@ -21,6 +21,7 @@ from ddsp_piano_torch.kernels import build  # noqa: E402
 from ddsp_piano_torch.kernels import gru as tgru  # noqa: E402
 from ddsp_piano_torch.kernels import note_release as tnr  # noqa: E402
 from ddsp_piano_torch.kernels import oscillator as tosck  # noqa: E402
+from ddsp_piano_torch.ops import core as tcore  # noqa: E402
 from ddsp_piano_torch.ops import oscillator as tosc  # noqa: E402
 from ddsp_piano_tpu.kernels import gru_pallas as gp  # noqa: E402
 from ddsp_piano_tpu.kernels.oscillator_pallas import (  # noqa: E402
@@ -39,12 +40,12 @@ def _grad_inputs(*arrays):
 # -- K4: oscillator backward --------------------------------------------------
 
 
-def _osc_case(sr, up, K, b, n_frames, seed):
-    """test_oscillator.py:247-256: a silent stretch, Nyquist-masked
-    partials, a random audio cotangent."""
+def _osc_case(sr, up, K, b, n_frames, seed, silent_f0=0.0):
+    """test_oscillator.py:247-256: a silent stretch (f0 ``silent_f0``),
+    Nyquist-masked partials, a random audio cotangent."""
     rng = np.random.RandomState(seed)
     f0 = rng.uniform(20, sr * 3 / 8, (b, n_frames, 1)).astype(np.float32)
-    f0[0, :n_frames // 5] = 0.0
+    f0[0, :n_frames // 5] = silent_f0
     freqs = (f0 * np.arange(1, K + 1, dtype=np.float32)).astype(np.float32)
     amps = rng.rand(b, n_frames, K).astype(np.float32)
     amps[0, :n_frames // 5] = 0.0
@@ -76,6 +77,29 @@ def test_oscillator_vjp_plain_matches_pallas(sr, up, K, b, n_frames):
         np.testing.assert_allclose(gt.numpy(), w,
                                    atol=2e-4 * np.abs(w).max(),
                                    err_msg=name)
+
+
+@pytest.mark.parametrize('sr,up,K,b,n_frames', OSC_CASES)
+def test_silent_cells_carry_only_amplitude_gradients(sr, up, K, b,
+                                                     n_frames):
+    """What K4's silent path relies on: a cell below Nyquist with a_lo ==
+    a_hi == 0 (here a voice held at midi_to_hz(0), as the model holds one
+    with no note) has d f_lo, d f_hi and d phase0 exactly 0 and non-zero
+    amplitude gradients, in the plain VJP and in the JAX kernel."""
+    controls, g = _osc_case(sr, up, K, b, n_frames, seed=11,
+                            silent_f0=float(tcore.midi_to_hz(0.0)))
+    want = render_framewise_pallas_skip_vjp(controls, jnp.asarray(g), up,
+                                            sr, True, 'poly4')
+    port = tosc.FramewiseOscControls(*(_t(c) for c in controls))
+    got = tosck.render_framewise_vjp_plain(port, _t(g), up, sr)
+    silent = ((torch.minimum(port.f_lo, port.f_hi) < sr / 2.0)
+              & (port.a_lo == 0.0) & (port.a_hi == 0.0))
+    assert int(silent.sum()) >= K * (n_frames // 5 - 1)
+    for grads in (got, [_t(w) for w in want]):
+        for d in (grads[0], grads[1], grads[4]):      # f_lo, f_hi, phase0
+            assert torch.all(d[silent] == 0.0)
+        for d in (grads[2], grads[3]):                # a_lo, a_hi
+            assert torch.all(d[silent] != 0.0)
 
 
 def test_oscillator_backward_bound_skips_only_silent_gradients():

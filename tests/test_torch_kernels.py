@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 from ddsp_piano_torch.kernels import gru as tgru  # noqa: E402
 from ddsp_piano_torch.kernels import note_release as tnr  # noqa: E402
 from ddsp_piano_torch.kernels import oscillator as tosck  # noqa: E402
+from ddsp_piano_torch.ops import core as tcore  # noqa: E402
 from ddsp_piano_torch.ops import oscillator as tosc  # noqa: E402
 from ddsp_piano_tpu.kernels import gru_pallas as gp  # noqa: E402
 from ddsp_piano_tpu.kernels.oscillator_pallas import (  # noqa: E402
@@ -44,10 +45,11 @@ def _osc_controls(sr, up, K, b, n_frames, seed):
                                        up, sr)
 
 
-@pytest.mark.parametrize('sr,up,K,b,n_frames', [
-    (16000, 64, 48, 3, 150),     # test_oscillator.py:175-177
-    (24000, 96, 128, 2, 40),     # the v2 widths
-])
+OSC_CASES = [(16000, 64, 48, 3, 150),     # test_oscillator.py:175-177
+             (24000, 96, 128, 2, 40)]     # the v2 widths
+
+
+@pytest.mark.parametrize('sr,up,K,b,n_frames', OSC_CASES)
 def test_oscillator_plain_matches_pallas_skip(sr, up, K, b, n_frames):
     controls = _osc_controls(sr, up, K, b, n_frames, seed=3)
     want = np.asarray(render_framewise_pallas_skip(controls, up, sr, True,
@@ -62,6 +64,84 @@ def test_oscillator_plain_matches_pallas_skip(sr, up, K, b, n_frames):
                                    err_msg=trig)
     front = tosck.render_framewise_skip(port, up, sr).numpy()
     np.testing.assert_allclose(front, want, atol=1e-4 * scale)
+
+
+def _dead_frame_controls(sr, up, K, b, n_frames, seed):
+    """Frames with no active partial both ways: a voice held at
+    midi_to_hz(0) with zero amplitudes (no note), and a stretch whose
+    partials all lie above Nyquist with non-zero amplitudes."""
+    rng = np.random.RandomState(seed)
+    f0 = rng.uniform(20, sr * 3 / 8, (b, n_frames, 1)).astype(np.float32)
+    f0[0, :n_frames // 4] = float(tcore.midi_to_hz(0.0))
+    f0[-1, n_frames // 2:] = float(sr)
+    freqs = (f0 * np.arange(1, K + 1, dtype=np.float32)).astype(np.float32)
+    amps = rng.rand(b, n_frames, K).astype(np.float32) + 0.01
+    amps[0, :n_frames // 4] = 0.0
+    return josc.framewise_osc_controls(jnp.asarray(freqs), jnp.asarray(amps),
+                                       up, sr)
+
+
+@pytest.mark.parametrize('sr,up,K,b,n_frames', OSC_CASES)
+def test_dead_frames_render_exact_zeros(sr, up, K, b, n_frames):
+    """What K1 relies on to write a dead frame's row without computing
+    it: every frame with active_partials == 0 renders exact zeros in the
+    plain forward, and in the JAX kernel."""
+    controls = _dead_frame_controls(sr, up, K, b, n_frames, seed=4)
+    port = tosc.FramewiseOscControls(*(_t(c) for c in controls))
+    dead = tosck.active_partials(port, sr) == 0
+    assert int(dead[0].sum()) >= n_frames // 4 - 1
+    assert int(dead[-1].sum()) >= n_frames // 2 - 1 and bool((~dead).any())
+    plain = tosc.render_framewise(port, up, sr, trig='poly')
+    jax_kernel = _t(render_framewise_pallas_skip(controls, up, sr, True,
+                                                 'poly'))
+    for audio in (plain, jax_kernel):
+        frames = audio.reshape(b, n_frames, up)
+        assert torch.all(frames[dead] == 0.0)
+        assert torch.any(frames[~dead] != 0.0)
+
+
+@pytest.mark.parametrize('sr,up,K,b,n_frames', OSC_CASES)
+def test_kernel_sum_order_within_tolerance(sr, up, K, b, n_frames):
+    """K1 sums a sample's partials in two accumulators, even and odd k, one
+    term after another, then adds the two. That order, emulated on the plain
+    version's terms, stays within the kernel's tolerance (1e-5 of peak) of
+    the plain sum."""
+    controls = _osc_controls(sr, up, K, b, n_frames, seed=6)
+    f_lo, f_hi, a_lo, a_hi, phase0 = (_t(c) for c in controls)
+    h, tri, s1, s_frac = (v[None, None, :, None]
+                          for v in tosc.sample_tables(up, 'cpu'))
+    df = (f_hi - f_lo)[:, :, None, :]
+    phase = phase0[:, :, None, :] + (2.0 * np.pi / sr) * (
+        s1 * f_lo[:, :, None, :] + df * tri)
+    amp = a_lo[:, :, None, :] * (1.0 - h) + a_hi[:, :, None, :] * h
+    amp = amp * ((f_lo[:, :, None, :] + df * s_frac) < sr / 2.0).float()
+    x = tosc._range_reduce(phase)
+    terms = amp * tosc._poly(tosc._COS6, x * x)          # (b, nf, up, K)
+    acc = [torch.zeros(terms.shape[:3]), torch.zeros(terms.shape[:3])]
+    for k in range(K):
+        acc[k % 2] = acc[k % 2] + terms[..., k]
+    out = (acc[0] + acc[1]).reshape(b, -1)
+    want = tosc.render_framewise(tosc.FramewiseOscControls(
+        f_lo, f_hi, a_lo, a_hi, phase0), up, sr, trig='poly')
+    err = (out - want).abs().max().item()
+    assert 0.0 < err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize('up,sr', [(96, 24000), (64, 16000), (32, 8000)])
+def test_cached_tables_equal_plain_tables(up, sr):
+    """The kernels' per-sample table (kernels/oscillator.py osc_tables)
+    holds the plain version's own sample_tables / gradient_tables bit for
+    bit, is computed once per (up, sample_rate, device), and its host copy
+    equals it."""
+    table, host = tosck.osc_tables(up, sr, 'cpu')
+    h, tri, s1, s_frac = tosc.sample_tables(up, 'cpu')
+    w_alo, _, w_flo, w_fhi = tosc.gradient_tables(up, sr, 'cpu')
+    assert table.shape == (7, up) and table.is_contiguous()
+    for row, want in zip(table, (h, tri, s1, s_frac, w_alo, w_flo, w_fhi)):
+        assert torch.equal(row.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(host.view(torch.int32), table.view(torch.int32))
+    again = tosck.osc_tables(up, sr, torch.device('cpu'))
+    assert again[0] is table and again[1] is host
 
 
 def test_framewise_controls_match_jax():

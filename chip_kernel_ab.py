@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Same-call A/B of hand-written kernels on one NVIDIA GPU, this checkout
+against another checkout's, at the same recorded inputs: K1 (the skipping
+oscillator, csrc/oscillator_skip.cu), K4 (its backward,
+csrc/oscillator_skip_bwd.cu), and K6 / K7 (the NoteRelease recurrence of
+the training path and its reverse walk, csrc/note_release_bwd.cu).
+
+    python3 chip_kernel_ab.py --other build/ab/parent [--kernels K6,K7]
+
+``--other`` is the root of another checkout of the repository, e.g. a
+parent commit unpacked with ``git archive <commit> | tar -x -C
+build/ab/parent``. It imports no JAX and nothing of ddsp_piano_tpu. Each
+phase runs in a fresh process:
+
+1. Record, with this checkout: K1's inputs at the v2 model's 3 s segment
+   (chip_smoke.py phase 3); the same controls tiled to the training
+   step's 96 voice rows, with a seeded cotangent for K4; K1's, K4's, K6's
+   and K7's inputs at one full-width training step (chip_smoke.py phases
+   9-10); and K6 / K7 at T = 2625 (the step's pitch repeated in time, its
+   residual streams from the plain forward, seeded cotangents). Each
+   input's share of live cells (K1, K4) or its release ties (K6, K7) is
+   printed.
+2. Four arms, in the order other, this, this, other. Each imports
+   ddsp_piano_torch from its own checkout, builds its kernels, holds each
+   kernel against that checkout's plain version at every input (K1 and K4
+   within chip_smoke.py's OSC_TOL and OSC_BWD_TOL, K6 and K7 bit-exact),
+   and times each: the wrapper call (CUDA events from before its host
+   work to after its launch, as chip_smoke.py times a kernel) and the
+   kernel on the card alone (chip_smoke.card_times: CUDA events between
+   launches queued behind a spin kernel), median and least-most of 25. Then it counts what each kernel's instances issue, read from their
+   SASS (cuobjdump next to nvcc), and writes their SASS text.
+3. Per input, both checkouts' medians and the ratio this / other.
+
+Any failure (a build, a launch, a disagreement, a host too slow to queue
+the timed launches, a SASS that cannot be read) ends the run with a
+non-zero exit code. Inputs, results and SASS go to build/kernel_ab/.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+import chip_smoke as cs    # imports nothing of the package until called
+
+OUT = os.path.join(cs.ROOT, 'build', 'kernel_ab')
+INPUTS = os.path.join(OUT, 'inputs.pt')
+# Kernel -> (source, a piece of its kernels' symbol names).
+KERNELS = {'K1': ('oscillator_skip', 'osc_skip_kernel'),
+           'K4': ('oscillator_skip_bwd', 'osc_skip_bwd'),
+           'K6': ('note_release_bwd', 'note_release_res_kernel'),
+           'K7': ('note_release_bwd', 'note_release_bwd_kernel')}
+LONG_T = 2625                  # frames of the 10 s render with its warm-up
+# The SASS opcodes counted for every kernel instance.
+SASS_OPS = ('ULDC', 'LDS', 'LDG', 'STG', 'LDGSTS', 'UBLKCP', 'SYNCS',
+            'FRND', 'BSSY', 'BRA')
+
+
+def cells_text(kernel, controls, sr):
+    """An input's cells below Nyquist: K1 skips all but the live ones, K4
+    computes them all, silent ones on its short path."""
+    f_lo, f_hi, a_lo, a_hi, _ = controls
+    audible = torch.minimum(f_lo, f_hi) < sr / 2.0
+    silent = audible & (a_lo == 0) & (a_hi == 0)
+    n, below, quiet = f_lo.numel(), audible.sum().item(), silent.sum().item()
+    if kernel == 'K1':
+        return f"live {below - quiet}/{n} ({100 * (below - quiet) / n:.1f} %)"
+    return (f"below Nyquist {below}/{n}: sounding {below - quiet} "
+            f"({100 * (below - quiet) / max(below, 1):.1f} %), silent "
+            f"{quiet}")
+
+
+def ties_text(steps, thr):
+    """The (step, lane) cells where steps - threshold lands on a tie of
+    the saturated relu's gradient (0 or 1)."""
+    u = steps - thr
+    return (f"threshold {float(thr):g}; steps - thr == 0 at "
+            f"{int((u == 0).sum())} and == 1 at {int((u == 1).sum())} of "
+            f"{steps.numel()} cells")
+
+
+def long_note_release(x, thr, s0):
+    """K6 and K7 inputs at T = LONG_T: the step's pitch repeated in time,
+    the residual streams of the plain forward, seeded cotangents."""
+    from ddsp_piano_torch.kernels import note_release as knr
+
+    reps = -(-LONG_T // x.shape[0])
+    x = x.repeat(reps, 1, 1)[:LONG_T].contiguous()
+    out, _, steps = knr.note_release_scan_plain_res(x, thr, s0)
+    prev = torch.cat([s0[None, :, 0], out[:-1, :, 0]], dim=0)
+    gen = torch.Generator().manual_seed(cs.SEED)
+    g_out = torch.randn(out.shape, generator=gen)
+    g_state = torch.randn(s0.shape, generator=gen)
+    return (x, thr, s0), (x, thr, prev, steps, g_out, g_state)
+
+
+def record(kernels):
+    from ddsp_piano_torch.device import set_f32_precision
+
+    set_f32_precision()
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    cases = []
+    if {'K1', 'K4'} & kernels:
+        capture = {}
+        cs.render_segment('cpu', capture)
+        (segment, up, sr), = capture['oscillator_skip']
+    cs.teacher_data()
+    step, _ = cs.train_step_inputs()
+    if {'K1', 'K4'} & kernels:
+        (step_k1, step_up, step_sr), = step['oscillator_skip']
+        (step_k4, g, _, _), = step['oscillator_skip_bwd']
+        rows = step_k1.f_lo.shape[0] // segment.f_lo.shape[0]
+        tiled = [c.repeat(rows, 1, 1) for c in segment]
+        g_tiled = 1e-3 * torch.randn(
+            (tiled[0].shape[0], tiled[0].shape[1] * up),
+            generator=torch.Generator().manual_seed(cs.SEED))
+        n = tiled[0].shape[0]
+        cases += [
+            ('K1', 'the v2 segment', (segment, up, sr)),
+            ('K1', f'the segment tiled to {n} rows', (tiled, up, sr)),
+            ('K1', 'the training step', (step_k1, step_up, step_sr)),
+            ('K4', f'the segment tiled to {n} rows',
+             (tiled, g_tiled, up, sr)),
+            ('K4', 'the training step', (step_k4, g, step_up, step_sr)),
+        ]
+    if {'K6', 'K7'} & kernels:
+        res, = step['note_release_res']
+        bwd, = step['note_release_bwd']
+        res, bwd = cs.to_cpu(res), cs.to_cpu(bwd)
+        long_res, long_bwd = long_note_release(*res)
+        cases += [('K6', 'the training step', res),
+                  ('K7', 'the training step', bwd),
+                  ('K6', f'T = {LONG_T}', long_res),
+                  ('K7', f'T = {LONG_T}', long_bwd)]
+    saved, described = [], []
+    for kernel, where, args in cases:
+        if kernel not in kernels:
+            continue
+        args = cs.to_cpu(args)
+        if kernel in ('K1', 'K4'):
+            # A list, not the controls' named tuple: torch.load reads
+            # tensors in plain containers only.
+            args = (list(args[0]),) + tuple(args[1:])
+            shape = tuple(args[0][0].shape)
+            text = cells_text(kernel, args[0], args[-1])
+        else:
+            from ddsp_piano_torch.kernels import note_release as knr
+
+            shape = tuple(args[0].shape)
+            steps = (args[3] if kernel == 'K7' else
+                     knr.note_release_scan_plain_res(*args)[2])
+            text = ties_text(steps, args[1])
+        name = f"{kernel} at {where} {shape}"
+        saved.append(dict(name=name, kernel=kernel, args=args))
+        described.append(dict(name=name, cells=text))
+    os.makedirs(OUT, exist_ok=True)
+    torch.save(saved, INPUTS)
+    return described
+
+
+def sass_counts(build, source, symbol, dump=None):
+    """Per kernel instance of ``source`` whose name holds ``symbol``: its
+    instructions, the float32 ones (FADD, FMUL, FFMA, FSETP) and those of
+    them with an operand from the constant bank (c[..][..], or a uniform
+    register that ULDC filled), and the count of each of SASS_OPS: loads
+    from the constant bank (ULDC), shared memory (LDS) and device memory
+    (LDG), stores (STG), asynchronous copies (LDGSTS: cp.async; UBLKCP:
+    cp.async.bulk), barrier operations (SYNCS: mbarrier), FRND, BSSY (a
+    branch around a divergent region) and branches. ``dump``, a path, gets
+    the SASS text of those instances."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
+    lib = build._build_dir() / f'lib{source}.so'
+    try:
+        sass = subprocess.run([cuobjdump, '-sass', str(lib)],
+                              capture_output=True, text=True, check=True,
+                              timeout=120).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        cs.fail(f"cuobjdump -sass {lib}: {e}")
+    counts, texts = {}, []
+    for fn in sass.split('Function : ')[1:]:
+        head = fn.splitlines()[0].strip()
+        if symbol not in head:
+            continue
+        texts.append('Function : ' + fn)
+        ops = [line.split(';')[0].split('*/')[-1].split()
+               for line in fn.splitlines() if line.strip().startswith('/*')]
+        ops = [o[1:] if o and o[0].startswith('@') else o for o in ops]
+        ops = [o for o in ops if o]
+        base = [o[0].split('.')[0] for o in ops]
+        fp = [o for o, b in zip(ops, base)
+              if b in ('FADD', 'FMUL', 'FFMA', 'FSETP')]
+        counts[head] = dict(
+            instructions=len(ops), fp32=len(fp),
+            fp32_constant=sum(1 for o in fp if any(
+                a.lstrip('-|').startswith(('c[', 'UR')) for a in o[1:])),
+            **{op: base.count(op) for op in SASS_OPS})
+    if not counts:
+        cs.fail(f"no kernel named *{symbol}* in the SASS of {lib}")
+    if dump:
+        with open(dump, 'w') as f:
+            f.write('\n'.join(texts))
+    return counts
+
+
+def spread(times):
+    return dict(median=statistics.median(times), least=min(times),
+                most=max(times), n=len(times))
+
+
+def peak_share(got, want):
+    return ((got - want).abs().max()
+            / max(want.abs().max().item(), 1e-30)).item()
+
+
+def case_call(case):
+    """(the kernel's wrapper call, its error against the plain version, the
+    tolerance) for a recorded case, on the card."""
+    from ddsp_piano_torch.kernels import note_release as knr
+    from ddsp_piano_torch.kernels import oscillator as kosc
+    from ddsp_piano_torch.ops.oscillator import FramewiseOscControls
+
+    kernel, args = case['kernel'], cs.to_card(case['args'])
+    if kernel == 'K1':
+        controls, up, sr = args
+        controls = FramewiseOscControls(*controls)
+        fn = lambda: kosc.render_framewise_skip_cuda(controls, up, sr)
+        with torch.inference_mode():
+            err = peak_share(fn(), kosc.render_framewise_plain(
+                controls, up, sr))
+        return fn, err, cs.OSC_TOL
+    if kernel == 'K4':
+        controls, g, up, sr = args
+        controls = FramewiseOscControls(*controls)
+        fn = lambda: kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
+        err = max(peak_share(a, w) for a, w in zip(
+            fn(), kosc.render_framewise_vjp_plain(controls, g, up, sr)))
+        return fn, err, cs.OSC_BWD_TOL
+    cuda, plain = ((knr.note_release_scan_res_cuda,
+                    knr.note_release_scan_plain_res) if kernel == 'K6' else
+                   (knr.note_release_scan_bwd_cuda,
+                    knr.note_release_scan_plain_bwd))
+    fn = lambda: cuda(*args)
+    exact = all(torch.equal(a, w) for a, w in zip(fn(), plain(*args)))
+    return fn, (0.0 if exact else float('inf')), 0.0
+
+
+def import_checkout(root):
+    """Import ddsp_piano_torch from ``root``, ahead of this script's
+    directory on the path."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import ddsp_piano_torch
+
+    found = os.path.dirname(os.path.dirname(os.path.abspath(
+        ddsp_piano_torch.__file__)))
+    if found != root:
+        cs.fail(f"ddsp_piano_torch came from {found}, not {root}")
+    from ddsp_piano_torch.device import set_f32_precision
+    from ddsp_piano_torch.kernels import build
+
+    set_f32_precision()
+    build.build_all()
+    return root, build
+
+
+def arm(root, index):
+    """Check and time this process's checkout, ``root``."""
+    root, build = import_checkout(root)
+    rows, kernels = [], set()
+    for case in torch.load(INPUTS):
+        fn, err, tol = case_call(case)
+        if not (np.isfinite(err) and err <= tol):
+            cs.fail(f"{root}: {case['name']} differs from its plain version "
+                    f"by {err} > {tol}")
+        call = cs.event_times(fn)
+        device = cs.card_times(fn)
+        rows.append(dict(name=case['name'], err=err, call=spread(call),
+                         device=spread(device)))
+        kernels.add(case['kernel'])
+        torch.cuda.empty_cache()
+    sass = {k: sass_counts(build, *KERNELS[k], dump=os.path.join(
+        OUT, f'sass_arm{index}_{k}.txt')) for k in sorted(kernels)}
+    return dict(root=root, rows=rows, sass=sass,
+                spin_mhz=cs.spin_clock_mhz())
+
+
+def child(flags, what):
+    """Run this script with ``flags`` in a fresh process; its last line of
+    output is its result."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), *flags],
+                          cwd=cs.ROOT, capture_output=True, text=True,
+                          timeout=1200)
+    if proc.returncode != 0:
+        cs.fail(f"{what} exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def ms_text(s):
+    return f"{s['median']:.4f} ms ({s['least']:.4f}-{s['most']:.4f})"
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    parser.add_argument('--other', help="root of the checkout to compare "
+                        "this one with")
+    parser.add_argument('--kernels', default=','.join(KERNELS),
+                        help="comma-separated kernels to compare (default "
+                        "%(default)s)")
+    parser.add_argument('--record', action='store_true',
+                        help=argparse.SUPPRESS)
+    parser.add_argument('--arm', help=argparse.SUPPRESS)
+    parser.add_argument('--index', type=int, default=0,
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    kernels = set(args.kernels.split(','))
+    if not kernels <= set(KERNELS):
+        cs.fail(f"--kernels {args.kernels}: not among {sorted(KERNELS)}")
+    if not torch.cuda.is_available():
+        cs.fail("no CUDA device: this A/B needs one NVIDIA GPU")
+    if args.record:
+        print(json.dumps(record(kernels)))
+        return
+    if args.arm:
+        print(json.dumps(arm(args.arm, args.index)))
+        return
+    card = cs.card_line()
+    print(card, flush=True)
+    flags = ['--kernels', args.kernels]
+    other = os.path.abspath(args.other or '')
+    if not os.path.isfile(os.path.join(other, 'ddsp_piano_torch', 'kernels',
+                                       'oscillator.py')):
+        cs.fail(f"--other {args.other!r} is no checkout of ddsp_piano_torch")
+
+    cases = child(['--record'] + flags, 'recording the inputs')
+    for case in cases:
+        print(f"input {case['name']}: {case['cells']}", flush=True)
+    arms = []
+    for index, (label, root) in enumerate(
+            (('other', other), ('this', cs.ROOT), ('this', cs.ROOT),
+             ('other', other))):
+        result = child(['--arm', root, '--index', str(index)] + flags,
+                       f"the {label} arm ({root})")
+        result['label'] = label
+        arms.append(result)
+        for row in result['rows']:
+            print(f"{label} ({root}) {row['name']}: err {row['err']:.3g}; "
+                  f"call {ms_text(row['call'])}; card "
+                  f"{ms_text(row['device'])}", flush=True)
+        print(f"{label} SM clock of a one-block spin (torch.cuda._sleep): "
+              f"{result['spin_mhz']:.0f} MHz", flush=True)
+        for kernel, instances in result['sass'].items():
+            for head, c in instances.items():
+                print(f"{label} SASS {kernel} {head}: " + ', '.join(
+                    f"{k} {v}" for k, v in c.items()), flush=True)
+    for i, case in enumerate(cases):
+        parts = []
+        for what in ('device', 'call'):
+            med = {label: [a['rows'][i][what]['median'] for a in arms
+                           if a['label'] == label]
+                   for label in ('this', 'other')}
+            parts.append(
+                f"{'card' if what == 'device' else 'call'} this "
+                + ' / '.join(f"{m:.4f}" for m in med['this']) + " other "
+                + ' / '.join(f"{m:.4f}" for m in med['other'])
+                + f" ms, this / other "
+                f"{statistics.mean(med['this']) / statistics.mean(med['other']):.3f}")
+        print(f"A/B {case['name']}: " + '; '.join(parts), flush=True)
+    with open(os.path.join(OUT, 'result.json'), 'w') as f:
+        json.dump(dict(card=card, other=other, cases=cases, arms=arms), f,
+                  indent=1)
+    print(json.dumps({'ok': True, 'card': card}))
+
+
+if __name__ == '__main__':
+    main()

@@ -57,14 +57,23 @@ non-zero exit code and no result line:
    K2 and K1 are also held and timed at the step's inputs (B = 96 voice
    rows). K1 and K4 lines give each call's time (median, least-most of
    25); K4's line the shares of sounding and silent cells below Nyquist.
-   (chip_oscillator_ab.py reads K1's and K4's time on the card alone.)
+   K6 and K7 are also held bit-exact at the launch plan's edge shapes
+   (T 0, 1, a tile less one, a tile, a tile and one, 750, 2625; B 1, 6,
+   16, 96, 100, 160; with release ties); their lines, and K3's, give the
+   card's own time (CUDA events between launches queued behind a spin
+   kernel) and, beside bound_ms (bytes), the serial-chain bound: T x the
+   dependent operations of a step x 4 cycles at the SM clock.
+   (chip_kernel_ab.py reads K1's, K4's, K6's and K7's time on the card
+   alone against another checkout's.)
 11. The training path: ``train_single_phase.main`` trains maestro_v2
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
    be finite. Prints the step time and its parts, then a torch.profiler
-   view of three more steps: the device's busy share and the operators
-   with the most device and host time.
+   view of three more steps: the device's busy share, the operators
+   with the most device and host time, and each hand-written kernel's
+   device events recorded against its launches counted (a shortfall,
+   which the profiler has shown for K6 and K7, means busy undercounts).
 12. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
@@ -78,6 +87,7 @@ run's checkpoints go to build/ in the checkout.
 """
 
 import contextlib
+import functools
 import importlib
 import json
 import os
@@ -161,6 +171,16 @@ OSC_FULL_FLOPS_PER_TERM = 33   # per (partial, sample), all computed:
 #   6, degree-4 polynomial in r^2 9, sign 1)
 GRU_GATE_FLOPS_PER_UNIT = 17   # per (step, row, unit), besides h U + b
 NR_FLOPS_PER_STEP = 14         # per (step, lane)
+# NoteRelease's serial chain (csrc/note_release_bwd.cu), in dependent
+# float32 operations a step as compiled: K3/K6's steps recurrence is - thr
+# with max and min (one FADD.SAT in the SASS), 1 -, * ((steps + 1) (1 - a)
+# runs beside it; prev's own loop is 3 too); K7's d_steps recurrence
+# * (s + 1), +, * (1 - a), * mask, +. At ~4 cycles an operation (assumed,
+# not measured) on the SM clock nvidia-smi reads under load. Printed on the
+# kernels' lines beside bound_ms, which stays bytes or operations.
+NR_CHAIN_OPS = {'note_release': 3, 'note_release_res': 3,
+                'note_release_bwd': 5}
+CYCLES_PER_DEPENDENT_OP = 4
 OSC_BWD_FLOPS_SOUNDING = 50    # per (partial, sample) of a sounding cell
 #   below Nyquist: phase 5, frequency and mask 3, crossfade 4, range
 #   reduction 8, two degree-4 polynomials 17, cotangents 4, five sums 9
@@ -205,6 +225,38 @@ def median_ms(fn, n=N_TIMED, warmup=3):
     return statistics.median(event_times(fn, n, warmup))
 
 
+def card_times(fn, n=N_TIMED, spin_cycles=20_000_000):
+    """The card's own time, ms, of each of ``n`` calls of ``fn``, a wrapper
+    that launches one kernel. The calls are queued behind a spin kernel
+    (torch.cuda._sleep, ~10 ms) that holds the stream while the host
+    enqueues them, so the card runs them back to back; a CUDA event between
+    each two times one, the gap between two queued launches (~1 us)
+    included. Fails unless the host enqueued every call before the spin
+    ended (doubling the spin up to twice). torch.profiler is not used here:
+    on the H100 machine it recorded from none to 21 of 25 launches of the
+    TMA kernels (K6, K7) in some traces."""
+    fn()
+    sync()
+    for _ in range(3):
+        before, events = (torch.cuda.Event(enable_timing=True),
+                          [torch.cuda.Event(enable_timing=True)
+                           for _ in range(n + 1)])
+        before.record()
+        torch.cuda._sleep(spin_cycles)
+        start = time.perf_counter()
+        events[0].record()
+        for i in range(n):
+            fn()
+            events[i + 1].record()
+        host_ms = (time.perf_counter() - start) * 1e3
+        sync()
+        if host_ms < 0.8 * before.elapsed_time(events[0]):
+            return [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        spin_cycles *= 2
+    fail(f"the host took {host_ms:.2f} ms to enqueue {n} calls, longer "
+         "than the spin that holds the card")
+
+
 def spread_text(times):
     """A kernel's call times: median (least-most)."""
     return (f"call {statistics.median(times):.4f} ms ({min(times):.4f}-"
@@ -219,6 +271,37 @@ def bound(flops, nbytes):
 
 
 # -- phase 1 ------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz():
+    """(SM clock, its maximum), MHz, as nvidia-smi reads them while the
+    card runs a queue of float32 matrix products (~1 s)."""
+    a = torch.randn(4096, 4096, device=DEV)
+    c = torch.empty_like(a)
+    for _ in range(400):
+        torch.mm(a, a, out=c)
+    out = subprocess.run(
+        ['nvidia-smi', '--query-gpu=clocks.sm,clocks.max.sm',
+         '--format=csv,noheader,nounits'], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    sync()
+    clock, most = (float(v) for v in out[0].split(','))
+    return clock, most
+
+
+def spin_clock_mhz(cycles=2_000_000):
+    """The SM clock, MHz, that a one-block kernel runs at: torch.cuda._sleep
+    spinning ``cycles`` clock ticks, timed by CUDA events (median of 5)."""
+    times = event_times(lambda: torch.cuda._sleep(cycles), n=5, warmup=1)
+    return cycles / (statistics.median(times) * 1e3)
+
+
+def chain_bound_ms(kernel, t):
+    """The least time of a NoteRelease kernel over ``t`` serial steps: its
+    chain of NR_CHAIN_OPS dependent operations a step at the SM clock."""
+    return t * NR_CHAIN_OPS[kernel] * CYCLES_PER_DEPENDENT_OP / (
+        sm_clock_mhz()[0] * 1e3)
 
 
 def card_line():
@@ -361,14 +444,20 @@ def render_segment(device, capture=None, config='maestro_v2'):
     return {k: outs[k].float().cpu().numpy() for k in SEGMENT_OUTPUTS}
 
 
-def to_card(args):
+def to_card(args, device=None):
+    """A call's arguments with every tensor on ``device`` (the card's,
+    DEV, by default)."""
     if isinstance(args, torch.Tensor):
-        return args.detach().to(DEV)
+        return args.detach().to(DEV if device is None else device)
     if isinstance(args, tuple) and hasattr(args, '_fields'):
-        return type(args)(*(to_card(a) for a in args))
+        return type(args)(*(to_card(a, device) for a in args))
     if isinstance(args, (tuple, list)):
-        return type(args)(to_card(a) for a in args)
+        return type(args)(to_card(a, device) for a in args)
     return args
+
+
+def to_cpu(args):
+    return to_card(args, torch.device('cpu'))
 
 
 def check_oscillator(calls, where='the v2 segment'):
@@ -598,15 +687,21 @@ def check_note_release(calls):
                                                        want_state)):
             fail("NoteRelease kernel is not bit-exact against its plain "
                  "version")
-        ms = median_ms(lambda: knr.note_release_scan_cuda(x, threshold,
-                                                          state0))
+        fn = lambda: knr.note_release_scan_cuda(x, threshold, state0)
+        ms = median_ms(fn)
+        card_ms = statistics.median(card_times(fn))
         plain_ms = median_ms(lambda: knr.note_release_scan_plain(
             x, threshold, state0), n=20, warmup=1)
     bound_ms, bound_by = bound(NR_FLOPS_PER_STEP * t * b,
                                4 * (2 * t * b + 1 + 4 * b))
+    chain = chain_bound_ms('note_release', t)
     return dict(name='note_release', max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                bound_by=bound_by), f"x ({t}, {b}, 1), bit-exact"
+                bound_by=bound_by, card_ms=card_ms, chain_bound_ms=chain), (
+        f"x ({t}, {b}, 1), bit-exact; card {card_ms:.4f} ms; chain bound "
+        f"{chain:.4f} ms ({t} steps x {NR_CHAIN_OPS['note_release']} "
+        f"dependent operations x {CYCLES_PER_DEPENDENT_OP} cycles at "
+        f"{sm_clock_mhz()[0]:g} MHz)")
 
 
 def print_full_row(where, row, detail):
@@ -1045,6 +1140,67 @@ def check_gru_bwd(calls):
     return total, detail + "; the chain of 750 serial steps bounds it"
 
 
+# K6 / K7 launch-plan edges: lengths as (tiles, steps) of the plan's tile,
+# and lanes (tests/test_torch_cuda.py holds the same shapes).
+NR_EDGE_T = ((0, 0), (0, 1), (1, -1), (1, 0), (1, 1), (0, 750), (0, 2625))
+NR_EDGE_B = (1, 6, 16, 96, 100, 160)
+
+
+def note_release_edge_inputs(t, b, seed, device=None):
+    """K6's inputs at (t, b) on ``device`` (DEV by default): notes of 1-11
+    steps with gaps of 1-15, an integral threshold (5) and initial release
+    counts on it and one below it, so steps - thr lands on 0 and 1; and
+    seeded cotangents for K7. tests/test_torch_cuda.py uses it too."""
+    rng = np.random.RandomState(seed)
+    x = np.zeros((t, b, 1), np.float32)
+    for lane in range(b):
+        start = int(rng.randint(0, 4))
+        while start < t:
+            held = int(rng.randint(1, 12))
+            x[start:start + held, lane, 0] = rng.randint(30, 90)
+            start += held + int(rng.randint(1, 16))
+    s0 = np.zeros((b, 2), np.float32)
+    s0[:, 0] = rng.randint(30, 90, b)
+    s0[:, 1] = np.array([4.0, 5.0, 6.0, 0.0])[np.arange(b) % 4]
+    g_out = rng.randn(t, b, 1).astype(np.float32)
+    g_state = rng.randn(b, 2).astype(np.float32)
+    device = DEV if device is None else device
+    card = lambda a: torch.from_numpy(a).to(device)
+    return (card(x), torch.tensor([5.0], device=device), card(s0),
+            card(g_out), card(g_state))
+
+
+def check_note_release_edges():
+    """K6 and K7 bit-exact against their plain pair at every launch-plan
+    edge; returns the shapes checked and the tie cells seen."""
+    from ddsp_piano_torch.kernels import note_release as knr
+
+    shapes, ties = [], [0, 0]
+    for b in NR_EDGE_B:
+        tile_t = knr.note_release_plan('note_release_res', 1, b)['tile_t']
+        for tiles, steps in NR_EDGE_T:
+            t = tiles * tile_t + steps
+            x, thr, s0, g_out, g_state = note_release_edge_inputs(
+                t, b, seed=t * 1000 + b)
+            got = knr.note_release_scan_res_cuda(x, thr, s0)
+            want = knr.note_release_scan_plain_res(x, thr, s0)
+            prev = torch.cat([s0[None, :, 0], want[0][:-1, :, 0]],
+                             dim=0)[:t]
+            args = (x, thr, prev, want[2], g_out, g_state)
+            got_b = knr.note_release_scan_bwd_cuda(*args)
+            want_b = knr.note_release_scan_plain_bwd(*args)
+            sync()
+            for name, a, w in (('K6', got, want), ('K7', got_b, want_b)):
+                if not all(torch.equal(i, j) for i, j in zip(a, w)):
+                    fail(f"NoteRelease {name} is not bit-exact against its "
+                         f"plain version at T={t}, B={b}")
+            u = want[2] - thr
+            ties[0] += int((u == 0).sum())
+            ties[1] += int((u == 1).sum())
+            shapes.append((t, b))
+    return shapes, ties
+
+
 def check_note_release_pair(capture):
     from ddsp_piano_torch.kernels import note_release as knr
 
@@ -1066,6 +1222,7 @@ def check_note_release_pair(capture):
              "plain version")
     u = want[2] - thr
     ties = int((u == 0).sum()), int((u == 1).sum())
+    shapes, edge_ties = check_note_release_edges()
     rows = []
     for name, fn, plain, args, flops, nbytes in (
             ('note_release_res', knr.note_release_scan_res_cuda,
@@ -1075,16 +1232,28 @@ def check_note_release_pair(capture):
              knr.note_release_scan_plain_bwd,
              (bx, bthr, prev, steps, g_out, g_state),
              NR_BWD_FLOPS_PER_STEP * t * b, 4 * (5 * t * b + 1 + 5 * b))):
-        ms = median_ms(lambda: fn(*args))
+        call = lambda: fn(*args)
+        ms = median_ms(call)
+        card_ms = statistics.median(card_times(call))
         plain_ms = median_ms(lambda: plain(*args), n=5, warmup=1)
         bound_ms, bound_by = bound(flops, nbytes)
+        plan = knr.note_release_plan(name, t, b)
         rows.append(dict(name=name, max_abs_err=0.0, ms=ms,
                          plain_ms=plain_ms, library_ms=None,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         card_ms=card_ms,
+                         chain_bound_ms=chain_bound_ms(name, t),
+                         plan=plan))
     detail = (f"x ({t}, {b}, 1), threshold {float(thr):g}, release ties "
               f"steps - thr == 0 at {ties[0]} and == 1 at {ties[1]} (step, "
-              f"lane) cells; both bit-exact; the chain of {t} serial steps "
-              f"bounds them")
+              f"lane) cells; both bit-exact, and at the plan's "
+              f"{len(shapes)} edge shapes (T {sorted({s[0] for s in shapes})}"
+              f", B {list(NR_EDGE_B)}; ties {edge_ties[0]} / "
+              f"{edge_ties[1]}); chain bound: {t} steps x "
+              f"{NR_CHAIN_OPS['note_release_res']} (K6) or "
+              f"{NR_CHAIN_OPS['note_release_bwd']} (K7) dependent operations "
+              f"x {CYCLES_PER_DEPENDENT_OP} cycles at {sm_clock_mhz()[0]:g} "
+              f"MHz (max {sm_clock_mhz()[1]:g})")
     return rows, detail
 
 
@@ -1144,14 +1313,30 @@ def training_path():
                 fwd_ms=parts[1], bwd_ms=parts[2], opt_ms=parts[3])
 
 
+# Each launch counter's kernels, by a piece of their symbol names (the
+# profiler's device events carry the demangled names).
+KERNEL_SYMBOLS = {'oscillator_skip': 'osc_skip_kernel',
+                  'oscillator_skip_bwd': 'osc_skip_bwd',
+                  'oscillator_full': 'osc_full_kernel',
+                  'gru_scan': 'gru_scan_kernel',
+                  'gru_scan_bwd': 'gru_scan_bwd_kernel',
+                  'note_release': 'note_release_kernel',
+                  'note_release_res': 'note_release_res_kernel',
+                  'note_release_bwd': 'note_release_bwd_kernel'}
+
+
 def profile_training_steps(n_steps=3):
     """torch.profiler over ``n_steps`` full-width training steps after two
     warm-up steps: wall ms per step, the device's busy share (the union of
-    kernel and copy intervals on the device's timeline), and the operators
-    with the most device and host time."""
+    kernel and copy intervals on the device's timeline), the operators
+    with the most device and host time, and, per hand-written kernel, the
+    launches its counter saw against the device events the profiler
+    recorded (the profiler has lost launches of K6 and K7 on the H100: a
+    shortfall means the busy time undercounts)."""
     from torch.profiler import ProfilerActivity, profile
 
     from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.kernels import build
     from ddsp_piano_torch.training.trainer import Trainer
 
     model = get_model('maestro_v2', device=DEV, seed=STUDENT_SEED)
@@ -1163,12 +1348,17 @@ def profile_training_steps(n_steps=3):
     activities = [ProfilerActivity.CPU]
     if DEV.type == 'cuda':
         activities.append(ProfilerActivity.CUDA)
+    counted = dict(build.LAUNCHES)
     with profile(activities=activities) as prof:
         start = time.perf_counter()
         for _ in range(n_steps):
             trainer.train_step(batch)
         sync()
         wall_ms = (time.perf_counter() - start) * 1e3 / n_steps
+    launched = {k: build.LAUNCHES[k] - counted[k] for k in KERNEL_SYMBOLS}
+    recorded = {k: sum(1 for e in prof.events()
+                       if e.device_type.name == 'CUDA' and piece in e.name)
+                for k, piece in KERNEL_SYMBOLS.items()}
     intervals = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type.name == 'CUDA' and e.time_range.end
@@ -1188,7 +1378,9 @@ def profile_training_steps(n_steps=3):
     fmt = lambda e, t: f"{e.key[:48]} {t / 1e3 / n_steps:.2f} ({e.count // n_steps})"
     return dict(wall_ms=wall_ms, busy_ms=busy_ms,
                 device=[fmt(e, e.self_device_time_total) for e in by_device],
-                host=[fmt(e, e.self_cpu_time_total) for e in by_host])
+                host=[fmt(e, e.self_cpu_time_total) for e in by_host],
+                launches={k: (recorded[k], n) for k, n in launched.items()
+                          if n or recorded[k]})
 
 
 # -- phase 12 -----------------------------------------------------------------
@@ -1437,9 +1629,14 @@ def main():
     rows, detail = check_note_release_pair(capture)
     kernels.extend(rows)
     for row in rows:
-        print(f"kernel {row['name']}: {detail}; kernel_ms {row['ms']:.4f} "
-              f"plain_ms {row['plain_ms']:.4f} library_ms none bound_ms "
-              f"{row['bound_ms']:.7f} ({row['bound_by']})", flush=True)
+        plan = row.pop('plan')
+        print(f"kernel {row['name']}: {detail}; plan lanes {plan['lanes']} "
+              f"tile_t {plan['tile_t']} stages {plan['stages']} blocks "
+              f"{plan['blocks']} smem {plan['smem_bytes']}; kernel_ms {row['ms']:.4f} card_ms "
+              f"{row['card_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+              f"library_ms none bound_ms {row['bound_ms']:.7f} "
+              f"({row['bound_by']}) chain_bound_ms "
+              f"{row['chain_bound_ms']:.5f}", flush=True)
     del capture
 
     t = training_path()
@@ -1464,6 +1661,14 @@ def main():
           f"({100 * prof['busy_ms'] / prof['wall_ms']:.1f} %); most device "
           f"ms per step (calls): {'; '.join(prof['device'])}", flush=True)
     print(f"most host ms per step (calls): {'; '.join(prof['host'])}",
+          flush=True)
+    lost = sum(n - got for got, n in prof['launches'].values())
+    print("hand-written kernels in the profile, device events recorded / "
+          "launches counted: " + ', '.join(
+              f"{k} {got}/{n}" for k, (got, n) in sorted(
+                  prof['launches'].items()))
+          + ("; complete" if lost == 0 else
+             f"; {lost} launches not recorded: device busy undercounts"),
           flush=True)
 
     g = gradient_check()
@@ -1496,8 +1701,8 @@ def main():
         row.update(route=route, source=source, replaces=replaces,
                    launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
-    print(json.dumps({'kernels': [{k: row[k] for k in keys}
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'card_ms')
+    print(json.dumps({'kernels': [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                              'count': count}}))

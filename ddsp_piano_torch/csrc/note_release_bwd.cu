@@ -30,24 +30,59 @@
 // rounds to 275.0 in float32. The per-lane dthr is summed over lanes by the
 // wrapper (gru_pallas.py:713-715).
 //
-// Bound on the H100: neither bytes nor operations. Per (t, lane) K6 moves
-// 12 bytes and K7 24 bytes, with ~14 and ~40 flops: at the v2 training
-// shape (T = 750, B = 96) that is ~1-2 MB and a few Mflop, microseconds
-// at the card's rates. What bounds both is the chain of T dependent steps
-// per lane.
+// Bound on the H100: the chain of T dependent steps of each lane, not bytes
+// or operations. Per (t, lane) K6 moves 12 bytes and K7 24, at the v2
+// training shape (T = 750, B = 96) ~0.9 and ~1.4 MB: well under a
+// microsecond at the card's rate. The recurrence a step is 3 dependent
+// float32 operations in K6 (steps: - thr with the saturation, which
+// compiles to one FADD.SAT, 1 -, *; (steps + 1) (1 - a) runs beside it)
+// and 5 in K7 (d_steps: * (s + 1), +, * (1 - a), * mask, +), ~12-20 cycles
+// at ~4 cycles an operation: 750 steps take ~5-8 us. A thread that loads
+// each step's operands from device memory inside the loop waits a memory
+// round trip every few steps instead (~50-200 ns a step). With the loads
+// off the chain, what paces a step is the consumer warp's own issue: ~48
+// instructions a K7 step, one warp, measured ~72 cycles a step (PERF.md).
 //
-// Design: as note_release.cu, one thread per lane with the state (K6) or
-// the carry and the dthr sum (K7) in registers and the time loop inside
-// the thread; the loads of step t do not depend on step t +- 1, so the
-// compiler can hoist them. No padding steps exist, so the TPU kernels'
-// `live` guard has no counterpart.
+// Design: loads leave the chain. A block owns a slice of kLanes lanes (one
+// consumer thread a lane, one consumer warp) and walks all T steps:
+// forward for K6, reverse for K7; several blocks share B. Its inputs
+// stream through a ring of kStages stages in shared memory, each a
+// (kTile, kLanes) tile of every input stream (K6: x; K7: x, prev, steps,
+// g_out). Tiles are cut from t = 0, so the ragged tile is the last one K6
+// walks and the first one K7 walks. A producer thread fills a stage with
+// one TMA box (cp.async.bulk.tensor.2d) a stream, kLanes lanes by kTile
+// steps, completing on the stage's `full` mbarrier with the stage's byte
+// count; the box past T or B is zero filled. TMA needs rows on 16 bytes,
+// so B % 4 == 0: the wrapper pads the lanes of any other B with zeros. A
+// first version copied each (step, stream) row of kLanes lanes with its
+// own cp.async.bulk: the card took ~30 ns a row copy, one a K6 step and
+// four a K7 step, and that paced both kernels (PERF.md). The consumer
+// waits on `full`, walks the tile's steps with operands from shared memory
+// and the carry in registers, stores its outputs straight to device memory
+// (coalesced across the lanes; stores do not stall the chain) and arrives
+// on the stage's `empty` mbarrier, so the producer refills it with the
+// tile kStages ahead. kLanes, kTile and kStages are the plan a probe on
+// the H100 chose (PERF.md); kernels/note_release.py note_release_plan
+// states it and the launch checks it.
 //
 // Exactness: built with --fmad=false, every multiply and add rounds on its
 // own in the order written above, which is the order of the plain PyTorch
 // versions (kernels/note_release.py note_release_scan_plain_res and
 // note_release_scan_plain_bwd). Both kernels are held bit-exact to them.
 
+#include <cuda.h>           // CUtensorMap; the encoder is fetched at run time
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kLanes = 32;           // lanes a block: one consumer warp
+constexpr int kThreads = 64;         // and one producer warp
+constexpr int kTile = 64;            // steps a tile
+constexpr int kStages = 2;           // tiles in the ring
+constexpr int kGroup = 8;            // K7: steps whose operands load at once
+constexpr int kRingOffset = 128;     // bytes of mbarriers before the tiles
+constexpr int kSmemLimit = 232448;   // a block's shared memory on sm_90
 
 __device__ __forceinline__ float sat_relu(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
@@ -59,21 +94,146 @@ __device__ __forceinline__ float sat_relu_mask(float u) {
   return u > 0.0f ? inner : 0.0f;
 }
 
-__global__ void note_release_res_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ threshold,
-                                        const float* __restrict__ state0,
-                                        float* __restrict__ out,
-                                        float* __restrict__ state_out,
-                                        float* __restrict__ steps_out,
-                                        int T, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// One (kTile, kLanes) box of a (T, B) stream at (lane c0, step c1) by TMA;
+// rows past T and lanes past B are filled with zeros and counted in the
+// bytes.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// The ring's geometry, shared by the producer and the consumer.
+struct Ring {
+  float* tiles;        // kStages stages of NS tiles of (kTile, kLanes)
+  uint32_t full;       // address of full[0]; full[s] at full + 8 s
+  uint32_t empty;      // address of empty[0]
+  int n_tiles, T;
+  bool reverse;        // K7 walks the tiles from the end
+
+  // The tile walked i-th: its first step, its rows and its stage.
+  __device__ __forceinline__ void tile(int i, int* t0, int* rows,
+                                       int* stage) const {
+    const int k = reverse ? n_tiles - 1 - i : i;
+    *t0 = k * kTile;
+    *rows = min(kTile, T - *t0);
+    *stage = i % kStages;
+  }
+};
+
+// Barriers: full[s] completes when stage s holds its tile (the producer's
+// one arrival with the byte count, and the bytes); empty[s] when the
+// kLanes consumer threads have read it.
+__device__ __forceinline__ Ring make_ring(int T, bool reverse) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  Ring ring;
+  ring.tiles = reinterpret_cast<float*>(smem + kRingOffset);
+  ring.full = smem_addr(smem);
+  ring.empty = ring.full + 8 * kStages;
+  ring.n_tiles = (T + kTile - 1) / kTile;
+  ring.T = T;
+  ring.reverse = reverse;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(ring.full + 8 * s, 1);
+      mbar_init(ring.empty + 8 * s, kLanes);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  return ring;
+}
+
+// A kernel's input streams, each (T, B) float32, as TMA descriptors of a
+// (kTile, kLanes) box.
+template <int NS>
+struct Streams {
+  CUtensorMap map[NS];
+};
+
+// The producer (the producer warp's first thread): for each tile in walk
+// order, wait until its stage is released (from the second round on) and
+// copy one box of every stream, with the stage's full byte count.
+template <int NS>
+__device__ __forceinline__ void produce(const Ring& ring,
+                                        const Streams<NS>& in, int b0) {
+  if (threadIdx.x != kLanes) return;
+  for (int i = 0; i < ring.n_tiles; ++i) {
+    int t0, rows, stage;
+    ring.tile(i, &t0, &rows, &stage);
+    const int round = i / kStages;
+    if (round > 0) mbar_wait(ring.empty + 8 * stage, (round - 1) & 1);
+    const uint32_t full = ring.full + 8 * stage;
+    float* dst = ring.tiles + stage * NS * kTile * kLanes;
+    mbar_expect_tx(full, NS * kTile * kLanes * 4);
+    for (int k = 0; k < NS; ++k) {
+      tma_load(smem_addr(dst + k * kTile * kLanes), &in.map[k], b0, t0,
+               full);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    note_release_res_kernel(const __grid_constant__ Streams<1> in,
+                            const float* __restrict__ threshold,
+                            const float* __restrict__ state0,
+                            float* __restrict__ out,
+                            float* __restrict__ state_out,
+                            float* __restrict__ steps_out, int T, int B) {
+  const Ring ring = make_ring(T, false);
+  const int b0 = blockIdx.x * kLanes;
+  if (threadIdx.x >= kLanes) {
+    produce<1>(ring, in, b0);
+    return;
+  }
+  const int j = threadIdx.x;
+  const bool active = b0 + j < B;
+  const int b = b0 + j;
   const float thr = threshold[0];
-  float prev = state0[2 * b];
-  float steps = state0[2 * b + 1];
-  for (int t = 0; t < T; ++t) {
+  float prev = active ? state0[2 * b] : 0.0f;
+  float steps = active ? state0[2 * b + 1] : 0.0f;
+  auto step = [&](const float* tile, int r, int t) {
     const size_t i = (size_t)t * B + b;
-    const float note = x[i];
+    const float note = tile[r * kLanes];
     steps_out[i] = steps;
     const float activity = sat_relu(note);
     const float release_end = sat_relu(steps - thr);
@@ -82,32 +242,49 @@ __global__ void note_release_res_kernel(const float* __restrict__ x,
     steps = (steps + 1.0f) * (1.0f - activity) * (1.0f - release_end);
     prev = o;
     out[i] = o;
+  };
+  for (int i = 0; i < ring.n_tiles; ++i) {
+    int t0, rows, stage;
+    ring.tile(i, &t0, &rows, &stage);
+    mbar_wait(ring.full + 8 * stage, (i / kStages) & 1);
+    const float* tile = ring.tiles + stage * kTile * kLanes + j;
+    if (active) {
+      if (rows == kTile) {
+#pragma unroll 8
+        for (int r = 0; r < kTile; ++r) step(tile, r, t0 + r);
+      } else {
+        for (int r = 0; r < rows; ++r) step(tile, r, t0 + r);
+      }
+    }
+    mbar_arrive(ring.empty + 8 * stage);
   }
-  state_out[2 * b] = prev;
-  state_out[2 * b + 1] = steps;
+  if (active) {
+    state_out[2 * b] = prev;
+    state_out[2 * b + 1] = steps;
+  }
 }
 
-__global__ void note_release_bwd_kernel(const float* __restrict__ x,
-                                        const float* __restrict__ threshold,
-                                        const float* __restrict__ prev,
-                                        const float* __restrict__ steps,
-                                        const float* __restrict__ g_out,
-                                        const float* __restrict__ g_state,
-                                        float* __restrict__ dx,
-                                        float* __restrict__ dthr,
-                                        float* __restrict__ dstate0,
-                                        int T, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+__global__ void __launch_bounds__(kThreads)
+    note_release_bwd_kernel(const __grid_constant__ Streams<4> in,
+                            const float* __restrict__ threshold,
+                            const float* __restrict__ g_state,
+                            float* __restrict__ dx, float* __restrict__ dthr,
+                            float* __restrict__ dstate0, int T, int B) {
+  const Ring ring = make_ring(T, true);
+  const int b0 = blockIdx.x * kLanes;
+  if (threadIdx.x >= kLanes) {
+    produce<4>(ring, in, b0);
+    return;
+  }
+  const int j = threadIdx.x;
+  const bool active = b0 + j < B;
+  const int b = b0 + j;
   const float thr = threshold[0];
-  float d_prev = g_state[2 * b];
-  float d_steps = g_state[2 * b + 1];
+  float d_prev = active ? g_state[2 * b] : 0.0f;
+  float d_steps = active ? g_state[2 * b + 1] : 0.0f;
   float d_thr = 0.0f;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t i = (size_t)t * B + b;
-    const float note = x[i];
-    const float p = prev[i];
-    const float s = steps[i];
+  // One step from its operands: x, prev, steps and g_out at step t.
+  auto step = [&](float note, float p, float s, float g, int t) {
     const float a = sat_relu(note);
     const float u_e = s - thr;
     const float e = sat_relu(u_e);
@@ -115,30 +292,148 @@ __global__ void note_release_bwd_kernel(const float* __restrict__ x,
     const float mask_e = sat_relu_mask(u_e);
     const float one_a = 1.0f - a;
     const float one_e = 1.0f - e;
-    const float g_o = g_out[i] + d_prev;
+    const float g_o = g + d_prev;
     const float g_n = d_steps;
     const float g_e = -(g_o * p + g_n * (s + 1.0f)) * one_a;
     const float g_a = g_o * (note - p * one_e) - g_n * (s + 1.0f) * one_e;
-    dx[i] = g_o * a + g_a * mask_a;
+    dx[(size_t)t * B + b] = g_o * a + g_a * mask_a;
     d_prev = g_o * one_a * one_e;
     d_steps = g_n * one_a * one_e + g_e * mask_e;
     d_thr = d_thr + g_e * (-mask_e);
+  };
+  for (int i = 0; i < ring.n_tiles; ++i) {
+    int t0, rows, stage;
+    ring.tile(i, &t0, &rows, &stage);
+    mbar_wait(ring.full + 8 * stage, (i / kStages) & 1);
+    // The tile's four streams (x, prev, steps, g_out), kTile * kLanes
+    // floats apart.
+    const float* tile = ring.tiles + stage * 4 * kTile * kLanes + j;
+    if (active) {
+      if (rows == kTile) {
+        // kGroup steps' operands into registers, then their walk: left to
+        // ptxas, the loads came a step ahead at most (K7 ~18 % slower).
+        for (int r0 = kTile - kGroup; r0 >= 0; r0 -= kGroup) {
+          float note[kGroup], p[kGroup], s[kGroup], g[kGroup];
+#pragma unroll
+          for (int k = 0; k < kGroup; ++k) {
+            note[k] = tile[(r0 + k) * kLanes];
+            p[k] = tile[(kTile + r0 + k) * kLanes];
+            s[k] = tile[(2 * kTile + r0 + k) * kLanes];
+            g[k] = tile[(3 * kTile + r0 + k) * kLanes];
+          }
+#pragma unroll
+          for (int k = kGroup - 1; k >= 0; --k) {
+            step(note[k], p[k], s[k], g[k], t0 + r0 + k);
+          }
+        }
+      } else {
+        for (int r = rows - 1; r >= 0; --r) {
+          step(tile[r * kLanes], tile[(kTile + r) * kLanes],
+               tile[(2 * kTile + r) * kLanes], tile[(3 * kTile + r) * kLanes],
+               t0 + r);
+        }
+      }
+    }
+    mbar_arrive(ring.empty + 8 * stage);
   }
-  dthr[b] = d_thr;
-  dstate0[2 * b] = d_prev;
-  dstate0[2 * b + 1] = d_steps;
+  if (active) {
+    dthr[b] = d_thr;
+    dstate0[2 * b] = d_prev;
+    dstate0[2 * b + 1] = d_steps;
+  }
 }
 
+typedef CUresult (*EncodeTiled)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, looked up once through the runtime
+// (no -lcuda).
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess
+        && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// Fill the streams' TMA descriptors: (T, B) float32 arrays with rows 4 B
+// bytes apart (B % 4 == 0, 16-byte aligned bases), read as boxes of
+// (kTile, kLanes).
+template <int NS>
+int encode(Streams<NS>* in, const float* const* ptr, int T, int B) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)B, (cuuint64_t)T};
+  const cuuint64_t strides[1] = {(cuuint64_t)B * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)kLanes, (cuuint32_t)kTile};
+  const cuuint32_t unit[2] = {1, 1};
+  for (int k = 0; k < NS; ++k) {
+    if (fn(&in->map[k], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+           const_cast<float*>(ptr[k]), dims, strides, box, unit,
+           CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+           CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+           CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  return 0;
+}
+
+// Check the caller's plan against this source's, fill the descriptors, set
+// the kernel's shared-memory size and launch.
+template <int NS>
+int launch(const void* fn, Streams<NS>* in, const float* const* ptr,
+           void** args, int T, int B, int lanes, int tile_t, int stages,
+           int smem, cudaStream_t stream) {
+  const int want = kRingOffset + kStages * NS * kTile * kLanes * 4;
+  if (B <= 0 || B % 4 != 0 || T < 0 || lanes != kLanes || tile_t != kTile
+      || stages != kStages || smem != want || smem > kSmemLimit) {
+    return (int)cudaErrorInvalidValue;
+  }
+  for (int k = 0; k < NS; ++k) {
+    if (reinterpret_cast<uintptr_t>(ptr[k]) % 16 != 0) {
+      return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (T > 0) {
+    const int err = encode(in, ptr, T, B);
+    if (err != 0) return err;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernel(fn, dim3((B + kLanes - 1) / kLanes), dim3(kThreads),
+                         args, smem, stream);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace
+
+// The plan (kernels/note_release.py note_release_plan): lanes a block,
+// steps a tile, stages and shared bytes, checked against this source's
+// constants. B must be a multiple of 4 and the streams 16-byte aligned
+// (the wrapper pads and copies to make them so).
 extern "C" int note_release_res_launch(const float* x, const float* threshold,
                                        const float* state0, float* out,
                                        float* state_out, float* steps_out,
-                                       int T, int B, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  note_release_res_kernel<<<blocks, threads, 0, stream>>>(
-      x, threshold, state0, out, state_out, steps_out, T, B);
-  return (int)cudaGetLastError();
+                                       int T, int B, int lanes, int tile_t,
+                                       int stages, int smem,
+                                       cudaStream_t stream) {
+  Streams<1> in = {};
+  const float* ptr[1] = {x};
+  void* args[] = {&in, &threshold, &state0, &out, &state_out, &steps_out,
+                  &T,  &B};
+  return launch((const void*)note_release_res_kernel, &in, ptr, args, T,
+                B, lanes, tile_t, stages, smem, stream);
 }
 
 extern "C" int note_release_bwd_launch(const float* x, const float* threshold,
@@ -146,11 +441,12 @@ extern "C" int note_release_bwd_launch(const float* x, const float* threshold,
                                        const float* g_out,
                                        const float* g_state, float* dx,
                                        float* dthr, float* dstate0, int T,
-                                       int B, cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  note_release_bwd_kernel<<<blocks, threads, 0, stream>>>(
-      x, threshold, prev, steps, g_out, g_state, dx, dthr, dstate0, T, B);
-  return (int)cudaGetLastError();
+                                       int B, int lanes, int tile_t,
+                                       int stages, int smem,
+                                       cudaStream_t stream) {
+  Streams<4> in = {};
+  const float* ptr[4] = {x, prev, steps, g_out};
+  void* args[] = {&in, &threshold, &g_state, &dx, &dthr, &dstate0, &T, &B};
+  return launch((const void*)note_release_bwd_kernel, &in, ptr, args, T,
+                B, lanes, tile_t, stages, smem, stream);
 }

@@ -47,7 +47,7 @@
 //   tri, s + 1, s/up and the two weights are constant-bank reads at fixed
 //   offsets: on sm_90 ptxas turns them into ULDC (mostly 64-bit, two
 //   values a read) into uniform registers that the arithmetic takes as
-//   operands, ~2 a sample and no memory load (chip_oscillator_ab.py counts
+//   operands, ~2 a sample and no memory load (chip_kernel_ab.py counts
 //   them in the SASS). g is read from shared memory four samples at a time
 //   (one broadcast load). Any other `up` takes a generic instance that
 //   reads the tables from memory.

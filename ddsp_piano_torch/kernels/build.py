@@ -60,9 +60,10 @@ SIGNATURES = {
                             _F, _P),
     },
     'note_release_bwd': {
-        'note_release_res_launch': (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+        'note_release_res_launch': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                    _I, _I, _P),
         'note_release_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                                    _I, _P),
+                                    _I, _I, _I, _I, _I, _P),
     },
     'gru_scan_bwd': {
         'gru_scan_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,

@@ -16,7 +16,7 @@ d min(r, 1)/dr = 0.5 at r = 1 (gru_pallas.py:533-538). Torch's autograd of
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -159,26 +159,104 @@ def note_release_scan_cuda(active_pitch: torch.Tensor,
     return out, state
 
 
+# K6 / K7 launch plan (csrc/note_release_bwd.cu, whose constants it
+# states and whose launch checks them). A block is one consumer warp (a
+# thread a lane of its slice) and one producer warp; its input streams
+# pass through a ring of NR_STAGES (NR_TILE, NR_LANES) tiles in shared
+# memory, after NR_RING_OFFSET bytes of mbarriers (each tile starts on 128
+# bytes, as a TMA box's destination must). A probe on the H100 chose the
+# plan (PERF.md).
+NR_LANES = 32
+NR_TILE = 64
+NR_STAGES = 2
+NR_RING_OFFSET = 128
+NR_SMEM_LIMIT = 232448          # a block's shared memory on sm_90
+NR_STREAMS = {'note_release_res': 1, 'note_release_bwd': 4}
+
+
+def note_release_plan(kernel: str, t: int, b: int) -> Dict[str, int]:
+    """The launch plan of K6 ('note_release_res') or K7
+    ('note_release_bwd') for T steps of B lanes: lanes a block, steps a
+    tile, ring stages, the lanes launched (B padded to a multiple of 4, so
+    that a stream's rows meet the TMA box's 16-byte rule), blocks (of 64
+    threads: a consumer and a producer warp), dynamic shared bytes a
+    block, and tiles; raises ValueError on T < 0 or B < 1."""
+    if b < 1 or t < 0:
+        raise ValueError(f"no {kernel} plan for T={t}, B={b}")
+    smem = (NR_RING_OFFSET
+            + NR_STAGES * NR_STREAMS[kernel] * NR_TILE * NR_LANES * 4)
+    padded = -(-b // 4) * 4
+    return dict(lanes=NR_LANES, tile_t=NR_TILE, stages=NR_STAGES,
+                padded_b=padded, blocks=-(-padded // NR_LANES),
+                smem_bytes=smem, tiles=-(-t // NR_TILE))
+
+
+def _launchable(a: torch.Tensor, lanes: int, dim: int) -> torch.Tensor:
+    """``a`` itself, or a copy with its lane dimension ``dim`` zero-padded
+    to ``lanes`` (the plan's padded B) and its data on the 16 bytes a TMA
+    descriptor's base needs (a view into a larger tensor may start
+    anywhere)."""
+    if a.shape[dim] == lanes and a.data_ptr() % 16 == 0:
+        return a
+    shape = list(a.shape)
+    shape[dim] = lanes
+    out = a.new_zeros(shape)
+    out.narrow(dim, 0, a.shape[dim]).copy_(a)
+    return out
+
+
+def launch_note_release(kernel: str, args, plan: Dict[str, int]):
+    """Launch K6 (args: x (T, B, 1), threshold, state0) or K7 (args: x,
+    threshold, prev (T, B), steps (T, B), g_out (T, B), g_state (B, 2)),
+    contiguous float32 CUDA tensors, under ``plan`` (B's lanes zero-padded
+    to the plan's, the outputs cut back to B); returns the outputs."""
+    thr = args[1]
+    t, b, _ = args[0].shape
+    lanes = plan['padded_b']
+    x = _launchable(args[0], lanes, 1)
+    lib = build.library('note_release_bwd')
+    stream = build.stream_handle(x.device)
+    layout = (plan['lanes'], plan['tile_t'], plan['stages'],
+              plan['smem_bytes'])
+    new = lambda *shape: torch.empty(shape, dtype=torch.float32,
+                                     device=x.device)
+    if kernel == 'note_release_res':
+        s0 = _launchable(args[2], lanes, 0)
+        out, state, steps = new(t, lanes, 1), new(lanes, 2), new(t, lanes)
+        code = lib.note_release_res_launch(
+            x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
+            state.data_ptr(), steps.data_ptr(), t, lanes, *layout, stream)
+        build.check(code, 'note_release_res_launch')
+        outputs, dims = (out, state, steps), (1, 0, 1)
+    else:
+        p, s, g = (_launchable(a, lanes, 1) for a in args[2:5])
+        g_state = _launchable(args[5], lanes, 0)
+        dx, dthr, dstate0 = new(t, lanes), new(lanes), new(lanes, 2)
+        code = lib.note_release_bwd_launch(
+            x.data_ptr(), thr.data_ptr(), p.data_ptr(), s.data_ptr(),
+            g.data_ptr(), g_state.data_ptr(), dx.data_ptr(),
+            dthr.data_ptr(), dstate0.data_ptr(), t, lanes, *layout, stream)
+        build.check(code, 'note_release_bwd_launch')
+        outputs, dims = (dx, dthr, dstate0), (1, 0, 0)
+    if lanes == b:
+        return outputs
+    return tuple(o.narrow(dim, 0, b).contiguous()
+                 for o, dim in zip(outputs, dims))
+
+
 def note_release_scan_res_cuda(active_pitch: torch.Tensor,
                                threshold: torch.Tensor,
                                state0: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """K6 (K3 plus the pre-update steps stream) on CUDA tensors."""
-    x, thr, s0 = _check_inputs('note_release_scan_res_cuda', active_pitch,
-                               threshold, state0)
-    t, b, _ = x.shape
-    out = torch.empty((t, b, 1), dtype=torch.float32, device=x.device)
-    state = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    steps = torch.empty((t, b), dtype=torch.float32, device=x.device)
-    lib = build.library('note_release_bwd')
-    code = lib.note_release_res_launch(
-        x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
-        state.data_ptr(), steps.data_ptr(), t, b,
-        build.stream_handle(x.device))
-    build.check(code, 'note_release_res_launch')
+    args = _check_inputs('note_release_scan_res_cuda', active_pitch,
+                         threshold, state0)
+    t, b, _ = args[0].shape
+    outputs = launch_note_release(
+        'note_release_res', args, note_release_plan('note_release_res', t, b))
     build.LAUNCHES['note_release_res'] += 1
-    return out, state, steps
+    return outputs
 
 
 def note_release_scan_bwd_cuda(active_pitch: torch.Tensor,
@@ -198,17 +276,11 @@ def note_release_scan_bwd_cuda(active_pitch: torch.Tensor,
         raise ValueError("note_release_scan_bwd_cuda: prev, steps and g_out "
                          f"must be float32 CUDA tensors of ({t}, {b})")
     p, s, g = (a.detach().contiguous() for a in streams)
-    dx = torch.empty((t, b), dtype=torch.float32, device=x.device)
-    dthr = torch.empty((b,), dtype=torch.float32, device=x.device)
-    dstate0 = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    lib = build.library('note_release_bwd')
-    code = lib.note_release_bwd_launch(
-        x.data_ptr(), thr.data_ptr(), p.data_ptr(), s.data_ptr(),
-        g.data_ptr(), gs.data_ptr(), dx.data_ptr(), dthr.data_ptr(),
-        dstate0.data_ptr(), t, b, build.stream_handle(x.device))
-    build.check(code, 'note_release_bwd_launch')
+    outputs = launch_note_release(
+        'note_release_bwd', (x, thr, p, s, g, gs),
+        note_release_plan('note_release_bwd', t, b))
     build.LAUNCHES['note_release_bwd'] += 1
-    return dx, dthr, dstate0
+    return outputs
 
 
 class NoteReleaseScan(torch.autograd.Function):
@@ -230,7 +302,8 @@ class NoteReleaseScan(torch.autograd.Function):
     def backward(ctx, g_out, g_state):
         active_pitch, threshold, state0, out, steps = ctx.saved_tensors
         # The held note entering each step: the outputs shifted by one.
-        prev = torch.cat([state0[None, :, 0], out[:-1, :, 0]], dim=0)
+        prev = torch.cat([state0[None, :, 0], out[:-1, :, 0]],
+                         dim=0)[:out.shape[0]]
         bwd = (note_release_scan_bwd_cuda
                if tensor_device(active_pitch, 'note_release_scan') == 'cuda'
                else note_release_scan_plain_bwd)

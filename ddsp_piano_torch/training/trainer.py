@@ -5,7 +5,11 @@ Counterpart of ddsp_piano_tpu/training/trainer.py (the single-step path,
 
 - the step is autograd of ``total_loss``, then Adam over the trainable
   parameters only (PianoModel.set_trainable: frozen parameters get no
-  gradient, no update and no moments, as optax.set_to_zero gives them);
+  gradient, no update and no moments, as optax.set_to_zero gives them).
+  A phase that trains no parameter (maestro_v2's even phases: its joint
+  tuning is pretrained and stays frozen) has no optimizer: its step
+  computes the losses, runs no backward and changes no parameter, as the
+  JAX trainer's all-``set_to_zero`` step does;
 - the gradient is clipped to a global norm of 3 as optax's
   clip_by_global_norm does: g * max_norm / norm when norm >= max_norm,
   with the norm over the trainable parameters only (not clip_grad_norm_,
@@ -115,8 +119,7 @@ class Trainer:
         self.named_params = [(n, p) for n, p in model.named_parameters()
                              if p.requires_grad]
         self.params = [p for _, p in self.named_params]
-        self.optimizer = torch.optim.Adam(self.params, lr=learning_rate,
-                                          betas=(0.9, 0.999), eps=1e-8)
+        self.optimizer = self._make_optimizer()
         self.step = 0
         self.stage = BatchStager(self.device)
         # Delayed NaN guard: (step, losses, ring slot) per unchecked step,
@@ -128,6 +131,13 @@ class Trainer:
         # CUDA events (start, after forward, after backward, after the
         # update) of every step, when asked for: device-side phase times.
         self.timeline = [] if record_timeline else None
+
+    def _make_optimizer(self) -> Optional[torch.optim.Adam]:
+        """Adam over the trainable parameters; None when there is none."""
+        if not self.params:
+            return None
+        return torch.optim.Adam(self.params, lr=self.learning_rate,
+                                betas=(0.9, 0.999), eps=1e-8)
 
     # -- steps --------------------------------------------------------------
 
@@ -147,16 +157,19 @@ class Trainer:
                          generator: Optional[torch.Generator] = None,
                          events=None) -> Dict[str, torch.Tensor]:
         """Losses of one batch, with the gradient of total_loss in each
-        trainable parameter's .grad. ``noise`` injects the noise synth's
-        uniform draw (tests hand both sides the same draw)."""
+        trainable parameter's .grad (no backward when none is trainable).
+        ``noise`` injects the noise synth's uniform draw (tests hand both
+        sides the same draw)."""
         batch = self._as_device_batch(batch)
-        self.optimizer.zero_grad(set_to_none=True)
+        if self.optimizer is not None:
+            self.optimizer.zero_grad(set_to_none=True)
         outputs = self.model(batch, noise=noise, generator=generator,
                              training=True)
         losses = outputs['losses']
         if events is not None:
             events[1].record()
-        losses['total_loss'].backward()
+        if self.optimizer is not None:
+            losses['total_loss'].backward()
         if events is not None:
             events[2].record()
         return {k: v.detach() for k, v in losses.items()}
@@ -179,6 +192,8 @@ class Trainer:
             g.div_(divisor).mul_(factor)
 
     def apply_gradients(self) -> None:
+        if self.optimizer is None:
+            return
         self.clip_gradients()
         self.optimizer.step()
 
@@ -295,6 +310,8 @@ class Trainer:
                  for k, v in self.model.state_dict().items()}
         for (name, _), value in zip(self.named_params, tensors[:n]):
             model[name] = value.clone()
+        if self.optimizer is None:
+            return {'model': model, 'optimizer': None, 'step': step}
         optimizer = self.optimizer.state_dict()
         opt_state = {}
         if len(tensors) > n:
@@ -309,7 +326,8 @@ class Trainer:
 
     def state_dict(self) -> Dict[str, Any]:
         return {'model': self.model.state_dict(),
-                'optimizer': self.optimizer.state_dict(),
+                'optimizer': (None if self.optimizer is None
+                              else self.optimizer.state_dict()),
                 'step': self.step}
 
     def save(self, directory: str, meta: Optional[dict] = None,
@@ -330,19 +348,22 @@ class Trainer:
     def restore(self, path: str) -> Dict[str, Any]:
         """Load a checkpoint written by :meth:`save` (a directory or the
         file); returns its meta dict. A checkpoint of another phase has
-        another optimizer structure: the moments then start afresh."""
+        another optimizer structure (or none, from a phase that trained no
+        parameter): the moments then start afresh."""
         if os.path.isdir(path):
             path = os.path.join(path, CKPT_NAME)
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
         self.model.load_state_dict(ckpt['model'])
-        try:
-            self.optimizer.load_state_dict(ckpt['optimizer'])
-        except ValueError:
-            log.warning("Optimizer state structure changed (training-phase "
-                        "switch?) - reinitializing optimizer moments.")
-            self.optimizer = torch.optim.Adam(
-                self.params, lr=self.learning_rate, betas=(0.9, 0.999),
-                eps=1e-8)
+        if self.optimizer is not None:
+            try:
+                if ckpt['optimizer'] is None:
+                    raise ValueError("the checkpoint has no optimizer state")
+                self.optimizer.load_state_dict(ckpt['optimizer'])
+            except ValueError:
+                log.warning("Optimizer state structure changed (training-"
+                            "phase switch?) - reinitializing optimizer "
+                            "moments.")
+                self.optimizer = self._make_optimizer()
         self.step = int(ckpt['step'])
         self._pending = []
         return dict(ckpt.get('meta', {}))

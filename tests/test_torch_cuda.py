@@ -298,6 +298,45 @@ def test_note_release_res_and_bwd_kernels_bit_exact(cuda_device):
     assert build.LAUNCHES['note_release_bwd'] == 1
 
 
+# Lengths as (tiles, steps) of the plan's tile, and lanes, as in
+# tests/test_torch_kernels.py's plan tests.
+NR_PLAN_T = {'0': (0, 0), '1': (0, 1), 'tile-1': (1, -1), 'tile': (1, 0),
+             'tile+1': (1, 1), '750': (0, 750), '2625': (0, 2625)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 6, 16, 96, 100, 160])
+@pytest.mark.parametrize('t', list(NR_PLAN_T))
+def test_note_release_pair_bit_exact_at_plan_edges(cuda_device, t, b):
+    """K6 and K7 against their plain pair at every edge of the launch plan
+    (no tile, one step, a ragged tile on either side of a whole one, the
+    path's lengths; one lane to past the step's 96, with and without lanes
+    padded to a multiple of 4), with release ties: chip_smoke.py's edge
+    inputs, an integral threshold and initial release counts on it and one
+    below, so steps - thr lands on 0 and 1."""
+    from chip_smoke import note_release_edge_inputs
+
+    tiles, steps = NR_PLAN_T[t]
+    t = tiles * tnr.NR_TILE + steps
+    x, thr, s0, g_out, g_state = note_release_edge_inputs(
+        t, b, seed=t * 1000 + b, device=cuda_device)
+    build.reset_launches()
+    got = tnr.note_release_scan_res_cuda(x, thr, s0)
+    want = tnr.note_release_scan_plain_res(x, thr, s0)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    if t >= 2:
+        u = want[2] - 5.0
+        assert bool((u == 0).any()) and bool((u == 1).any())
+    prev = torch.cat([s0[None, :, 0], want[0][:-1, :, 0]], dim=0)[:t]
+    got = tnr.note_release_scan_bwd_cuda(x, thr, prev, want[2], g_out,
+                                         g_state)
+    want = tnr.note_release_scan_plain_bwd(x, thr, prev, want[2], g_out,
+                                           g_state)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert build.LAUNCHES['note_release_res'] == 1
+    assert build.LAUNCHES['note_release_bwd'] == 1
+
+
 def _both_devices(arrays, device):
     cpu = [torch.from_numpy(np.asarray(a, np.float32)).requires_grad_()
            for a in arrays]

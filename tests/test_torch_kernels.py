@@ -294,6 +294,114 @@ def test_note_release_plain_matches_pallas(threshold):
     np.testing.assert_array_equal(got_state.numpy(), np.asarray(want_state))
 
 
+# -- K6 / K7: the launch plan ------------------------------------------------------
+
+# Sequence lengths relative to the plan's tile and the path's own (750 a
+# training segment, 2625 the 10 s render); lanes from one to past the
+# step's 96, with B % 4 != 0 (padded by the wrapper) and == 0. Each length
+# as (tiles, steps): tiles * tile_t + steps.
+NR_PLAN_T = {'0': (0, 0), '1': (0, 1), 'tile-1': (1, -1), 'tile': (1, 0),
+             'tile+1': (1, 1), '750': (0, 750), '2625': (0, 2625)}
+NR_PLAN_B = [1, 6, 16, 96, 100, 160]
+
+
+def _note_release_boxes(kernel, plan, t):
+    """The TMA boxes of csrc/note_release_bwd.cu's producer under
+    ``plan``, in the order each block issues them: (block, walk, stage,
+    stream, first step, first lane, shared destination in bytes). Tiles
+    are cut from step 0; K6 walks them forward and K7 from the end."""
+    lanes, tile_t = plan['lanes'], plan['tile_t']
+    streams = tnr.NR_STREAMS[kernel]
+    for block in range(plan['blocks']):
+        for i in range(plan['tiles']):
+            tile = plan['tiles'] - 1 - i if kernel == 'note_release_bwd' else i
+            stage = i % plan['stages']
+            for k in range(streams):
+                yield (block, i, stage, k, tile * tile_t, block * lanes,
+                       tnr.NR_RING_OFFSET
+                       + 4 * (stage * streams + k) * tile_t * lanes)
+
+
+@pytest.mark.parametrize('kernel', ['note_release_res', 'note_release_bwd'])
+@pytest.mark.parametrize('b', NR_PLAN_B)
+@pytest.mark.parametrize('t', list(NR_PLAN_T))
+def test_note_release_plan_covers_every_step_once(kernel, t, b):
+    """The plan's tiles and lane slices cover every (step, lane) of every
+    input stream exactly once, each block walking the steps in its
+    kernel's order (K6 forward, K7 from the end) through the ring's stages
+    in turn; the ring fits a block's shared memory; every TMA box meets the
+    16-byte rule (row stride and box width) and lands on 128 bytes inside
+    its stage."""
+    tiles, steps = NR_PLAN_T[t]
+    t = tiles * tnr.NR_TILE + steps
+    plan = tnr.note_release_plan(kernel, t, b)
+    streams = tnr.NR_STREAMS[kernel]
+    lanes, tile_t, padded = plan['lanes'], plan['tile_t'], plan['padded_b']
+    assert (lanes, tile_t, plan['stages']) == (tnr.NR_LANES, tnr.NR_TILE,
+                                               tnr.NR_STAGES)
+    stage_bytes = streams * tile_t * lanes * 4
+    assert plan['smem_bytes'] == tnr.NR_RING_OFFSET + plan['stages'] \
+        * stage_bytes <= tnr.NR_SMEM_LIMIT == 232448
+    assert padded % 4 == 0 and b <= padded < b + 4
+    assert plan['blocks'] * lanes >= padded > (plan['blocks'] - 1) * lanes
+    assert plan['tiles'] * tile_t >= t > (plan['tiles'] - 1) * tile_t
+    # The 16-byte rule: row stride (the padded lanes) and box width.
+    assert (4 * padded) % 16 == 0 and (4 * lanes) % 16 == 0
+    assert lanes <= 256 and tile_t <= 256
+    boxes = list(_note_release_boxes(kernel, plan, t))
+    assert len(boxes) == plan['blocks'] * plan['tiles'] * streams
+    order = np.arange(t) if kernel == 'note_release_res' else np.arange(t)[::-1]
+    sign = 1 if kernel == 'note_release_res' else -1
+    for k in range(streams):
+        seen = np.zeros((t, b), np.int64)
+        walks = [dict() for _ in range(plan['blocks'])]
+        for block, walk, stage, stream, t0, l0, dst in boxes:
+            if stream != k:
+                continue
+            assert stage == walk % plan['stages']
+            first = tnr.NR_RING_OFFSET + stage * stage_bytes
+            assert dst % 128 == 0
+            assert first <= dst and dst + 4 * tile_t * lanes \
+                <= first + stage_bytes
+            # The box is (tile_t, lanes); what lies past T or B is zero
+            # filled and never read back.
+            seen[t0:t0 + tile_t, l0:l0 + lanes] += 1
+            for step in range(t0, min(t0 + tile_t, t)):
+                walks[block][step] = walk
+        assert (seen == 1).all(), (k, np.argwhere(seen != 1)[:5])
+        for walk in walks:
+            walked = sorted(walk, key=lambda s: (walk[s], sign * s))
+            np.testing.assert_array_equal(walked, order)
+
+
+@pytest.mark.parametrize('b', [1, 6, 96])
+def test_note_release_lanes_padded_for_tma(b):
+    """The wrapper's streams: a (T, B) stream of B % 4 != 0 lanes, or one
+    whose data starts off 16 bytes, becomes a copy with the plan's padded
+    lanes, zero beyond B; an aligned stream of whole lanes is passed as
+    it is."""
+    plan = tnr.note_release_plan('note_release_bwd', 70, b)
+    base = torch.arange(71 * b, dtype=torch.float32).reshape(71, b)
+    for a in (base[:70], base[1:]):
+        got = tnr._launchable(a, plan['padded_b'], 1)
+        assert got.shape == (70, plan['padded_b'])
+        assert got.data_ptr() % 16 == 0
+        assert torch.equal(got[:, :b], a) and not got[:, b:].any()
+        state = a[:2].T.contiguous()
+        got = tnr._launchable(state, plan['padded_b'], 0)
+        assert got.shape == (plan['padded_b'], 2)
+        assert torch.equal(got[:b], state) and not got[b:].any()
+    if b % 4 == 0:
+        assert tnr._launchable(base, b, 1) is base
+
+
+def test_note_release_plan_refuses_what_the_source_does_not_take():
+    with pytest.raises(ValueError, match='no note_release_bwd plan'):
+        tnr.note_release_plan('note_release_bwd', -1, 96)
+    with pytest.raises(ValueError, match='no note_release_res plan'):
+        tnr.note_release_plan('note_release_res', 750, 0)
+
+
 def test_cpu_front_doors_do_not_launch():
     from ddsp_piano_torch.kernels import build
 

@@ -334,6 +334,72 @@ def test_whole_step_gradients_match_jax(whole_step, loss):
     assert g @ w / (np.linalg.norm(g) * np.linalg.norm(w)) >= 0.999
 
 
+def test_phase_with_no_trainable_parameter_matches_jax(jax_v2):
+    """maestro_v2's even phase trains none of its parameters (the joint
+    tuning is pretrained and frozen). The JAX trainer's masked optax step
+    (all leaves set_to_zero) still takes the step: same losses, no update.
+    The port's Trainer builds no optimizer, computes the losses, runs no
+    backward, changes no parameter and advances its step."""
+    from ddsp_piano_torch.training.trainer import Trainer
+    from ddsp_piano_tpu.configs import get_model as jax_get_model
+    from ddsp_piano_tpu.parallel import mesh as mesh_lib
+    from ddsp_piano_tpu.training.trainer import Trainer as JaxTrainer
+
+    _, params, _ = jax_v2
+    jmodel = jax_get_model('maestro_v2', duration=0.5, n_synths=4,
+                           first_phase=False)
+    jtrainer = JaxTrainer(jmodel, first_phase=False,
+                          mesh=mesh_lib.get_mesh(1))
+    state = jtrainer.state_with_params(
+        jtrainer.init_state(jax.random.PRNGKey(0)), params)
+    assert not any(jax.tree.leaves(jtrainer._mask))
+    batch = _v2_batch()
+    rng = jax.random.PRNGKey(7)
+    # The noise synth's draw inside the JAX step (models/dag.py:123).
+    noise = jax.random.uniform(jax.random.fold_in(rng, 1), (8, 12000),
+                               jnp.float32, -1.0, 1.0)
+    new_state, want = jtrainer.train_step(state, batch, rng=rng)
+    jax.tree.map(np.testing.assert_array_equal, new_state.params, params)
+
+    model = _v2_small(first_phase=False)
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    trainer = Trainer(model, first_phase=False)
+    assert trainer.params == [] and trainer.optimizer is None
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    losses = trainer.train_step(batch, noise=torch.from_numpy(
+        np.array(noise)))
+    trainer.check_pending()
+    assert trainer.step == 1
+    for name, p in model.named_parameters():
+        assert p.grad is None, name
+        torch.testing.assert_close(p.detach(), before[name], rtol=0, atol=0)
+    assert sorted(losses) == sorted(want)
+    for key in want:
+        # rtol 1e-4, as test_whole_step_loss_matches_jax holds the loss.
+        np.testing.assert_allclose(float(losses[key]), float(want[key]),
+                                   rtol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize('config,trainable', [('maestro_v2', 0),
+                                              ('dafx22', 7)])
+def test_second_phase_optimizer(config, trainable):
+    """The even phase's optimizer: none for maestro_v2, Adam over the 7
+    frequency-module parameters for dafx22 (unchanged)."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model(config, device='cpu', duration=0.25, n_synths=4,
+                      first_phase=False)
+    trainer = Trainer(model, first_phase=False)
+    assert len(trainer.params) == trainable
+    if trainable:
+        assert trainer.optimizer.param_groups[0]['params'] == trainer.params
+    else:
+        assert trainer.optimizer is None
+    assert trainer.state_dict()['optimizer'] == (
+        None if not trainable else trainer.optimizer.state_dict())
+
+
 def test_training_step_after_an_inference_mode_render():
     """A render under torch.inference_mode (the synthesize CLI's) followed
     by a training step in the same process: device constants cached by the
@@ -472,6 +538,48 @@ def test_train_cli_on_cpu(tmp_path, monkeypatch):
     again = cli.main(cli.process_args(argv[:-2] + ['--auto_resume', root,
                                                    exp]))
     assert again['step_losses'] == [] and again['trainer'].step == 1
+
+
+def test_train_cli_phase_2_on_cpu(tmp_path, monkeypatch):
+    """train_single_phase -c maestro_v2 -p 2, restored from a phase-1
+    checkpoint: one step that trains nothing, a validation batch, and a
+    last_iter checkpoint holding the restored parameters unchanged; a
+    phase-3 run restores that checkpoint and rebuilds Adam's moments."""
+    from ddsp_piano_torch import configs
+    from ddsp_piano_torch import train_single_phase as cli
+    from ddsp_piano_torch.data import pipeline
+
+    real_get_model = configs.get_model
+    monkeypatch.setattr(configs, 'get_model', lambda *a, **kw: real_get_model(
+        *a, n_synths=4, n_harmonics=16, **kw))
+    real_dataset = pipeline.get_training_dataset
+    monkeypatch.setattr(pipeline, 'get_training_dataset',
+                        lambda *a, **kw: real_dataset(
+                            *a, shuffle_buffer_segments=4, **kw))
+    root = _write_mini_maestro(str(tmp_path / 'maestro'))
+    exp = str(tmp_path / 'exp')
+    common = ['-c', 'maestro_v2', '-b', '1', '-s', '1', '-e', '1',
+              '--device', 'cpu', '--seed', '3']
+    first = cli.main(cli.process_args(common + [root, exp]))
+    phase1 = os.path.join(exp, 'phase_1', 'last_iter')
+    second = cli.main(cli.process_args(common + ['-p', '2', '-r', phase1,
+                                                 root, exp]))
+    assert second['trainer'].optimizer is None
+    assert second['trainer'].step == 2
+    assert len(second['step_losses']) == 1
+    assert np.isfinite(second['step_losses']).all()
+    assert np.isfinite(second['val_losses']['total_loss'])
+    saved = torch.load(os.path.join(exp, 'phase_2', 'last_iter', 'ckpt.pt'),
+                       weights_only=True)
+    assert saved['optimizer'] is None and saved['step'] == 2
+    want = first['trainer'].model.state_dict()
+    for name, value in saved['model'].items():
+        torch.testing.assert_close(value, want[name], rtol=0, atol=0)
+    third = cli.main(cli.process_args(
+        common + ['-p', '3', '-r', os.path.join(exp, 'phase_2', 'last_iter'),
+                  root, exp]))
+    assert third['trainer'].optimizer is not None
+    assert third['trainer'].step == 3
 
 
 @pytest.mark.parametrize('flag', [['-k', '4'], ['--staging', 'dict'],

@@ -2,33 +2,41 @@
 """Same-call A/B of hand-written kernels on one NVIDIA GPU, this checkout
 against another checkout's, at the same recorded inputs: K1 (the skipping
 oscillator, csrc/oscillator_skip.cu), K4 (its backward,
-csrc/oscillator_skip_bwd.cu), and K6 / K7 (the NoteRelease recurrence of
-the training path and its reverse walk, csrc/note_release_bwd.cu).
+csrc/oscillator_skip_bwd.cu), K3 (the NoteRelease recurrence of the
+render, csrc/note_release.cu), K6 / K7 (NoteRelease on the training path
+and its reverse walk, csrc/note_release_bwd.cu) and K8 (the all-partials
+oscillator, csrc/oscillator_full.cu).
 
-    python3 chip_kernel_ab.py --other build/ab/parent [--kernels K6,K7]
+    python3 chip_kernel_ab.py --other build/ab/parent [--kernels K3,K8]
 
 ``--other`` is the root of another checkout of the repository, e.g. a
 parent commit unpacked with ``git archive <commit> | tar -x -C
 build/ab/parent``. It imports no JAX and nothing of ddsp_piano_tpu. Each
 phase runs in a fresh process:
 
-1. Record, with this checkout: K1's inputs at the v2 model's 3 s segment
-   (chip_smoke.py phase 3); the same controls tiled to the training
-   step's 96 voice rows, with a seeded cotangent for K4; K1's, K4's, K6's
-   and K7's inputs at one full-width training step (chip_smoke.py phases
-   9-10); and K6 / K7 at T = 2625 (the step's pitch repeated in time, its
-   residual streams from the plain forward, seeded cotangents). Each
-   input's share of live cells (K1, K4) or its release ties (K6, K7) is
-   printed.
+1. Record, with this checkout: K1's and K3's inputs at the v2 model's
+   3 s segment (chip_smoke.py phase 3); the same oscillator controls
+   tiled to the training step's 96 voice rows, with a seeded cotangent for
+   K4; K1's, K4's, K6's and K7's inputs at one full-width training step
+   (chip_smoke.py phases 9-10); K6 / K7 at T = 2625 (the step's pitch
+   repeated in time, its residual streams from the plain forward, seeded
+   cotangents); K3 at the 10 s v2 render's input (T = 2625) and K8 at the
+   dafx22 model's 3 s segment and 10 s render (the synthesize CLI with
+   ``--oscillator full`` on the card). Each input's share of live cells
+   (K1, K4, K8) or its release ties (K3, K6, K7) is printed.
 2. Four arms, in the order other, this, this, other. Each imports
    ddsp_piano_torch from its own checkout, builds its kernels, holds each
    kernel against that checkout's plain version at every input (K1 and K4
-   within chip_smoke.py's OSC_TOL and OSC_BWD_TOL, K6 and K7 bit-exact),
+   within chip_smoke.py's OSC_TOL and OSC_BWD_TOL, K8 within OSC_TOL and
+   within K8_K1_TOL of K1, K3, K6 and K7 bit-exact),
    and times each: the wrapper call (CUDA events from before its host
    work to after its launch, as chip_smoke.py times a kernel) and the
    kernel on the card alone (chip_smoke.card_times: CUDA events between
-   launches queued behind a spin kernel), median and least-most of 25. Then it counts what each kernel's instances issue, read from their
-   SASS (cuobjdump next to nvcc), and writes their SASS text.
+   launches queued behind a spin kernel), median and least-most of 25.
+   Then it prints each kernel's registers, stack frame and spills (ptxas
+   -v), counts what each kernel's instances issue, read from their SASS
+   (cuobjdump next to nvcc), whole and per loop body, and writes their
+   SASS text.
 3. Per input, both checkouts' medians and the ratio this / other.
 
 Any failure (a build, a launch, a disagreement, a host too slow to queue
@@ -52,18 +60,31 @@ OUT = os.path.join(cs.ROOT, 'build', 'kernel_ab')
 INPUTS = os.path.join(OUT, 'inputs.pt')
 # Kernel -> (source, a piece of its kernels' symbol names).
 KERNELS = {'K1': ('oscillator_skip', 'osc_skip_kernel'),
+           'K3': ('note_release', 'note_release_kernel'),
            'K4': ('oscillator_skip_bwd', 'osc_skip_bwd'),
            'K6': ('note_release_bwd', 'note_release_res_kernel'),
-           'K7': ('note_release_bwd', 'note_release_bwd_kernel')}
+           'K7': ('note_release_bwd', 'note_release_bwd_kernel'),
+           'K8': ('oscillator_full', 'osc_full_kernel')}
 LONG_T = 2625                  # frames of the 10 s render with its warm-up
 # The SASS opcodes counted for every kernel instance.
-SASS_OPS = ('ULDC', 'LDS', 'LDG', 'STG', 'LDGSTS', 'UBLKCP', 'SYNCS',
-            'FRND', 'BSSY', 'BRA')
+SASS_OPS = ('ULDC', 'LDS', 'LDG', 'STG', 'LDL', 'STL', 'LDGSTS', 'UBLKCP',
+            'SYNCS', 'FRND', 'FSEL', 'MUFU', 'BSSY', 'BRA')
+# Opcode classes of a loop body's count.
+SASS_CLASSES = {
+    'fp32': ('FADD', 'FMUL', 'FFMA', 'FSETP', 'FSEL', 'FMNMX', 'FRND',
+             'FSET', 'FCHK'),
+    'int': ('IMAD', 'IADD3', 'IADD', 'LOP3', 'SHF', 'ISETP', 'LEA', 'IMNMX',
+            'SEL', 'IABS', 'I2F', 'F2I', 'F2F', 'POPC', 'FLO', 'SGXT',
+            'BMSK', 'PRMT', 'UIADD3', 'UIMAD', 'ULOP3', 'USHF'),
+    'shared': ('LDS', 'STS'), 'global': ('LDG', 'STG'),
+    'local': ('LDL', 'STL'), 'constant': ('ULDC', 'LDC'),
+    'branch': ('BRA', 'BSSY', 'BSYNC'), 'mufu': ('MUFU',)}
 
 
 def cells_text(kernel, controls, sr):
     """An input's cells below Nyquist: K1 skips all but the live ones, K4
-    computes them all, silent ones on its short path."""
+    computes them all, silent ones on its short path, K8 computes every
+    cell."""
     f_lo, f_hi, a_lo, a_hi, _ = controls
     audible = torch.minimum(f_lo, f_hi) < sr / 2.0
     silent = audible & (a_lo == 0) & (a_hi == 0)
@@ -73,6 +94,23 @@ def cells_text(kernel, controls, sr):
     return (f"below Nyquist {below}/{n}: sounding {below - quiet} "
             f"({100 * (below - quiet) / max(below, 1):.1f} %), silent "
             f"{quiet}")
+
+
+def cli_inputs(flags):
+    """The kernel front doors' inputs of one 10 s render of demo.mid by
+    the synthesize CLI on the card (chip_smoke.py phases 4 and 7), with
+    ``flags`` added."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+
+    args = cli.process_args(
+        flags + ['-d', str(cs.MAIN_PATH_SECONDS), '-u', '--seed',
+                 str(cs.SEED), '--piano_type', str(cs.PIANO_TYPE),
+                 '--device', cs.DEV.type, cs.DEMO_MIDI,
+                 os.path.join(OUT, 'demo.wav')])
+    shapes = {}
+    with cs.capturing(shapes):
+        cli.main(args)
+    return shapes
 
 
 def ties_text(steps, thr):
@@ -104,13 +142,28 @@ def record(kernels):
 
     set_f32_precision()
     os.makedirs(cs.OUT_DIR, exist_ok=True)
+    os.makedirs(OUT, exist_ok=True)
     cases = []
-    if {'K1', 'K4'} & kernels:
+    if {'K1', 'K3', 'K4'} & kernels:
         capture = {}
         cs.render_segment('cpu', capture)
         (segment, up, sr), = capture['oscillator_skip']
-    cs.teacher_data()
-    step, _ = cs.train_step_inputs()
+        nr_segment, = capture['note_release']
+        cases.append(('K3', 'the v2 segment', nr_segment))
+    if 'K3' in kernels:
+        nr_render, = cli_inputs([])['note_release']
+        cases.append(('K3', 'the v2 10 s render', nr_render))
+    if 'K8' in kernels:
+        capture = {}
+        cs.render_segment('cpu', capture, config='dafx22')
+        full_segment, = capture['oscillator_skip']
+        full_render, = cli_inputs(['-c', 'dafx22', '--oscillator', 'full'])[
+            'oscillator_full']
+        cases += [('K8', 'the dafx22 segment', full_segment),
+                  ('K8', 'the dafx22 10 s render', full_render)]
+    if {'K1', 'K4', 'K6', 'K7'} & kernels:
+        cs.teacher_data()
+        step, _ = cs.train_step_inputs()
     if {'K1', 'K4'} & kernels:
         (step_k1, step_up, step_sr), = step['oscillator_skip']
         (step_k4, g, _, _), = step['oscillator_skip_bwd']
@@ -142,7 +195,7 @@ def record(kernels):
         if kernel not in kernels:
             continue
         args = cs.to_cpu(args)
-        if kernel in ('K1', 'K4'):
+        if kernel in ('K1', 'K4', 'K8'):
             # A list, not the controls' named tuple: torch.load reads
             # tensors in plain containers only.
             args = (list(args[0]),) + tuple(args[1:])
@@ -153,26 +206,66 @@ def record(kernels):
 
             shape = tuple(args[0].shape)
             steps = (args[3] if kernel == 'K7' else
-                     knr.note_release_scan_plain_res(*args)[2])
+                     knr.note_release_scan_plain_res(*args[:3])[2])
             text = ties_text(steps, args[1])
         name = f"{kernel} at {where} {shape}"
         saved.append(dict(name=name, kernel=kernel, args=args))
         described.append(dict(name=name, cells=text))
-    os.makedirs(OUT, exist_ok=True)
     torch.save(saved, INPUTS)
     return described
+
+
+def ptxas_text(report, symbol):
+    """Registers, stack frame and spills of each kernel instance whose name
+    holds ``symbol``, from a source's ptxas -v report."""
+    lines = []
+    for block in report.split('Compiling entry function')[1:]:
+        head = block.split("'")[1] if "'" in block else block[:60]
+        if symbol not in head:
+            continue
+        used = [ln.split('Used')[1].strip() for ln in block.splitlines()
+                if 'Used' in ln and 'registers' in ln]
+        frame = [ln.strip() for ln in block.splitlines()
+                 if 'stack frame' in ln]
+        lines.append(f"{head}: {'; '.join(used + frame)}")
+    return lines
+
+
+def loop_counts(ops):
+    """Each loop of a kernel's SASS (a backward branch's body) of 16
+    instructions or more: its first and last address and the count of each
+    opcode class in it. ``ops``: (address, opcode, operands)."""
+    loops = []
+    for addr, base, operands in ops:
+        if base != 'BRA':
+            continue
+        target = [a for a in operands if a.startswith('0x')]
+        if not target or int(target[0], 16) >= addr:
+            continue
+        start = int(target[0], 16)
+        body = [b for a, b, _ in ops if start <= a <= addr]
+        if len(body) < 16:
+            continue
+        counts = {c: sum(b in names for b in body)
+                  for c, names in SASS_CLASSES.items()}
+        counts['other'] = len(body) - sum(counts.values())
+        loops.append(dict(start=hex(start), end=hex(addr),
+                          instructions=len(body), **counts))
+    return loops
 
 
 def sass_counts(build, source, symbol, dump=None):
     """Per kernel instance of ``source`` whose name holds ``symbol``: its
     instructions, the float32 ones (FADD, FMUL, FFMA, FSETP) and those of
     them with an operand from the constant bank (c[..][..], or a uniform
-    register that ULDC filled), and the count of each of SASS_OPS: loads
-    from the constant bank (ULDC), shared memory (LDS) and device memory
-    (LDG), stores (STG), asynchronous copies (LDGSTS: cp.async; UBLKCP:
-    cp.async.bulk), barrier operations (SYNCS: mbarrier), FRND, BSSY (a
-    branch around a divergent region) and branches. ``dump``, a path, gets
-    the SASS text of those instances."""
+    register that ULDC filled), the count of each of SASS_OPS: loads
+    from the constant bank (ULDC), shared memory (LDS), device memory
+    (LDG) and local memory (LDL), stores (STG, STL), asynchronous copies
+    (LDGSTS: cp.async; UBLKCP: cp.async.bulk), barrier operations (SYNCS:
+    mbarrier), FRND, FSEL, MUFU, BSSY (a branch around a divergent region)
+    and branches; and each loop body's count by opcode class
+    (loop_counts). ``dump``, a path, gets the SASS text of those
+    instances."""
     cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()), 'cuobjdump')
     lib = build._build_dir() / f'lib{source}.so'
     try:
@@ -187,18 +280,29 @@ def sass_counts(build, source, symbol, dump=None):
         if symbol not in head:
             continue
         texts.append('Function : ' + fn)
-        ops = [line.split(';')[0].split('*/')[-1].split()
-               for line in fn.splitlines() if line.strip().startswith('/*')]
-        ops = [o[1:] if o and o[0].startswith('@') else o for o in ops]
-        ops = [o for o in ops if o]
-        base = [o[0].split('.')[0] for o in ops]
-        fp = [o for o, b in zip(ops, base)
-              if b in ('FADD', 'FMUL', 'FFMA', 'FSETP')]
+        ops = []
+        for line in fn.splitlines():
+            line = line.strip()
+            if not line.startswith('/*') or '*/' not in line:
+                continue
+            addr, rest = line[2:].split('*/', 1)
+            words = rest.split(';')[0].replace(',', ' ').split()
+            if words and words[0].startswith('@'):
+                words = words[1:]
+            if not words:
+                continue
+            try:
+                ops.append((int(addr, 16), words[0].split('.')[0], words[1:]))
+            except ValueError:
+                continue
+        base = [b for _, b, _ in ops]
+        fp = [o for _, b, o in ops if b in ('FADD', 'FMUL', 'FFMA', 'FSETP')]
         counts[head] = dict(
             instructions=len(ops), fp32=len(fp),
             fp32_constant=sum(1 for o in fp if any(
-                a.lstrip('-|').startswith(('c[', 'UR')) for a in o[1:])),
-            **{op: base.count(op) for op in SASS_OPS})
+                a.lstrip('-|').startswith(('c[', 'UR')) for a in o)),
+            **{op: base.count(op) for op in SASS_OPS},
+            loops=loop_counts(ops))
     if not counts:
         cs.fail(f"no kernel named *{symbol}* in the SASS of {lib}")
     if dump:
@@ -240,10 +344,26 @@ def case_call(case):
         err = max(peak_share(a, w) for a, w in zip(
             fn(), kosc.render_framewise_vjp_plain(controls, g, up, sr)))
         return fn, err, cs.OSC_BWD_TOL
-    cuda, plain = ((knr.note_release_scan_res_cuda,
-                    knr.note_release_scan_plain_res) if kernel == 'K6' else
-                   (knr.note_release_scan_bwd_cuda,
-                    knr.note_release_scan_plain_bwd))
+    if kernel == 'K8':
+        controls, up, sr = args
+        controls = FramewiseOscControls(*controls)
+        fn = lambda: kosc.render_framewise_full_cuda(controls, up, sr)
+        with torch.inference_mode():
+            got = fn()
+            err = peak_share(got, kosc.render_framewise_full_plain(
+                controls, up, sr))
+            cross = peak_share(got, kosc.render_framewise_skip_cuda(
+                controls, up, sr))
+        if not cross <= cs.K8_K1_TOL:
+            cs.fail(f"{case['name']}: K8 differs from K1 by {cross} of peak "
+                    f"> {cs.K8_K1_TOL}")
+        return fn, err, cs.OSC_TOL
+    cuda, plain = {
+        'K3': (knr.note_release_scan_cuda, knr.note_release_scan_plain),
+        'K6': (knr.note_release_scan_res_cuda,
+               knr.note_release_scan_plain_res),
+        'K7': (knr.note_release_scan_bwd_cuda,
+               knr.note_release_scan_plain_bwd)}[kernel]
     fn = lambda: cuda(*args)
     exact = all(torch.equal(a, w) for a, w in zip(fn(), plain(*args)))
     return fn, (0.0 if exact else float('inf')), 0.0
@@ -264,13 +384,12 @@ def import_checkout(root):
     from ddsp_piano_torch.kernels import build
 
     set_f32_precision()
-    build.build_all()
-    return root, build
+    return root, build, build.build_all()
 
 
 def arm(root, index):
     """Check and time this process's checkout, ``root``."""
-    root, build = import_checkout(root)
+    root, build, reports = import_checkout(root)
     rows, kernels = [], set()
     for case in torch.load(INPUTS):
         fn, err, tol = case_call(case)
@@ -285,7 +404,13 @@ def arm(root, index):
         torch.cuda.empty_cache()
     sass = {k: sass_counts(build, *KERNELS[k], dump=os.path.join(
         OUT, f'sass_arm{index}_{k}.txt')) for k in sorted(kernels)}
-    return dict(root=root, rows=rows, sass=sass,
+    # A checkout whose build keeps no report (before build_report) gives
+    # only what this process built.
+    report = getattr(build, 'build_report', lambda name: '')
+    ptxas = {k: ptxas_text(reports.get(KERNELS[k][0])
+                           or report(KERNELS[k][0]), KERNELS[k][1])
+             for k in sorted(kernels)}
+    return dict(root=root, rows=rows, sass=sass, ptxas=ptxas,
                 spin_mhz=cs.spin_clock_mhz())
 
 
@@ -354,10 +479,17 @@ def main():
                   f"{ms_text(row['device'])}", flush=True)
         print(f"{label} SM clock of a one-block spin (torch.cuda._sleep): "
               f"{result['spin_mhz']:.0f} MHz", flush=True)
+        for kernel, lines in result['ptxas'].items():
+            for line in lines:
+                print(f"{label} ptxas {kernel} {line}", flush=True)
         for kernel, instances in result['sass'].items():
             for head, c in instances.items():
+                loops = c.pop('loops')
                 print(f"{label} SASS {kernel} {head}: " + ', '.join(
                     f"{k} {v}" for k, v in c.items()), flush=True)
+                for loop in loops:
+                    print(f"{label} SASS {kernel} loop " + ', '.join(
+                        f"{k} {v}" for k, v in loop.items()), flush=True)
     for i, case in enumerate(cases):
         parts = []
         for what in ('device', 'call'):

@@ -14,9 +14,9 @@ non-zero exit code and no result line:
 3. Render a 3 s (750-frame) segment of examples/demo.mid on the CPU
    through the plain path, recording the inputs that reach the forward
    kernels' front doors (K1-K3); then hold each kernel against its plain
-   version on the card at exactly those inputs, and time kernel, plain
-   version and, where one PyTorch call computes the same function, that
-   call. The GRU rows (K2 here, K5 in phase 10) also give the time a step
+   version on the card at exactly those inputs, and time kernel (its call,
+   and the card alone), plain version and, where one PyTorch call
+   computes the same function, that call. The GRU rows (K2 here, K5 in phase 10) also give the time a step
    and the launch plan: CTAs per cluster, rows per cluster, clusters,
    shared memory and the co-resident clusters.
 4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
@@ -32,7 +32,8 @@ non-zero exit code and no result line:
    oscillator's inputs; the all-partials oscillator (K8) and the skipping
    one (K1) are each held against their plain versions on the card at
    those inputs, K8 against K1, and both are timed with K8's plain
-   version and library yardstick; K2 is held and timed at the segment's
+   version and library yardstick, K8 also on the card alone with its
+   launch plan; K2 is held and timed at the segment's
    dafx22 GRU inputs.
 7. The dafx22 render path: ``synthesize_midi_file.main -c dafx22``
    renders 10 s of demo.mid on ``cuda`` twice, with the default
@@ -57,14 +58,15 @@ non-zero exit code and no result line:
    K2 and K1 are also held and timed at the step's inputs (B = 96 voice
    rows). K1 and K4 lines give each call's time (median, least-most of
    25); K4's line the shares of sounding and silent cells below Nyquist.
-   K6 and K7 are also held bit-exact at the launch plan's edge shapes
-   (T 0, 1, a tile less one, a tile, a tile and one, 750, 2625; B 1, 6,
-   16, 96, 100, 160; with release ties); their lines, and K3's, give the
-   card's own time (CUDA events between launches queued behind a spin
+   K6 and K7, and K3 (which shares their ring and plan), are also held
+   bit-exact at the launch plan's edge shapes (T 0, 1, a tile less one, a
+   tile, a tile and one, 750, 2625; B 1, 6, 16, 96, 100, 160; with release
+   ties); their lines, and K3's (phase 3, with its plan), give the card's
+   own time (CUDA events between launches queued behind a spin
    kernel) and, beside bound_ms (bytes), the serial-chain bound: T x the
    dependent operations of a step x 4 cycles at the SM clock.
-   (chip_kernel_ab.py reads K1's, K4's, K6's and K7's time on the card
-   alone against another checkout's.)
+   (chip_kernel_ab.py reads K1's, K3's, K4's, K6's, K7's and K8's time
+   on the card alone against another checkout's.)
 11. The training path: ``train_single_phase.main`` trains maestro_v2
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
@@ -165,10 +167,13 @@ STEP_MIN_COSINE = 0.999
 OSC_FLOPS_PER_TERM = 34        # per live (partial, sample): phase 6,
 #   crossfade 3, frequency 2, mask 1, range reduction 8, polynomial 12,
 #   multiply-accumulate 2
-OSC_FULL_FLOPS_PER_TERM = 33   # per (partial, sample), all computed:
-#   phase 6, crossfade 3, frequency 2, mask 1, multiply-accumulate 2, and
-#   cosf's fast path 19 (product by 2/pi, rounding, three-part reduction
-#   6, degree-4 polynomial in r^2 9, sign 1)
+# K8's operations a term by a frame's walk (csrc/oscillator_full.cu, a
+# fused multiply-add two): phase 5, crossfade 2, multiply-accumulate 2 and
+# osc_cos 21 (quotient 5, three-part reduction 6, r^2 1, polynomial 9)
+# with no Nyquist test, 30; with the test (frequency 2, compare 1), 33;
+# cosf's fast path (19) in osc_cos's place, with the test, 31.
+OSC_FULL_FLOPS_PER_TERM = {'plain': 30, 'masked': 33, 'cosf': 31}
+OSC_COS_RANGE = 1e5            # csrc/oscillator_common.cuh kOscCosRange
 GRU_GATE_FLOPS_PER_UNIT = 17   # per (step, row, unit), besides h U + b
 NR_FLOPS_PER_STEP = 14         # per (step, lane)
 # NoteRelease's serial chain (csrc/note_release_bwd.cu), in dependent
@@ -478,6 +483,7 @@ def check_oscillator(calls, where='the v2 segment'):
                  f"plain version: {err} > {OSC_TOL} x peak {peak}")
         del got, want
         times = event_times(kernel)
+        card_ms = statistics.median(card_times(kernel))
         plain_ms = median_ms(lambda: kosc.render_framewise_plain(controls, up,
                                                                  sr))
         library_ms = library_osc_ms(controls, up, sr)
@@ -486,11 +492,12 @@ def check_oscillator(calls, where='the v2 segment'):
                                    up)
     detail = (f"controls 5 x {(b, n_frames, k)}, live partials "
               f"{live}/{controls.f_lo.numel()}, max err / peak "
-              f"{err / peak:.3g}; {spread_text(times)}")
+              f"{err / peak:.3g}; {spread_text(times)}; card {card_ms:.4f} "
+              f"ms")
     return dict(name='oscillator_skip', max_abs_err=err,
                 ms=statistics.median(times), plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by), detail
+                bound_by=bound_by, card_ms=card_ms), detail
 
 
 def library_osc_ms(controls, up, sr):
@@ -523,6 +530,27 @@ def osc_bound(flops, controls, up):
     return bound(flops, 4 * (5 * b * n_frames * k + b * n_frames * up))
 
 
+def osc_full_walks(controls, up, sr):
+    """K8's frames by walk, as its staging pass sorts them: 'cosf' where a
+    phase may reach OSC_COS_RANGE, else 'masked' where a partial crosses
+    Nyquist within the frame (its frequency at the frame's first and last
+    sample on two sides), else 'plain'."""
+    from ddsp_piano_torch.kernels import oscillator as kosc
+
+    f_lo, f_hi, _, _, phase0 = controls
+    sf = kosc.osc_tables(up, sr, f_lo.device)[0][3]
+    df = f_hi - f_lo
+    nyquist = sr / 2.0
+    crosses = (f_lo + df * sf[0] < nyquist) != (f_lo + df * sf[up - 1]
+                                               < nyquist)
+    reach = phase0.abs() + (2.0 * np.pi / sr) * (
+        float(up) * f_lo.abs() + (0.5 * (up - 1)) * df.abs())
+    cosf = (~(reach < OSC_COS_RANGE)).any(-1)
+    masked = crosses.any(-1) & ~cosf
+    return dict(plain=int((~cosf & ~masked).sum()), masked=int(masked.sum()),
+                cosf=int(cosf.sum()))
+
+
 def check_oscillator_full(calls):
     """K8 and K1 at one recorded call's dafx22 oscillator inputs: each
     against its plain version, K8 against K1; times of both, K8's plain
@@ -550,27 +578,35 @@ def check_oscillator_full(calls):
             if not (np.isfinite(e) and e <= tol * peak):
                 fail(f"dafx22 oscillator inputs: {what} differs by {e} > "
                      f"{tol} x peak {peak}")
-        ms = median_ms(lambda: kosc.render_framewise_full_cuda(controls, up,
-                                                              sr))
+        fn = lambda: kosc.render_framewise_full_cuda(controls, up, sr)
+        ms = median_ms(fn)
+        card_ms = statistics.median(card_times(fn))
         plain_ms = median_ms(lambda: kosc.render_framewise_full_plain(
             controls, up, sr))
         skip_ms = median_ms(lambda: kosc.render_framewise_skip_cuda(
             controls, up, sr))
         library_ms = library_osc_ms(controls, up, sr)
     terms = b * n_frames * up * k
-    bound_ms, bound_by = osc_bound(OSC_FULL_FLOPS_PER_TERM * terms,
-                                   controls, up)
+    walks = osc_full_walks(controls, up, sr)
+    bound_ms, bound_by = osc_bound(
+        sum(OSC_FULL_FLOPS_PER_TERM[w] * n * up * k
+            for w, n in walks.items()), controls, up)
     live = live_cells(controls, sr)
     skip_bound, skip_by = osc_bound(OSC_FLOPS_PER_TERM * live * up,
                                     controls, up)
+    plan = kosc.osc_full_plan(b, n_frames, k, up)
     detail = (f"dafx22 controls 5 x {(b, n_frames, k)}, up {up}, {terms} "
-              f"terms; max err / peak: K8 {err / peak:.3g}, K1 "
+              f"terms; plan: {plan['frames_per_block']} frames (warps) a "
+              f"block, {plan['samples_per_lane']} samples a lane, grid "
+              f"{plan['grid']}, {plan['smem_bytes']} B shared; frames by "
+              f"walk {walks}; card "
+              f"{card_ms:.4f} ms; max err / peak: K8 {err / peak:.3g}, K1 "
               f"{skip_err / peak:.3g}, K8 vs K1 {cross / peak:.3g}; K1 here "
               f"{skip_ms:.4f} ms (live partials {live}/{b * n_frames * k}, "
               f"bound {skip_bound:.5f} ms, {skip_by})")
     return dict(name='oscillator_full', max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by), detail
+                bound_by=bound_by, card_ms=card_ms), detail
 
 
 def _library_gru(x_proj, rec_kernel, rec_bias, h0):
@@ -620,8 +656,9 @@ def check_gru(calls):
                 fail(f"GRU kernel (u={u}, B={b}) differs from its plain "
                      f"version: {err} > {GRU_TOL}")
             lib_err = (library() - want).abs().max().item()
-            ms = median_ms(lambda: kgru.gru_scan_cuda(x_proj, rec_kernel,
-                                                      rec_bias, h0))
+            fn = lambda: kgru.gru_scan_cuda(x_proj, rec_kernel, rec_bias, h0)
+            ms = median_ms(fn)
+            card_ms = statistics.median(card_times(fn))
             plain_ms = median_ms(lambda: kgru.gru_scan_plain(
                 x_proj, rec_kernel, rec_bias, h0), n=20, warmup=1)
             library_ms = median_ms(library)
@@ -630,11 +667,12 @@ def check_gru(calls):
         nbytes = 4 * (t * b * three_u + t * b * u + u * three_u + three_u
                       + b * u)
         rows.append(dict(u=u, b=b, t=t, err=err, lib_err=lib_err, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
+                         card_ms=card_ms, plain_ms=plain_ms,
+                         library_ms=library_ms,
                          bound=bound(flops, nbytes),
                          plan=plan_text('gru_scan', b, u)))
     total = dict(name='gru_scan', max_abs_err=max(r['err'] for r in rows))
-    for key in ('ms', 'plain_ms', 'library_ms'):
+    for key in ('ms', 'card_ms', 'plain_ms', 'library_ms'):
         total[key] = sum(r[key] for r in rows)
     total['bound_ms'] = sum(r['bound'][0] for r in rows)
     by = {r['bound'][1] for r in rows}
@@ -642,7 +680,8 @@ def check_gru(calls):
     detail = '; '.join(
         f"u={r['u']} x_proj ({r['t']}, {r['b']}, {3 * r['u']}): "
         f"err {r['err']:.3g} (cuDNN {r['lib_err']:.3g}), {r['ms']:.4f} ms = "
-        f"{1e3 * r['ms'] / r['t']:.3f} us/step, plain {r['plain_ms']:.3f} "
+        f"{1e3 * r['ms'] / r['t']:.3f} us/step, card {r['card_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} "
         f"ms, cuDNN {r['library_ms']:.4f} ms, bound {r['bound'][0]:.5f} ms "
         f"({r['bound'][1]}); {r['plan']}" for r in rows)
     return total, detail
@@ -695,10 +734,13 @@ def check_note_release(calls):
     bound_ms, bound_by = bound(NR_FLOPS_PER_STEP * t * b,
                                4 * (2 * t * b + 1 + 4 * b))
     chain = chain_bound_ms('note_release', t)
+    plan = knr.note_release_plan('note_release', t, b)
     return dict(name='note_release', max_abs_err=0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
                 bound_by=bound_by, card_ms=card_ms, chain_bound_ms=chain), (
-        f"x ({t}, {b}, 1), bit-exact; card {card_ms:.4f} ms; chain bound "
+        f"x ({t}, {b}, 1), bit-exact; plan lanes {plan['lanes']} tile_t "
+        f"{plan['tile_t']} stages {plan['stages']} blocks {plan['blocks']} "
+        f"smem {plan['smem_bytes']}; card {card_ms:.4f} ms; chain bound "
         f"{chain:.4f} ms ({t} steps x {NR_CHAIN_OPS['note_release']} "
         f"dependent operations x {CYCLES_PER_DEPENDENT_OP} cycles at "
         f"{sm_clock_mhz()[0]:g} MHz)")
@@ -707,9 +749,9 @@ def check_note_release(calls):
 def print_full_row(where, row, detail):
     print(f"kernel oscillator_full at the dafx22 {where}'s inputs: {detail}; "
           f"max_abs_err {row['max_abs_err']:.3g}; kernel_ms {row['ms']:.4f} "
-          f"plain_ms {row['plain_ms']:.4f} library_ms "
-          f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.5f} "
-          f"({row['bound_by']})", flush=True)
+          f"card_ms {row['card_ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"library_ms {row['library_ms']:.4f} bound_ms "
+          f"{row['bound_ms']:.5f} ({row['bound_by']})", flush=True)
 
 
 KERNEL_SOURCES = {
@@ -1028,6 +1070,7 @@ def check_oscillator_bwd(calls):
     del got, want
     kernel = lambda: kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
     times = event_times(kernel)
+    card_ms = statistics.median(card_times(kernel))
     plain_ms = median_ms(lambda: kosc.render_framewise_vjp_plain(
         controls, g, up, sr), n=5, warmup=1)
     library_ms, slices = library_osc_bwd_ms(controls, g, up, sr)
@@ -1041,12 +1084,13 @@ def check_oscillator_bwd(calls):
               f"{controls.f_lo.numel()}: sounding {n_sounding} "
               f"({100 * n_sounding / max(computed, 1):.1f} %), silent "
               f"{n_silent} ({100 * n_silent / max(computed, 1):.1f} %); max "
-              f"err / peak {max(rel):.3g}; {spread_text(times)}; "
-              f"library = autograd of the library forward over {slices}")
+              f"err / peak {max(rel):.3g}; {spread_text(times)}; card "
+              f"{card_ms:.4f} ms; library = autograd of the library forward "
+              f"over {slices}")
     return dict(name='oscillator_skip_bwd', max_abs_err=max(errs),
                 ms=statistics.median(times),
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                bound_by=bound_by), detail
+                bound_by=bound_by, card_ms=card_ms), detail
 
 
 def library_osc_bwd_ms(controls, g, up, sr, rows=8):
@@ -1101,8 +1145,10 @@ def check_gru_bwd(calls):
             fail(f"GRU backward kernel (u={u}, B={b}) differs from its plain "
                  f"version: {rel} of a stream's peak > {GRU_BWD_TOL} (errors "
                  f"{errs}, peaks {peaks})")
-        ms = median_ms(lambda: kgru.gru_scan_bwd_cuda(
-            x_proj, rec_kernel, rec_bias, h0, hs, g))
+        fn = lambda: kgru.gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, h0,
+                                            hs, g)
+        ms = median_ms(fn)
+        card_ms = statistics.median(card_times(fn))
         plain_ms = median_ms(lambda: kgru.gru_scan_plain_bwd(
             x_proj, rec_kernel, rec_bias, h0, hs, g), n=5, warmup=1)
         x = x_proj.detach().requires_grad_()
@@ -1118,12 +1164,12 @@ def check_gru_bwd(calls):
                       + three_u + b * u + 4 * t * b * u + b * u)
         rows.append(dict(u=u, b=b, t=t, err=err, peak=peak, rel=rel,
                          median=(min(medians), max(medians)), ms=ms,
-                         plain_ms=plain_ms,
+                         card_ms=card_ms, plain_ms=plain_ms,
                          library_ms=fwd_bwd_ms - fwd_ms,
                          bound=bound(flops, nbytes),
                          plan=plan_text('gru_scan_bwd', b, u)))
     total = dict(name='gru_scan_bwd', max_abs_err=max(r['err'] for r in rows))
-    for key in ('ms', 'plain_ms', 'library_ms'):
+    for key in ('ms', 'card_ms', 'plain_ms', 'library_ms'):
         total[key] = sum(r[key] for r in rows)
     total['bound_ms'] = sum(r['bound'][0] for r in rows)
     by = {r['bound'][1] for r in rows}
@@ -1133,8 +1179,9 @@ def check_gru_bwd(calls):
         f"{r['rel']:.3g} of a stream's peak (peaks up to {r['peak']:.3g}, "
         f"median |stream| {r['median'][0]:.3g}-{r['median'][1]:.3g}), "
         f"{r['ms']:.4f} ms = "
-        f"{1e3 * r['ms'] / r['t']:.3f} us/step, plain {r['plain_ms']:.3f} "
-        f"ms, cuDNN backward {r['library_ms']:.4f} ms, bound "
+        f"{1e3 * r['ms'] / r['t']:.3f} us/step, card {r['card_ms']:.4f} ms, "
+        f"plain {r['plain_ms']:.3f} ms, cuDNN backward "
+        f"{r['library_ms']:.4f} ms, bound "
         f"{r['bound'][0]:.5f} ms ({r['bound'][1]}); {r['plan']}"
         for r in rows)
     return total, detail + "; the chain of 750 serial steps bounds it"
@@ -1171,8 +1218,9 @@ def note_release_edge_inputs(t, b, seed, device=None):
 
 
 def check_note_release_edges():
-    """K6 and K7 bit-exact against their plain pair at every launch-plan
-    edge; returns the shapes checked and the tie cells seen."""
+    """K3, K6 and K7 bit-exact against their plain versions at every
+    launch-plan edge (the three share the ring's plan); returns the shapes
+    checked and the tie cells seen."""
     from ddsp_piano_torch.kernels import note_release as knr
 
     shapes, ties = [], [0, 0]
@@ -1182,6 +1230,7 @@ def check_note_release_edges():
             t = tiles * tile_t + steps
             x, thr, s0, g_out, g_state = note_release_edge_inputs(
                 t, b, seed=t * 1000 + b)
+            got_k3 = knr.note_release_scan_cuda(x, thr, s0)
             got = knr.note_release_scan_res_cuda(x, thr, s0)
             want = knr.note_release_scan_plain_res(x, thr, s0)
             prev = torch.cat([s0[None, :, 0], want[0][:-1, :, 0]],
@@ -1190,7 +1239,8 @@ def check_note_release_edges():
             got_b = knr.note_release_scan_bwd_cuda(*args)
             want_b = knr.note_release_scan_plain_bwd(*args)
             sync()
-            for name, a, w in (('K6', got, want), ('K7', got_b, want_b)):
+            for name, a, w in (('K3', got_k3, want[:2]), ('K6', got, want),
+                               ('K7', got_b, want_b)):
                 if not all(torch.equal(i, j) for i, j in zip(a, w)):
                     fail(f"NoteRelease {name} is not bit-exact against its "
                          f"plain version at T={t}, B={b}")
@@ -1246,7 +1296,7 @@ def check_note_release_pair(capture):
                          plan=plan))
     detail = (f"x ({t}, {b}, 1), threshold {float(thr):g}, release ties "
               f"steps - thr == 0 at {ties[0]} and == 1 at {ties[1]} (step, "
-              f"lane) cells; both bit-exact, and at the plan's "
+              f"lane) cells; both bit-exact, and with K3 at the plan's "
               f"{len(shapes)} edge shapes (T {sorted({s[0] for s in shapes})}"
               f", B {list(NR_EDGE_B)}; ties {edge_ties[0]} / "
               f"{edge_ties[1]}); chain bound: {t} steps x "

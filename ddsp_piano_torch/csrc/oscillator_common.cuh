@@ -1,7 +1,9 @@
-// Shared by the skipping oscillator's forward (oscillator_skip.cu, K1) and
-// backward (oscillator_skip_bwd.cu, K4): the per-sample tables and the TPU
-// kernels' trig contract (ddsp_piano_tpu/kernels/oscillator_pallas.py
-// _range_reduce, _COS6, _SIN4/_COS4).
+// Shared by the oscillator kernels: the skipping oscillator's forward
+// (oscillator_skip.cu, K1) and backward (oscillator_skip_bwd.cu, K4) and
+// the all-partials forward (oscillator_full.cu, K8). The per-sample
+// tables, the TPU kernels' trig contract (ddsp_piano_tpu/kernels/
+// oscillator_pallas.py _range_reduce, _COS6, _SIN4/_COS4) for K1 and K4,
+// and for K8 a cosine as accurate as cosf (osc_cos).
 //
 // Rounding. Both sources are built with --fmad=false, so every operation
 // written as a * b + c rounds twice, as the plain PyTorch versions do. The
@@ -98,4 +100,49 @@ __device__ __forceinline__ float osc_sin4(float x, float t) {
   acc = OSC_MAD(acc, t, -4.133763108e+01f);
   acc = OSC_MAD(acc, t, 6.283166561e+00f);
   return x * acc;
+}
+
+// osc_cos(x): cos(x) within 2 ulp for |x| <= kOscCosRange, without cosf's
+// slow path. cos(x) = sin(x + pi/2) = (-1)^j sin(r), with j = rint(x / pi
+// + 1/2) and r = x - (j - 1/2) pi in ~[-pi/2, pi/2]:
+// - j by the 1.5 * 2^23 shifter: the sum rounds u to an integer, whose
+//   parity is the low bit of the sum's bits;
+// - r by Cody-Waite with a three-part pi (pi_a + pi_b + pi_c, each the
+//   float32 rounding of what the earlier parts leave of pi) and fused
+//   multiply-adds: the first is exact, so r keeps its relative accuracy
+//   near the zeros of the cosine (small r);
+// - sin(r) = r + r z P(z), z = r^2, P a minimax cubic for the relative
+//   error over |r| <= 1.5775 (6.3e-9 before rounding).
+// A float32 emulation of these operations is within 1.97 ulp of the
+// float64 cosine over 10^7 inputs up to 2e5 (2.6 ulp up to 1e6; the
+// reduction loses bits beyond). tests/test_torch_kernels.py reads these
+// constants and holds the emulation to 2 ulp; tests/test_torch_cuda.py
+// holds K8's cosine on the card to 2 ulp too. K8 uses it for a frame only
+// while a bound on the frame's phases is below kOscCosRange, and cosf
+// above.
+constexpr float kOscCosRange = 1.0e+05f;
+constexpr float kOscCosInvPi = 3.18309873e-01f;
+constexpr float kOscCosPiA = 3.14159274e+00f;
+constexpr float kOscCosPiB = -8.74227766e-08f;
+constexpr float kOscCosPiC = -3.43024902e-15f;
+constexpr float kOscCosShift = 1.25829120e+07f;   // 1.5 * 2^23
+constexpr float kOscCosS1 = -1.66666597e-01f;
+constexpr float kOscCosS2 = 8.33305903e-03f;
+constexpr float kOscCosS3 = -1.98090536e-04f;
+constexpr float kOscCosS4 = 2.60450179e-06f;
+
+__device__ __forceinline__ float osc_cos(float x) {
+  const float u = __fmaf_rn(x, kOscCosInvPi, 0.5f);
+  const float shifted = u + kOscCosShift;             // rint(u) + shift
+  const unsigned sign = __float_as_uint(shifted) << 31;   // (-1)^j
+  const float k = (shifted - kOscCosShift) - 0.5f;     // j - 1/2, exact
+  float r = __fmaf_rn(k, -kOscCosPiA, x);
+  r = __fmaf_rn(k, -kOscCosPiB, r);
+  r = __fmaf_rn(k, -kOscCosPiC, r);
+  const float z = r * r;
+  float p = __fmaf_rn(kOscCosS4, z, kOscCosS3);
+  p = __fmaf_rn(p, z, kOscCosS2);
+  p = __fmaf_rn(p, z, kOscCosS1);
+  const float s = __fmaf_rn(p, r * z, r);
+  return __uint_as_float(__float_as_uint(s) ^ sign);
 }

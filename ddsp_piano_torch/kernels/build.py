@@ -49,7 +49,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     'note_release': {
-        'note_release_launch': (_P, _P, _P, _P, _P, _I, _I, _P),
+        'note_release_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _P),
     },
     'gru_scan': {
         'gru_scan_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
@@ -76,7 +77,7 @@ SIGNATURES = {
     },
     'oscillator_full': {
         'osc_full_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
-                            _F, _P),
+                            _F, _I, _I, _I, _P),
     },
 }
 
@@ -150,10 +151,18 @@ def build_all() -> Dict[str, str]:
             failures.append(f"{name}:\n{log}")
             continue
         os.replace(tmp, target)
+        (out_dir / f'lib{name}.log').write_text(log)
         reports[name] = log
     if failures:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     return reports
+
+
+def build_report(name: str) -> str:
+    """nvcc's output (with ptxas -v: registers, stack frame, spills) of the
+    build of source ``name``, kept beside its library; '' if not built."""
+    log = _build_dir() / f'lib{name}.log'
+    return log.read_text() if log.exists() else ''
 
 
 @functools.lru_cache(maxsize=None)

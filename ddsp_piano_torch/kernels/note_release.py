@@ -140,26 +140,7 @@ def _check_inputs(what, active_pitch, threshold, state0):
             threshold.detach().contiguous(), state0.detach().contiguous())
 
 
-def note_release_scan_cuda(active_pitch: torch.Tensor,
-                           threshold: torch.Tensor,
-                           state0: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on CUDA tensors; raises on anything it does not take."""
-    x, thr, s0 = _check_inputs('note_release_scan_cuda', active_pitch,
-                               threshold, state0)
-    t, b, _ = x.shape
-    out = torch.empty((t, b, 1), dtype=torch.float32, device=x.device)
-    state = torch.empty((b, 2), dtype=torch.float32, device=x.device)
-    lib = build.library('note_release')
-    code = lib.note_release_launch(
-        x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
-        state.data_ptr(), t, b, build.stream_handle(x.device))
-    build.check(code, 'note_release_launch')
-    build.LAUNCHES['note_release'] += 1
-    return out, state
-
-
-# K6 / K7 launch plan (csrc/note_release_bwd.cu, whose constants it
+# K3 / K6 / K7 launch plan (csrc/note_release_ring.cuh, whose constants it
 # states and whose launch checks them). A block is one consumer warp (a
 # thread a lane of its slice) and one producer warp; its input streams
 # pass through a ring of NR_STAGES (NR_TILE, NR_LANES) tiles in shared
@@ -171,12 +152,13 @@ NR_TILE = 64
 NR_STAGES = 2
 NR_RING_OFFSET = 128
 NR_SMEM_LIMIT = 232448          # a block's shared memory on sm_90
-NR_STREAMS = {'note_release_res': 1, 'note_release_bwd': 4}
+NR_STREAMS = {'note_release': 1, 'note_release_res': 1,
+              'note_release_bwd': 4}
 
 
 def note_release_plan(kernel: str, t: int, b: int) -> Dict[str, int]:
-    """The launch plan of K6 ('note_release_res') or K7
-    ('note_release_bwd') for T steps of B lanes: lanes a block, steps a
+    """The launch plan of K3 ('note_release'), K6 ('note_release_res') or
+    K7 ('note_release_bwd') for T steps of B lanes: lanes a block, steps a
     tile, ring stages, the lanes launched (B padded to a multiple of 4, so
     that a stream's rows meet the TMA box's 16-byte rule), blocks (of 64
     threads: a consumer and a producer warp), dynamic shared bytes a
@@ -206,42 +188,61 @@ def _launchable(a: torch.Tensor, lanes: int, dim: int) -> torch.Tensor:
 
 
 def launch_note_release(kernel: str, args, plan: Dict[str, int]):
-    """Launch K6 (args: x (T, B, 1), threshold, state0) or K7 (args: x,
-    threshold, prev (T, B), steps (T, B), g_out (T, B), g_state (B, 2)),
+    """Launch K3 or K6 (args: x (T, B, 1), threshold, state0) or K7 (args:
+    x, threshold, prev (T, B), steps (T, B), g_out (T, B), g_state (B, 2)),
     contiguous float32 CUDA tensors, under ``plan`` (B's lanes zero-padded
     to the plan's, the outputs cut back to B); returns the outputs."""
     thr = args[1]
     t, b, _ = args[0].shape
     lanes = plan['padded_b']
     x = _launchable(args[0], lanes, 1)
-    lib = build.library('note_release_bwd')
     stream = build.stream_handle(x.device)
     layout = (plan['lanes'], plan['tile_t'], plan['stages'],
               plan['smem_bytes'])
     new = lambda *shape: torch.empty(shape, dtype=torch.float32,
                                      device=x.device)
-    if kernel == 'note_release_res':
+    if kernel == 'note_release':
+        s0 = _launchable(args[2], lanes, 0)
+        out, state = new(t, lanes, 1), new(lanes, 2)
+        code = build.library('note_release').note_release_launch(
+            x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
+            state.data_ptr(), t, lanes, *layout, stream)
+        outputs, dims = (out, state), (1, 0)
+    elif kernel == 'note_release_res':
         s0 = _launchable(args[2], lanes, 0)
         out, state, steps = new(t, lanes, 1), new(lanes, 2), new(t, lanes)
-        code = lib.note_release_res_launch(
+        code = build.library('note_release_bwd').note_release_res_launch(
             x.data_ptr(), thr.data_ptr(), s0.data_ptr(), out.data_ptr(),
             state.data_ptr(), steps.data_ptr(), t, lanes, *layout, stream)
-        build.check(code, 'note_release_res_launch')
         outputs, dims = (out, state, steps), (1, 0, 1)
     else:
         p, s, g = (_launchable(a, lanes, 1) for a in args[2:5])
         g_state = _launchable(args[5], lanes, 0)
         dx, dthr, dstate0 = new(t, lanes), new(lanes), new(lanes, 2)
-        code = lib.note_release_bwd_launch(
+        code = build.library('note_release_bwd').note_release_bwd_launch(
             x.data_ptr(), thr.data_ptr(), p.data_ptr(), s.data_ptr(),
             g.data_ptr(), g_state.data_ptr(), dx.data_ptr(),
             dthr.data_ptr(), dstate0.data_ptr(), t, lanes, *layout, stream)
-        build.check(code, 'note_release_bwd_launch')
         outputs, dims = (dx, dthr, dstate0), (1, 0, 0)
+    build.check(code, f'{kernel}_launch')
     if lanes == b:
         return outputs
     return tuple(o.narrow(dim, 0, b).contiguous()
                  for o, dim in zip(outputs, dims))
+
+
+def note_release_scan_cuda(active_pitch: torch.Tensor,
+                           threshold: torch.Tensor,
+                           state0: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on CUDA tensors; raises on anything it does not take."""
+    args = _check_inputs('note_release_scan_cuda', active_pitch, threshold,
+                         state0)
+    t, b, _ = args[0].shape
+    outputs = launch_note_release('note_release', args,
+                                  note_release_plan('note_release', t, b))
+    build.LAUNCHES['note_release'] += 1
+    return outputs
 
 
 def note_release_scan_res_cuda(active_pitch: torch.Tensor,

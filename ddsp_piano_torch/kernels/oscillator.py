@@ -32,11 +32,17 @@ from ddsp_piano_torch.ops.oscillator import (FramewiseOscControls,
 TRIG = 'poly'
 TRIG_BWD = 'poly4'
 TRIG_FULL = 'native'
-# Frames per block of K1 and K8; both take up <= 1024 // frames per block
-# (csrc/oscillator_skip.cu OSC_FRAMES_PER_BLOCK, csrc/oscillator_full.cu
-# OSC_FULL_FRAMES_PER_BLOCK).
+# Frames per block of K1 (csrc/oscillator_skip.cu OSC_FRAMES_PER_BLOCK: a
+# thread a sample, so up <= 1024 // frames per block).
 SKIP_FRAMES_PER_BLOCK = 4
+# K8's plan (csrc/oscillator_full.cu, whose constants these state and whose
+# launch checks them): a warp a frame, FULL_FRAMES_PER_BLOCK frames a
+# block, each lane up / 32 samples (rounded up) of its frame, at most
+# FULL_MAX_SAMPLES_PER_LANE, so up <= 256; shared memory a float4 and a
+# float a cell and an int a frame.
 FULL_FRAMES_PER_BLOCK = 4
+FULL_MAX_SAMPLES_PER_LANE = 8
+SMEM_LIMIT = 232448             # a block's shared memory on sm_90
 
 # (up, sample_rate, device) -> (table on the device, its host copy).
 _TABLES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -109,40 +115,40 @@ def _check_controls(what, controls):
     return shape
 
 
-def _launch_forward(name: str, symbol: str, frames_per_block: int,
-                    controls: FramewiseOscControls, upsampling: int,
-                    sample_rate: int) -> torch.Tensor:
-    """Launch the forward oscillator kernel ``name`` (K1 or K8, which take
-    the same arguments) through its C entry ``symbol``; raises on anything
-    it does not take."""
-    what = f'the {name} kernel'
+def _forward_args(what: str, controls: FramewiseOscControls,
+                  upsampling: int, sample_rate: int):
+    """The C arguments of K1 and K8 but their plan, and the output: the
+    five contiguous controls, the table, out, B, n_frames, K, up, w_scale
+    and Nyquist."""
     b, n_frames, k = _check_controls(what, controls)
     up = int(upsampling)
-    if frames_per_block * up > 1024:
-        raise ValueError(f"{what} takes up <= "
-                         f"{1024 // frames_per_block}, got {up}")
     device = controls.f_lo.device
     table, _ = osc_tables(up, sample_rate, device)
     parts = [c.detach().contiguous() for c in controls]
     out = torch.empty((b, n_frames * up), dtype=torch.float32, device=device)
-    if out.numel() == 0:
-        return out
-    code = getattr(build.library(name), symbol)(
-        *(p.data_ptr() for p in parts), table.data_ptr(), out.data_ptr(),
-        b, n_frames, k, up, 2.0 * math.pi / float(sample_rate),
-        float(sample_rate) / 2.0, build.stream_handle(device))
-    build.check(code, symbol)
-    build.LAUNCHES[name] += 1
-    return out
+    args = (*(p.data_ptr() for p in parts), table.data_ptr(), out.data_ptr(),
+            b, n_frames, k, up, 2.0 * math.pi / float(sample_rate),
+            float(sample_rate) / 2.0)
+    return args, out
 
 
 def render_framewise_skip_cuda(controls: FramewiseOscControls,
                                upsampling: int,
                                sample_rate: int) -> torch.Tensor:
     """K1 on CUDA tensors; raises on anything it does not take."""
-    return _launch_forward('oscillator_skip', 'osc_skip_launch',
-                           SKIP_FRAMES_PER_BLOCK, controls, upsampling,
-                           sample_rate)
+    what = 'the oscillator_skip kernel'
+    if SKIP_FRAMES_PER_BLOCK * int(upsampling) > 1024:
+        raise ValueError(f"{what} takes up <= "
+                         f"{1024 // SKIP_FRAMES_PER_BLOCK}, got {upsampling}")
+    args, out = _forward_args(what, controls, upsampling, sample_rate)
+    if out.numel() == 0:
+        return out
+    device = controls.f_lo.device
+    code = build.library('oscillator_skip').osc_skip_launch(
+        *args, build.stream_handle(device))
+    build.check(code, 'osc_skip_launch')
+    build.LAUNCHES['oscillator_skip'] += 1
+    return out
 
 
 def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
@@ -227,13 +233,45 @@ def render_framewise_full_plain(controls: FramewiseOscControls,
                             trig=TRIG_FULL)
 
 
+def osc_full_plan(b: int, n_frames: int, k: int,
+                  upsampling: int) -> Dict[str, int]:
+    """K8's launch plan for (B, n_frames, K) controls at ``upsampling``
+    samples a frame: frames a block (a warp each), threads a block, samples
+    a lane, the grid (frame runs, voices) and dynamic shared bytes a
+    block. Raises ValueError on what the launch refuses: up < 1 or over
+    32 x FULL_MAX_SAMPLES_PER_LANE, K < 1, B over 65535 (the grid's second
+    dimension), or shared memory over a block's limit."""
+    up = int(upsampling)
+    ns = -(-up // 32)
+    fpb = FULL_FRAMES_PER_BLOCK
+    smem = (16 + 4) * fpb * k + 4 * fpb
+    if up < 1 or ns > FULL_MAX_SAMPLES_PER_LANE:
+        raise ValueError(f"the oscillator_full kernel takes 1 <= up <= "
+                         f"{32 * FULL_MAX_SAMPLES_PER_LANE}, got {up}")
+    if k < 1 or b > 65535 or smem > SMEM_LIMIT:
+        raise ValueError(f"the oscillator_full kernel takes 1 <= K with "
+                         f"{smem} <= {SMEM_LIMIT} shared bytes and B <= "
+                         f"65535; got K={k}, B={b}")
+    return dict(frames_per_block=fpb, threads=32 * fpb, samples_per_lane=ns,
+                grid=(-(-n_frames // fpb), b), smem_bytes=smem)
+
+
 def render_framewise_full_cuda(controls: FramewiseOscControls,
                                upsampling: int,
                                sample_rate: int) -> torch.Tensor:
     """K8 on CUDA tensors; raises on anything it does not take."""
-    return _launch_forward('oscillator_full', 'osc_full_launch',
-                           FULL_FRAMES_PER_BLOCK, controls, upsampling,
-                           sample_rate)
+    args, out = _forward_args('the oscillator_full kernel', controls,
+                              upsampling, sample_rate)
+    plan = osc_full_plan(*controls.f_lo.shape, upsampling)
+    if out.numel() == 0:
+        return out
+    device = controls.f_lo.device
+    code = build.library('oscillator_full').osc_full_launch(
+        *args, plan['frames_per_block'], plan['samples_per_lane'],
+        plan['smem_bytes'], build.stream_handle(device))
+    build.check(code, 'osc_full_launch')
+    build.LAUNCHES['oscillator_full'] += 1
+    return out
 
 
 def render_framewise_full(controls: FramewiseOscControls, upsampling: int,

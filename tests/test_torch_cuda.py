@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 K1-K3 and K8 (forward) and K4-K7 (gradients), each with its launch
-counter, and
+counter (K3, K6 and K7 at every edge of their shared plan; K8 at edge
+shapes, and its cosine to 2 ulp), and
 each autograd Function on CUDA tensors against the same Function on CPU
 tensors (its plain versions). Every test here needs an NVIDIA GPU and
 skips without one (a CUDA kernel has no CPU mode). This file imports no JAX, so it also runs on a machine
@@ -140,11 +141,112 @@ def test_oscillator_full_kernel_matches_plain(cuda_device):
     torch.cuda.synchronize()
     assert build.LAUNCHES['oscillator_full'] == 1
     scale = want.abs().max().item()
-    # Same terms bit for bit (--fmad=false, the same cosf); the sum over
-    # 192 partials in another order: 1e-5 of peak.
+    # The phase, crossfade, frequency and mask round as the plain version's
+    # (--fmad=false); the cosine is K8's own, within 2 ulp of the cosine as
+    # torch.cos is, and the sum over 192 partials runs in another order
+    # with one rounding a multiply-add: 1e-5 of peak.
     assert (got - want).abs().max().item() <= 1e-5 * scale
     # K1: polynomial against native trig, another order: 1e-4 of peak.
     assert (skip - got).abs().max().item() <= 1e-4 * scale
+
+
+def _full_edge_controls(up, K, n_frames, device, phase_shift=None,
+                        f0_max=None):
+    """Controls at the frame rate of 250 Hz (sample rate 250 up) with K
+    partials, four voices: f0 random up to ``f0_max`` (Nyquist by default,
+    so that high partials cross it within a frame); the same with frames
+    whose f0 puts a partial exactly on Nyquist (at or above it: silent); a
+    silent voice; a voice whose partials all stay below Nyquist. Then
+    ``phase_shift`` (4, n_frames) is added to phase0. K8 walks frames of
+    the first kind with its Nyquist test, of the last without."""
+    sr = 250 * up
+    rng = np.random.RandomState(up + K)
+    b = 4
+    f0 = rng.uniform(20.0, f0_max or sr / 2.0, (b, n_frames, 1))
+    f0[1, ::3] = (sr / 2.0) / rng.randint(1, K + 1, (n_frames + 2) // 3)[
+        :, None]
+    f0[3] = rng.uniform(20.0, sr / (2.0 * (K + 1)), (n_frames, 1))
+    freqs = f0 * np.arange(1, K + 1)
+    amps = rng.rand(b, n_frames, K) / K
+    amps[2] = 0.0
+    controls = tosc.framewise_osc_controls(_t(freqs, device),
+                                           _t(amps, device), up, sr)
+    if phase_shift is not None:
+        controls = controls._replace(
+            phase0=controls.phase0 + _t(phase_shift, device)[..., None])
+    return controls, sr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('K', [1, 7, 128, 192, 200])
+@pytest.mark.parametrize('up', [64, 96])
+def test_oscillator_full_kernel_at_edge_shapes(cuda_device, up, K):
+    """K8 against its plain version (1e-5 of peak) and against K1 (1e-4 of
+    peak) at one partial, an odd count, the paths' 128 and 192 and more
+    than a lane's multiple; 37 frames, not a multiple of a block's 4;
+    partials at, above and crossing Nyquist; a silent voice; a voice wholly
+    below Nyquist."""
+    controls, sr = _full_edge_controls(up, K, 37, cuda_device)
+    build.reset_launches()
+    got = tosck.render_framewise_full_cuda(controls, up, sr)
+    assert build.LAUNCHES['oscillator_full'] == 1
+    want = tosck.render_framewise_full_plain(controls, up, sr)
+    skip = tosck.render_framewise_skip_cuda(controls, up, sr)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert got.shape == want.shape == (4, 37 * up)
+    assert (got - want).abs().max().item() <= 1e-5 * scale
+    assert (skip - got).abs().max().item() <= 1e-4 * scale
+    assert torch.all(got[2] == 0.0)
+
+
+@pytest.mark.cuda
+def test_oscillator_full_cosine_within_two_ulp(cuda_device):
+    """K8's cosine on the card: one partial at 0 Hz of amplitude 1 and one
+    sample a frame render cos(phase0) itself. Within 2 ulp of the float64
+    cosine for phases of the path's size, on and beside the cosine's zeros,
+    and up to 1.5 times the written-out cosine's range, where frames take
+    cosf (tests/test_torch_kernels.py holds the same operations emulated on
+    the CPU)."""
+    rng = np.random.RandomState(11)
+    zeros = (np.arange(-30000, 30000) + 0.5) * np.pi
+    x = np.concatenate([
+        rng.uniform(-400.0, 400.0, 100000), rng.uniform(-1.5e5, 1.5e5, 200000),
+        zeros, np.nextafter(zeros.astype(np.float32), np.float32(0)),
+        [0.0, 1e-30, np.pi / 2, 99999.0, 1e5, 100001.0]]).astype(np.float32)
+    n = x.size
+    zero = torch.zeros((1, n, 1), device=cuda_device)
+    one = torch.ones((1, n, 1), device=cuda_device)
+    controls = tosc.FramewiseOscControls(zero, zero, one, one,
+                                         _t(x, cuda_device)[None, :, None])
+    got = tosck.render_framewise_full_cuda(controls, 1, 16000)
+    got = got[0].double().cpu().numpy()
+    want = np.cos(x.astype(np.float64))
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    err = np.abs(got - want) / ulp
+    assert err.max() <= 2.0, (x[np.argmax(err)], err.max())
+
+
+@pytest.mark.cuda
+def test_oscillator_full_kernel_near_and_above_the_cosine_range(
+        cuda_device):
+    """Phases near the written-out cosine's range (1e5 rad) and above it:
+    frames whose phases stay below it take the written-out cosine, frames
+    that reach it take cosf; both within 1e-5 of peak of the plain
+    version. f0 below 100 Hz keeps 192 partials' phase advance in a frame
+    under ~500 rad."""
+    n_frames = 40
+    shift = np.zeros((4, n_frames), np.float32)
+    shift[:, 0::4] = 9.9e4             # the phases stay below 1e5
+    shift[:, 1::4] = 1.0e5             # at the range: cosf
+    shift[:, 2::4] = -1.2e5            # above it
+    controls, sr = _full_edge_controls(64, 192, n_frames, cuda_device, shift,
+                                       f0_max=100.0)
+    got = tosck.render_framewise_full_cuda(controls, 64, sr)
+    want = tosck.render_framewise_full_plain(controls, 64, sr)
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-5 * scale
 
 
 def _osc_controls(device, b=4, n_frames=60, seed=2):
@@ -335,6 +437,29 @@ def test_note_release_pair_bit_exact_at_plan_edges(cuda_device, t, b):
     assert all(torch.equal(a, w) for a, w in zip(got, want))
     assert build.LAUNCHES['note_release_res'] == 1
     assert build.LAUNCHES['note_release_bwd'] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('b', [1, 6, 16, 96, 100, 160])
+@pytest.mark.parametrize('t', list(NR_PLAN_T))
+def test_note_release_kernel_bit_exact_at_plan_edges(cuda_device, t, b):
+    """K3, which walks K6's ring under the same plan, against its plain
+    version at every edge of the plan, with release ties (the inputs of
+    test_note_release_pair_bit_exact_at_plan_edges)."""
+    from chip_smoke import note_release_edge_inputs
+
+    tiles, steps = NR_PLAN_T[t]
+    t = tiles * tnr.NR_TILE + steps
+    x, thr, s0, _, _ = note_release_edge_inputs(t, b, seed=t * 1000 + b,
+                                                device=cuda_device)
+    build.reset_launches()
+    got = tnr.note_release_scan_cuda(x, thr, s0)
+    want = tnr.note_release_scan_plain(x, thr, s0)
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert build.LAUNCHES['note_release'] == 1
+    if t >= 2:
+        u = tnr.note_release_scan_plain_res(x, thr, s0)[2] - 5.0
+        assert bool((u == 0).any()) and bool((u == 1).any())
 
 
 def _both_devices(arrays, device):

@@ -6,6 +6,9 @@ tests run them. The same numpy inputs go through both. The CUDA kernels
 against their plain versions on the card: tests/test_torch_cuda.py.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -227,6 +230,111 @@ def test_oscillator_full_plain_matches_pallas(b, n_frames, K, n_sub):
     np.testing.assert_allclose(skip, got, atol=1e-4 * np.abs(want).max())
 
 
+# K8's launch plan: (B, n_frames, K, up) at the paths' shapes (the dafx22
+# 10 s render and segment, dafx22_24khz's up = 96) and at the edges (one
+# partial, frames not a multiple of a block's, up of one lane, of a
+# ragged last lane row and of the most lanes, the largest K and B).
+FULL_PLAN_CASES = [(16, 2625, 192, 64), (16, 750, 192, 64),
+                   (16, 2625, 192, 96), (1, 37, 1, 64), (3, 5, 7, 96),
+                   (2, 9, 200, 1), (1, 6, 128, 33), (1, 3, 128, 256),
+                   (1, 3, 2905, 64), (65535, 1, 2, 32)]
+
+
+@pytest.mark.parametrize('b,n_frames,k,up', FULL_PLAN_CASES)
+def test_oscillator_full_plan_covers_every_sample_once(b, n_frames, k, up):
+    """csrc/oscillator_full.cu under the plan: block (x, v) renders frames
+    x * fpb + w of voice v, warp w one frame, lane j its samples j + 32 i
+    (i < samples a lane); every (frame, sample) of a voice is rendered
+    exactly once, and the block's shared memory (a float4 and a float a
+    cell, an int a frame) fits."""
+    plan = tosck.osc_full_plan(b, n_frames, k, up)
+    fpb, ns = plan['frames_per_block'], plan['samples_per_lane']
+    assert (fpb, plan['threads']) == (tosck.FULL_FRAMES_PER_BLOCK, 32 * fpb)
+    assert plan['grid'] == (-(-n_frames // fpb), b)
+    assert 32 * (ns - 1) < up <= 32 * ns <= 32 * tosck.FULL_MAX_SAMPLES_PER_LANE
+    assert plan['smem_bytes'] == (16 + 4) * fpb * k + 4 * fpb \
+        <= tosck.SMEM_LIMIT == 232448
+    x, w, j, i = np.meshgrid(np.arange(plan['grid'][0]), np.arange(fpb),
+                             np.arange(32), np.arange(ns), indexing='ij')
+    frame, sample = (x * fpb + w).ravel(), (j + 32 * i).ravel()
+    keep = (frame < n_frames) & (sample < up)
+    seen = np.zeros((n_frames, up), np.int64)
+    np.add.at(seen, (frame[keep], sample[keep]), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize('b,n_frames,k,up', [
+    (1, 10, 8, 0), (1, 10, 8, 257), (1, 10, 0, 64), (1, 10, 2906, 64),
+    (65536, 10, 8, 64)])
+def test_oscillator_full_plan_refuses_what_the_launch_refuses(b, n_frames,
+                                                               k, up):
+    """up outside 1..256, K < 1, shared memory over a block's 232448
+    bytes, B over the grid's 65535: ValueError from the plan, which the
+    CUDA front door reads before it builds or launches anything."""
+    with pytest.raises(ValueError, match='oscillator_full kernel takes'):
+        tosck.osc_full_plan(b, n_frames, k, up)
+
+
+def _osc_cos_constants():
+    """osc_cos's float32 constants, read from csrc/oscillator_common.cuh."""
+    text = (Path(tosck.__file__).resolve().parents[1] / 'csrc'
+            / 'oscillator_common.cuh').read_text()
+    found = re.findall(r'constexpr float kOscCos(\w+) = ([-+.0-9eE]+)f;',
+                       text)
+    return {name: np.float32(value) for name, value in found}
+
+
+def _osc_cos_emulated(x, c):
+    """osc_cos's operations in float32 on the CPU: each product or sum
+    rounded to float32, each fused multiply-add from the exact product (in
+    long double) rounded once to float32."""
+    f32, ld = np.float32, np.longdouble
+
+    def fma(a, b, d):
+        return (np.asarray(a, ld) * np.asarray(b, ld)
+                + np.asarray(d, ld)).astype(f32)
+
+    x = np.asarray(x, f32)
+    u = fma(x, c['InvPi'], f32(0.5))
+    shifted = (u + c['Shift']).astype(f32)
+    sign = (shifted.view(np.uint32) & np.uint32(1)) << np.uint32(31)
+    k = ((shifted - c['Shift']).astype(f32) - f32(0.5)).astype(f32)
+    r = fma(k, -c['PiA'], x)
+    r = fma(k, -c['PiB'], r)
+    r = fma(k, -c['PiC'], r)
+    z = (r * r).astype(f32)
+    p = fma(c['S4'], z, c['S3'])
+    p = fma(p, z, c['S2'])
+    p = fma(p, z, c['S1'])
+    s = fma(p, (r * z).astype(f32), r)
+    return (s.view(np.uint32) ^ sign).view(f32)
+
+
+def test_osc_cos_within_two_ulp_of_the_cosine():
+    """K8's written-out cosine (oscillator_common.cuh osc_cos), emulated
+    operation by operation, against the float64 cosine: within 2 ulp of
+    the float32 result up to twice the range K8 uses it on, over random
+    phases, the path's phases (a few hundred radians), phases on and beside
+    the cosine's zeros, and small and signed-zero inputs."""
+    c = _osc_cos_constants()
+    assert set(c) == {'Range', 'InvPi', 'PiA', 'PiB', 'PiC', 'Shift', 'S1',
+                      'S2', 'S3', 'S4'}
+    top = 2.0 * float(c['Range'])
+    rng = np.random.RandomState(0)
+    zeros = ((np.arange(-int(top / np.pi), int(top / np.pi)) + 0.5)
+             * np.pi).astype(np.float32)
+    x = np.concatenate([
+        rng.uniform(-top, top, 400000), rng.uniform(-400.0, 400.0, 200000),
+        rng.uniform(-4.0, 4.0, 100000), zeros, np.nextafter(zeros, 0),
+        np.nextafter(zeros, np.float32(np.inf)),
+        [0.0, -0.0, 1e-30, 1e-8, np.pi / 2, np.pi, top]]).astype(np.float32)
+    got = _osc_cos_emulated(x, c).astype(np.float64)
+    want = np.cos(x.astype(np.float64))
+    ulp = np.spacing(np.abs(want).astype(np.float32)).astype(np.float64)
+    err = np.abs(got - want) / ulp
+    assert err.max() <= 2.0, (x[np.argmax(err)], err.max())
+
+
 def test_oscillator_full_front_door_refuses_gradients():
     controls = _full_controls(1, 6, 8, 1, seed=0)
     port = tosc.FramewiseOscControls(*(_t(c).requires_grad_()
@@ -294,7 +402,7 @@ def test_note_release_plain_matches_pallas(threshold):
     np.testing.assert_array_equal(got_state.numpy(), np.asarray(want_state))
 
 
-# -- K6 / K7: the launch plan ------------------------------------------------------
+# -- K3 / K6 / K7: the launch plan ---------------------------------------------
 
 # Sequence lengths relative to the plan's tile and the path's own (750 a
 # training segment, 2625 the 10 s render); lanes from one to past the
@@ -306,8 +414,8 @@ NR_PLAN_B = [1, 6, 16, 96, 100, 160]
 
 
 def _note_release_boxes(kernel, plan, t):
-    """The TMA boxes of csrc/note_release_bwd.cu's producer under
-    ``plan``, in the order each block issues them: (block, walk, stage,
+    """The TMA boxes of the ring's producer (csrc/note_release_ring.cuh)
+    under ``plan``, in the order each block issues them: (block, walk, stage,
     stream, first step, first lane, shared destination in bytes). Tiles
     are cut from step 0; K6 walks them forward and K7 from the end."""
     lanes, tile_t = plan['lanes'], plan['tile_t']
@@ -322,13 +430,14 @@ def _note_release_boxes(kernel, plan, t):
                        + 4 * (stage * streams + k) * tile_t * lanes)
 
 
-@pytest.mark.parametrize('kernel', ['note_release_res', 'note_release_bwd'])
+@pytest.mark.parametrize('kernel', ['note_release', 'note_release_res',
+                                    'note_release_bwd'])
 @pytest.mark.parametrize('b', NR_PLAN_B)
 @pytest.mark.parametrize('t', list(NR_PLAN_T))
 def test_note_release_plan_covers_every_step_once(kernel, t, b):
     """The plan's tiles and lane slices cover every (step, lane) of every
     input stream exactly once, each block walking the steps in its
-    kernel's order (K6 forward, K7 from the end) through the ring's stages
+    kernel's order (K3 and K6 forward, K7 from the end) through the ring's stages
     in turn; the ring fits a block's shared memory; every TMA box meets the
     16-byte rule (row stride and box width) and lands on 128 bytes inside
     its stage."""
@@ -350,8 +459,9 @@ def test_note_release_plan_covers_every_step_once(kernel, t, b):
     assert lanes <= 256 and tile_t <= 256
     boxes = list(_note_release_boxes(kernel, plan, t))
     assert len(boxes) == plan['blocks'] * plan['tiles'] * streams
-    order = np.arange(t) if kernel == 'note_release_res' else np.arange(t)[::-1]
-    sign = 1 if kernel == 'note_release_res' else -1
+    reverse = kernel == 'note_release_bwd'
+    order = np.arange(t)[::-1] if reverse else np.arange(t)
+    sign = -1 if reverse else 1
     for k in range(streams):
         seen = np.zeros((t, b), np.int64)
         walks = [dict() for _ in range(plan['blocks'])]
@@ -400,6 +510,8 @@ def test_note_release_plan_refuses_what_the_source_does_not_take():
         tnr.note_release_plan('note_release_bwd', -1, 96)
     with pytest.raises(ValueError, match='no note_release_res plan'):
         tnr.note_release_plan('note_release_res', 750, 0)
+    with pytest.raises(ValueError, match='no note_release plan'):
+        tnr.note_release_plan('note_release', 750, 0)
 
 
 def test_cpu_front_doors_do_not_launch():

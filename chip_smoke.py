@@ -49,7 +49,8 @@ non-zero exit code and no result line:
 8. The dafx22 segment on the card against its CPU render of phase 6.
 9. Teacher data: ``synthesize_midi_file.main`` renders all of demo.mid
    (weights seed 0) to a 24 kHz wav, and a mini-MAESTRO (csv with a train
-   and a validation row, the MIDI and the wav) is written under
+   and a validation row over the MIDI and the wav, and a test row over the
+   MIDI and the wav's first 11 s) is written under
    build/chip_smoke/mini_maestro/.
 10. One full-width training step (batch 6, 3 s) on ``cuda``, recording the
    inputs of the gradient kernels (K4-K7) inside their autograd
@@ -71,21 +72,38 @@ non-zero exit code and no result line:
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
-   be finite. Prints the step time and its parts, then a torch.profiler
-   view of three more steps: the device's busy share, the operators
-   with the most device and host time, and each hand-written kernel's
-   device events recorded against its launches counted (a shortfall,
-   which the profiler has shown for K6 and K7, means busy undercounts).
-12. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+   be finite. Prints the step time and its parts; after phase 12 (a
+   trace before a timed render slows it), a torch.profiler view of three
+   more steps: the device's busy share, the operators with the most
+   device and host time, and each hand-written kernel's device events
+   recorded against its launches counted (a shortfall, which the profiler
+   has shown for K6 and K7, means busy undercounts).
+12. The checkpoint and evaluation path, from phase 11's last_iter
+   checkpoint. ``synthesize_midi_file.main --ckpt`` renders 10 s of
+   demo.mid on ``cuda`` (counters set to 0 just before, K1-K3 must
+   launch; forward and restore times of three renders): the restored
+   parameters must equal the checkpoint's, the audio must differ from the
+   initial weights' render of phase 4 and equal an in-process render of
+   the trainer's final weights with the same generator (1e-6 of peak;
+   the gap is printed); the weights go through export_jax_params and
+   load_jax_params bit for bit. ``evaluate_model.main --ckpt --duration
+   2`` sweeps the 5 test segments at b = 1 and b = 4 (the last batch
+   padded), each after a warm-up sweep; the rows must match, the losses
+   be finite and within rtol 1e-4 of each other; the b = 4 sweep is
+   counted (K1-K3 must launch) and each of its launches held against its
+   plain version at its inputs. Prints the sweep's and the eval step's
+   ms a segment, and whether ``import tensorflow`` works (a fact of the
+   machine, not a check).
+13. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-13. One JSON line of kernel numbers (K1's row at the training step's
+14. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render and the CLI run), then the
    result line.
 
-Build outputs, the rendered wav files, the mini-MAESTRO and the training
-run's checkpoints go to build/ in the checkout.
+Build outputs, the rendered wav files, the mini-MAESTRO, the training
+run's checkpoints and the evaluation CSVs go to build/ in the checkout.
 """
 
 import contextlib
@@ -121,6 +139,12 @@ TRAIN_STEPS = 8
 STUDENT_SEED = 1
 MAESTRO_DIR = os.path.join(OUT_DIR, 'mini_maestro')
 GRAD_CHECK_SECONDS = 1.0
+EVAL_SECONDS = 2.0             # evaluate_model --duration
+EVAL_TRACK_SECONDS = 11.0      # the test row's audio: 5 segments of 2 s
+EVAL_SEGMENTS = 5
+EVAL_RTOL = 1e-4               # a segment's loss, b = 1 against b = 4
+CKPT_RENDER_TOL = 1e-6         # share of peak: the --ckpt render against
+                               # an in-process render of the same weights
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth.
@@ -898,6 +922,7 @@ def main_path():
     forward = statistics.median(forwards)
     return dict(launches=launches, wall=wall, forward=forward,
                 forwards=forwards, kernel_ms=kernel_ms, calls=shapes,
+                audio=audio,
                 rtf=MAIN_PATH_SECONDS / forward, peaks=peaks,
                 bin_hz=bin_hz, n_pitches=len(pitches))
 
@@ -978,8 +1003,10 @@ def dafx22_path():
 
 def teacher_data():
     """The teacher's render of demo.mid (initial weights of seed 0, piano
-    0) and a mini-MAESTRO over it: one train and one validation row."""
+    0) and a mini-MAESTRO over it: a train and a validation row, and a
+    test row whose audio is the render's first EVAL_TRACK_SECONDS."""
     from ddsp_piano_torch import synthesize_midi_file as cli
+    from ddsp_piano_torch.data import audio_io
 
     if os.path.isdir(MAESTRO_DIR):
         shutil.rmtree(MAESTRO_DIR)
@@ -996,6 +1023,11 @@ def teacher_data():
         for split in ('train', 'validation'):
             f.write(f'Demo,demo,{split},2018,demo.midi,demo.wav,'
                     f'{seconds}\n')
+        f.write(f'Demo,demo,test,2018,demo.midi,demo_test.wav,'
+                f'{EVAL_TRACK_SECONDS}\n')
+    sr = result['sample_rate']
+    audio_io.write_wav(os.path.join(MAESTRO_DIR, 'demo_test.wav'),
+                       result['audio'][:int(EVAL_TRACK_SECONDS * sr)], sr)
     rms = float(np.sqrt(np.mean(result['audio'].astype(np.float64) ** 2)))
     if not (np.isfinite(result['audio']).all() and rms > 1e-4):
         fail(f"teacher render not finite or silent (rms {rms})")
@@ -1359,6 +1391,7 @@ def training_path():
     times = result['trainer'].step_times()[1:]
     parts = [statistics.median(p) for p in zip(*times)]
     return dict(launches=launches, wall=wall, losses=losses,
+                trainer=result['trainer'],
                 val=result['val_losses']['total_loss'], step_ms=parts[0],
                 fwd_ms=parts[1], bwd_ms=parts[2], opt_ms=parts[3])
 
@@ -1434,6 +1467,175 @@ def profile_training_steps(n_steps=3):
 
 
 # -- phase 12 -----------------------------------------------------------------
+
+
+def ckpt_render(ckpt, trainer, initial_audio):
+    """``synthesize_midi_file --ckpt`` of the training path's last_iter on
+    10 s of demo.mid, counters set to 0 just before the first render and
+    read just after: the restored parameters must equal the checkpoint's,
+    the audio an in-process render of the trainer's final weights with the
+    same generator (CKPT_RENDER_TOL of peak), not the initial weights'
+    render; then the weights through export_jax_params and
+    load_jax_params into a model of other initial weights, bit for bit."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.data.io import load_midi_as_conditioning
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.params import export_jax_params, load_jax_params
+    from ddsp_piano_torch.training.checkpoints import load_ckpt
+
+    args = cli.process_args(['--ckpt', ckpt, '-d', str(MAIN_PATH_SECONDS),
+                             '--seed', str(SEED), '--piano_type',
+                             str(PIANO_TYPE), '--device', DEV.type,
+                             DEMO_MIDI, os.path.join(OUT_DIR,
+                                                     'demo_ckpt.wav')])
+    sync()
+    build.reset_launches()
+    result = cli.main(args)
+    sync()
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in RENDER_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the --ckpt render launched no {missing} kernel: {launches}")
+    runs = [result] + [cli.main(args) for _ in range(2)]
+    model, audio = result['model'], result['audio']
+    saved = load_ckpt(ckpt)['model']
+    state = model.state_dict()
+    wrong = sorted(set(saved) ^ set(state)) + [
+        k for k in saved if k in state
+        and not torch.equal(state[k].cpu(), saved[k])]
+    if wrong:
+        fail(f"the --ckpt render's parameters differ from the checkpoint's: "
+             f"{wrong[:5]}")
+    sr = result['sample_rate']
+    if audio.shape != (int(MAIN_PATH_SECONDS * sr),) or not np.isfinite(
+            audio).all():
+        fail(f"--ckpt render of shape {audio.shape}, or not finite")
+    from_initial = float(np.abs(audio - initial_audio).max()
+                         / np.abs(initial_audio).max())
+    if not from_initial > 1e-3:
+        fail(f"the --ckpt render is the initial weights' render "
+             f"({from_initial} of peak apart)")
+
+    inputs = load_midi_as_conditioning(DEMO_MIDI,
+                                       duration=MAIN_PATH_SECONDS,
+                                       warm_up_duration=0.5)
+    mine = get_model('maestro_v2', inference=True,
+                     duration=inputs['duration'], device=DEV)
+    mine.load_state_dict(trainer.model.state_dict())
+    features = {
+        'conditioning': torch.from_numpy(inputs['conditioning']).to(DEV),
+        'pedal': torch.from_numpy(inputs['pedal']).to(DEV),
+        'piano_model': torch.tensor([[PIANO_TYPE]], device=DEV)}
+    with torch.inference_mode():
+        want = mine(features, generator=torch.Generator(
+            device=DEV).manual_seed(SEED))['audio_synth'][0].cpu().numpy()
+    want = want[int(0.5 * sr):]
+    gap = float(np.abs(audio - want).max() / np.abs(want).max())
+    if not gap <= CKPT_RENDER_TOL:
+        fail(f"the --ckpt render differs from an in-process render of the "
+             f"trainer's weights by {gap} of peak > {CKPT_RENDER_TOL}")
+
+    other = get_model('maestro_v2', inference=True, device=DEV,
+                      seed=SEED + 99)
+    load_jax_params(other, export_jax_params(model))
+    moved = [n for n, p in other.named_parameters()
+             if not torch.equal(p, dict(model.named_parameters())[n])]
+    if moved:
+        fail(f"export_jax_params / load_jax_params changed {moved[:5]}")
+    return dict(launches=launches, forwards=[r['seconds'] for r in runs],
+                restores=[r['restore_seconds'] for r in runs],
+                from_initial=from_initial, gap=gap,
+                n_params=len(state))
+
+
+def evaluation_sweeps(ckpt):
+    """``evaluate_model --ckpt ... --duration 2`` over the mini-MAESTRO's
+    test row (5 segments) at b = 1 and b = 4, each after a warm-up sweep;
+    the warm-up of b = 4 records the kernels' inputs, and the counters are
+    set to 0 just before the timed b = 4 sweep and read just after. The two
+    CSVs must hold the same rows, their losses within EVAL_RTOL and
+    finite; K1-K3 must have launched; each launch is held against its
+    plain version at its inputs. The eval step alone (the batch on the
+    card, CUDA events) is timed at both sizes."""
+    from ddsp_piano_torch import evaluate_model as cli
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.data import pipeline
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.training.checkpoints import restore_params
+    from ddsp_piano_torch.training.evaluation import (FEATURES,
+                                                      build_segment_eval_fn)
+
+    def sweep(batch_size, name):
+        return cli.main(cli.process_args(
+            ['--ckpt', ckpt, '--duration', str(EVAL_SECONDS), '-b',
+             str(batch_size), '--device', DEV.type, MAESTRO_DIR,
+             os.path.join(OUT_DIR, 'eval', name)]))
+
+    sweep(1, 'warm_b1')
+    b1 = sweep(1, 'b1')
+    shapes = {}
+    with capturing(shapes):
+        sweep(4, 'warm_b4')
+    sync()
+    build.reset_launches()
+    b4 = sweep(4, 'b4')
+    sync()
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in RENDER_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the b=4 evaluation sweep launched no {missing} kernel: "
+             f"{launches}")
+    rows1, rows4 = b1['rows'], b4['rows']
+    if len(rows1) != EVAL_SEGMENTS or b4['batches'] != 2:
+        fail(f"{len(rows1)} segments in {b4['batches']} batches of 4")
+    strip = lambda rows: [(r['filename'], r['piano_model']) for r in rows]
+    if strip(rows1) != strip(rows4):
+        fail(f"the sweeps' rows differ: {strip(rows1)} / {strip(rows4)}")
+    loss1 = np.array([r['loss_val'] for r in rows1])
+    loss4 = np.array([r['loss_val'] for r in rows4])
+    rel = float(np.max(np.abs(loss4 - loss1) / np.abs(loss1)))
+    if not (np.isfinite(loss1).all() and np.isfinite(loss4).all()
+            and rel <= EVAL_RTOL):
+        fail(f"segment losses b=1 {loss1} against b=4 {loss4}")
+    kernel_ms = path_kernels(shapes, 'the b=4 evaluation sweep')
+
+    model = get_model('maestro_v2', inference=True, duration=EVAL_SECONDS,
+                      device=DEV)
+    restore_params(model, ckpt)
+    eval_step = build_segment_eval_fn(model)
+    segments = list(pipeline.get_test_dataset(
+        MAESTRO_DIR, duration=EVAL_SECONDS, batch_size=1,
+        sample_rate=model.sample_rate, max_polyphony=model.n_synths))
+    step_ms = {}
+    for b in (1, 4):
+        batch, _, _ = next(cli.batched_segments(iter(segments), b))
+        batch = {k: torch.from_numpy(batch[k]).to(DEV)
+                 for k in FEATURES + ('audio',)}
+        step_ms[b] = median_ms(lambda: eval_step(batch, list(range(b))),
+                               n=10) / b
+    return dict(b1=b1, b4=b4, loss=loss1, rel=rel, launches=launches,
+                kernel_ms=kernel_ms, step_ms=step_ms)
+
+
+def tensorflow_line():
+    """Whether ``import tensorflow`` works here, asked of a child process
+    that sees no card (an environment fact, not a check)."""
+    try:
+        proc = subprocess.run(
+            [sys.executable, '-c', 'import tensorflow as tf; '
+             'print(tf.__version__)'], capture_output=True, text=True,
+            timeout=300, env=dict(os.environ, CUDA_VISIBLE_DEVICES='',
+                                  TF_CPP_MIN_LOG_LEVEL='3'))
+    except subprocess.TimeoutExpired:
+        return "import tensorflow: timed out after 300 s"
+    if proc.returncode == 0:
+        return f"import tensorflow: works (version {proc.stdout.strip()})"
+    last = (proc.stderr.strip().splitlines() or ['?'])[-1]
+    return f"import tensorflow: fails ({last})"
+
+
+# -- phase 13 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight):
@@ -1701,6 +1903,32 @@ def main():
           f"{per_step:.2f} ms ({100 * per_step / t['step_ms']:.1f} %): "
           + ', '.join(f"{k} {v:.3f}" for k, v in sorted(
               step_kernel_ms.items())), flush=True)
+
+    ckpt = os.path.join(OUT_DIR, 'train_exp', 'phase_1', 'last_iter')
+    c = ckpt_render(ckpt, t.pop('trainer'), m['audio'])
+    print(f"checkpoint path: synthesize_midi_file --ckpt {ckpt} on cuda, "
+          f"demo.mid {MAIN_PATH_SECONDS:g} s: forward "
+          f"{1e3 * statistics.median(c['forwards']):.1f} ms (median of "
+          f"{forwards_text(c['forwards'])} ms), restore "
+          + ' / '.join(f"{1e3 * r:.1f}" for r in c['restores'])
+          + f" ms; launches {c['launches']}; {c['n_params']} parameters "
+          f"equal to the checkpoint's; against the initial weights' render "
+          f"{c['from_initial']:.3g} of peak, against an in-process render of "
+          f"the trainer's weights {c['gap']:.3g} (tolerance "
+          f"{CKPT_RENDER_TOL:g}); export_jax_params / load_jax_params "
+          f"round trip bit-exact", flush=True)
+    e = evaluation_sweeps(ckpt)
+    print(f"evaluation path: evaluate_model --ckpt --duration "
+          f"{EVAL_SECONDS:g} on cuda, {EVAL_SEGMENTS} segments: sweep "
+          f"{1e3 * e['b1']['seconds'] / EVAL_SEGMENTS:.1f} ms a segment at "
+          f"b=1, {1e3 * e['b4']['seconds'] / EVAL_SEGMENTS:.1f} at b=4 "
+          f"(wall, data loading included); eval step alone (CUDA events) "
+          f"{e['step_ms'][1]:.2f} ms a segment at b=1, {e['step_ms'][4]:.2f} "
+          f"at b=4; losses {np.round(e['loss'], 4).tolist()}, b=4 against "
+          f"b=1 within {e['rel']:.3g} (rtol {EVAL_RTOL:g}); b=4 launches "
+          f"{e['launches']}; its kernels at their inputs, each against its "
+          f"plain version: " + kernels_line(e['kernel_ms']), flush=True)
+    print(tensorflow_line(), flush=True)
 
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:

@@ -2,7 +2,8 @@
 
 Copy of ddsp_piano_tpu/data/pipeline.py (split_sequence, segment_track, _stack_group, dataset_from_csv, load_track, _iter_tracks
 with its cache and raw branches, get_dataset, batch_segments_stream,
-get_training_dataset, get_validation_dataset, Prefetcher). One change:
+get_training_dataset, get_validation_dataset, get_test_dataset,
+Prefetcher). One change:
 dataset_from_csv reads maestro-v3.0.0.csv with the stdlib csv module
 instead of pandas, with the same rows, filters and sorted piano models.
 """
@@ -276,6 +277,15 @@ def get_training_dataset(filename, **kwargs):
 def get_validation_dataset(filename, **kwargs):
     return get_dataset(filename, split='validation',
                        infinite_generator=False, shuffle=False, **kwargs)
+
+
+def get_test_dataset(filename, duration=10.0, overlap=0.0, **kwargs):
+    """The test split in consecutive segments (no overlap), in track order,
+    none dropped for its polyphony, once."""
+    return get_dataset(filename, split='test', duration=duration,
+                       overlap=overlap, filter_over_polyphony=False,
+                       infinite_generator=False, shuffle=False,
+                       num_parallel_calls=1, **kwargs)
 
 
 class Prefetcher:

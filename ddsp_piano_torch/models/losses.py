@@ -58,8 +58,17 @@ class SpectralLoss(Loss):
         audio_synth = outputs[self.output_key]
         if self.extract_signal:
             audio_synth = audio_synth['signal']
+        return self._loss(outputs['audio'], audio_synth)
+
+    def compute_per_element(self, target_audio, audio):
+        """Per-batch-element losses, shape (batch,): element i equals
+        compute() on the singleton batch {i}, the per-segment evaluation
+        protocol (losses.py:59-69 of the JAX package)."""
+        return self._loss(target_audio, audio, per_element=True)
+
+    def _loss(self, target_audio, audio_synth, per_element=False):
         return spectral.multi_scale_spectral_loss(
-            outputs['audio'], audio_synth,
+            target_audio, audio_synth,
             fft_sizes=self.fft_sizes,
             loss_type=self.loss_type,
             mag_weight=self.mag_weight,
@@ -68,7 +77,8 @@ class SpectralLoss(Loss):
             delta_freq_weight=self.delta_freq_weight,
             cumsum_freq_weight=self.cumsum_freq_weight,
             loudness_weight=self.loudness_weight,
-            sample_rate=self.sample_rate)
+            sample_rate=self.sample_rate,
+            per_element=per_element)
 
 
 class ReverbRegularizer(Loss):

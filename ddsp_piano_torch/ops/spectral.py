@@ -59,15 +59,20 @@ def compute_logmag(audio: torch.Tensor, size: int = 2048,
 
 def mean_difference(target: torch.Tensor, value: torch.Tensor,
                     loss_type: str = 'L1',
-                    weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    weights: Optional[torch.Tensor] = None,
+                    per_element: bool = False) -> torch.Tensor:
     """Mean absolute difference (the JAX package's 'L1'; its 'L2' and
-    'COSINE' are not used by the ported losses and are refused)."""
+    'COSINE' are not used by the ported losses and are refused), over
+    everything, or with ``per_element`` over all axes but the first."""
     if loss_type.upper() != 'L1':
         raise NotImplementedError(f"loss_type {loss_type!r} is not ported "
                                   "to ddsp_piano_torch yet; it has 'L1'")
     difference = target - value
     weights = 1.0 if weights is None else weights
-    return torch.mean(torch.abs(difference * weights))
+    distance = torch.abs(difference * weights)
+    if per_element:
+        return torch.mean(distance, dim=tuple(range(1, distance.dim())))
+    return torch.mean(distance)
 
 
 def multi_scale_spectral_loss(
@@ -82,9 +87,11 @@ def multi_scale_spectral_loss(
         cumsum_freq_weight: float = 0.0,
         loudness_weight: float = 0.0,
         sample_rate: int = 16000,
-        weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        weights: Optional[torch.Tensor] = None,
+        per_element: bool = False) -> torch.Tensor:
     """Multi-resolution STFT distance: per FFT size, the magnitudes' and
-    the log magnitudes' mean difference. The delta, cumulative-frequency
+    the log magnitudes' mean difference; with ``per_element`` one distance
+    per batch element, shape (batch,). The delta, cumulative-frequency
     and loudness terms of the JAX package are refused: no ported loss sets
     them."""
     del sample_rate
@@ -101,10 +108,10 @@ def multi_scale_spectral_loss(
         target_mag = compute_mag(target_audio, size=size)
         value_mag = compute_mag(audio, size=size)
         if mag_weight > 0:
-            loss += mag_weight * mean_difference(target_mag, value_mag,
-                                                 loss_type, weights)
+            loss += mag_weight * mean_difference(
+                target_mag, value_mag, loss_type, weights, per_element)
         if logmag_weight > 0:
             loss += logmag_weight * mean_difference(
                 core.safe_log(target_mag), core.safe_log(value_mag),
-                loss_type, weights)
+                loss_type, weights, per_element)
     return loss

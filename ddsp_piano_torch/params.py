@@ -1,11 +1,12 @@
-"""Weights bridge: fill the port's modules from a JAX params pytree.
+"""Weights bridge between the port's modules and a JAX params pytree.
 
-The pytree comes as nested dicts and lists of numpy arrays (for example
+The pytree is nested dicts and lists of numpy arrays (for example
 ``jax.tree.map(np.asarray, PianoModel.init(key))`` on the JAX side). Its
 paths flatten to the dotted names of the port's ``named_parameters()``:
 dict keys and list indices become name parts, and empty subtrees (the
-JAX package's stateless modules) carry no leaves. Any missing, extra or
-mis-shaped leaf raises.
+JAX package's stateless modules) carry no leaves. ``load_jax_params``
+fills the port's parameters from such a tree (any missing, extra or
+mis-shaped leaf raises); ``export_jax_params`` builds one from them.
 """
 
 from __future__ import annotations
@@ -44,3 +45,36 @@ def load_jax_params(model: nn.Module, tree: Any) -> nn.Module:
                                  f"shape {tuple(param.shape)}")
             param.copy_(torch.from_numpy(value))
     return model
+
+
+def _module_tree(module: nn.Module) -> Any:
+    """A module's parameters as the JAX package's tree: a Sequential or
+    ModuleList is a list with one entry per layer ({} for a layer without
+    parameters, as JAX's Activation); any other module a dict of its own
+    parameters and of its children that hold parameters."""
+    if isinstance(module, (nn.Sequential, nn.ModuleList)):
+        return [_module_tree(child) for child in module]
+    tree = {name: p.detach().cpu().numpy().astype(np.float32, copy=True)
+            for name, p in module.named_parameters(recurse=False)}
+    for name, child in module.named_children():
+        if any(True for _ in child.parameters()):
+            tree[name] = _module_tree(child)
+    return tree
+
+
+def export_jax_params(model: nn.Module) -> Dict[str, Any]:
+    """The PianoModel's parameters as a JAX params tree of float32 numpy
+    arrays, with the structure of the JAX ``PianoModel.init`` tree: one
+    entry per slot, and ``processor_group`` holding an empty tree for each
+    processor of the JAX group's graph (additive, noise, their ``add`` and
+    the reverb). The structure comes from the port's modules alone; no
+    JAX template is needed. ``load_jax_params`` takes it back."""
+    tree = {slot: _module_tree(module)
+            for slot, module in model._module_slots()}
+    group = model.processor_group
+    tree['processor_group'] = {'additive': _module_tree(group.additive),
+                               'noise': _module_tree(group.noise),
+                               'add': {}}
+    if group.reverb is not None:
+        tree['processor_group']['reverb'] = _module_tree(group.reverb)
+    return tree

@@ -1,17 +1,20 @@
 """Synthesize a MIDI file to audio with the PyTorch DDSP-Piano model.
 
     python -m ddsp_piano_torch.synthesize_midi_file
-        [-c maestro_v2|dafx22|dafx22_24khz] [--piano_type N] [-wu S] [-d S]
-        [-n DBFS] [-u] [--seed N] [--oscillator skip|full]
+        [-c maestro_v2|dafx22|dafx22_24khz] [--ckpt PATH] [--piano_type N]
+        [-wu S] [-d S] [-n DBFS] [-u] [--seed N] [--oscillator skip|full]
         [--device cuda|cpu] midi_file out.wav
 
 The flags mean what they mean for the JAX package's synthesize_midi_file.py.
 The MIDI is read at the config's frame rate and polyphony, then the model
 is built for the file's duration (dafx22's z encoder is built for one
 length). The forward runs once, on ``cuda`` unless --device cpu is given,
-under torch.inference_mode(). No checkpoint can be loaded yet, so the
-weights are the Keras-style initial weights (seed 0); --seed seeds the
-noise synth. --oscillator full renders every partial with the all-partials
+under torch.inference_mode(). --ckpt loads the weights of a checkpoint:
+the port's own (a ``ckpt.pt`` file, or a directory holding one, as the
+train CLI writes them) or a TF object checkpoint (a prefix, or a
+directory holding ``.index`` files; reading it needs TensorFlow). Without
+--ckpt the weights are the Keras-style initial weights (seed 0). --seed
+seeds the noise synth. --oscillator full renders every partial with the all-partials
 kernel (forward only), as DDSP_PIANO_TPU_PALLAS=1 does in the JAX package;
 the default skips silent and above-Nyquist partials.
 """
@@ -32,7 +35,9 @@ def process_args(argv=None):
     parser.add_argument('-c', '--config', type=str, default='maestro_v2',
                         help="Model config name. (default: %(default)s)")
     parser.add_argument('--ckpt', type=str, default=None,
-                        help="Model checkpoint (not supported yet).")
+                        help="Checkpoint to load: the port's ckpt.pt (file "
+                             "or directory) or a TF checkpoint (prefix or "
+                             "directory). (default: initial weights)")
     parser.add_argument('--piano_type', type=int, default=9,
                         help="Piano model (from 0 to 9). "
                              "(default: %(default)s)")
@@ -63,18 +68,17 @@ def process_args(argv=None):
 
 def main(args) -> dict:
     """Render and write the wav(s). Returns the wet and dry audio (numpy,
-    warm-up cropped), the sample rate and the forward's wall seconds."""
+    warm-up cropped), the sample rate, the forward's wall seconds, the
+    restore's wall seconds and the model."""
     from ddsp_piano_torch.configs import config_rates, get_model
     from ddsp_piano_torch.data import audio_io
     from ddsp_piano_torch.data.io import load_midi_as_conditioning
     from ddsp_piano_torch.device import resolve_device
+    from ddsp_piano_torch.training.checkpoints import restore_params
 
     if args.streaming:
         raise SystemExit("--streaming is not ported to ddsp_piano_torch yet; "
                          "render the whole file in one pass.")
-    if args.ckpt is not None:
-        raise SystemExit("--ckpt is not supported by ddsp_piano_torch yet: "
-                         "checkpoint loading comes with a later port slice.")
     device = resolve_device(args.device)
     rates = config_rates(args.config)
     inputs = load_midi_as_conditioning(args.midi_file,
@@ -85,7 +89,11 @@ def main(args) -> dict:
     model = get_model(args.config, inference=True,
                       duration=inputs['duration'], device=device,
                       oscillator=args.oscillator)
-    log.warning("No checkpoint: synthesizing with initial weights.")
+    start = time.perf_counter()
+    restore_params(model, args.ckpt)
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    restore_seconds = time.perf_counter() - start
     features = {
         'conditioning': torch.from_numpy(inputs['conditioning']).to(device),
         'pedal': torch.from_numpy(inputs['pedal']).to(device),
@@ -112,7 +120,8 @@ def main(args) -> dict:
             audio_io.normalize_audio(dry_file, args.normalize)
     log.info("Audio saved at %s.", args.out_file)
     return {'audio': audio, 'dry': dry, 'sample_rate': sample_rate,
-            'seconds': seconds}
+            'seconds': seconds, 'restore_seconds': restore_seconds,
+            'model': model}
 
 
 if __name__ == '__main__':

@@ -110,9 +110,9 @@ def main(args, record_timeline: bool = False) -> dict:
     from ddsp_piano_torch.configs import get_model
     from ddsp_piano_torch.data import pipeline
     from ddsp_piano_torch.device import resolve_device
-    from ddsp_piano_torch.training.trainer import (NanLossError, Trainer,
-                                                   latest_checkpoint,
-                                                   read_meta)
+    from ddsp_piano_torch.training.checkpoints import (latest_checkpoint,
+                                                       read_meta)
+    from ddsp_piano_torch.training.trainer import NanLossError, Trainer
 
     _refuse_unported(args)
     device = resolve_device(args.device)

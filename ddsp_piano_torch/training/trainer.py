@@ -35,9 +35,12 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 import numpy as np
 import torch
 
+from ddsp_piano_torch.training.checkpoints import (CKPT_NAME,
+                                                   import_tf_weights,
+                                                   load_ckpt)
+
 log = logging.getLogger(__name__)
 
-CKPT_NAME = 'ckpt.pt'
 _STAGED_DTYPES = {np.dtype(np.float32): torch.float32,
                   np.dtype(np.int32): torch.int32}
 
@@ -350,9 +353,7 @@ class Trainer:
         file); returns its meta dict. A checkpoint of another phase has
         another optimizer structure (or none, from a phase that trained no
         parameter): the moments then start afresh."""
-        if os.path.isdir(path):
-            path = os.path.join(path, CKPT_NAME)
-        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        ckpt = load_ckpt(path, self.device)
         self.model.load_state_dict(ckpt['model'])
         if self.optimizer is not None:
             try:
@@ -368,14 +369,11 @@ class Trainer:
         self._pending = []
         return dict(ckpt.get('meta', {}))
 
-
-def latest_checkpoint(directory: str) -> Optional[str]:
-    path = os.path.join(directory, CKPT_NAME)
-    return path if os.path.isfile(path) else None
-
-
-def read_meta(path: str) -> Dict[str, Any]:
-    if os.path.isdir(path):
-        path = os.path.join(path, CKPT_NAME)
-    return dict(torch.load(path, map_location='cpu',
-                           weights_only=True).get('meta', {}))
+    def restore_tf(self, ckpt_path: str) -> Dict[str, list]:
+        """Load a TF checkpoint's weights into the model (in place, so the
+        optimizer keeps its parameters); the optimizer's moments and the
+        step stay as they are, as in the JAX trainer. Returns
+        import_tf_weights' report."""
+        report = import_tf_weights(self.model, ckpt_path)
+        self._pending = []
+        return report

@@ -1,7 +1,9 @@
 """The port stands alone, and never falls back quietly to the CPU.
 
 - Importing ddsp_piano_torch and every module under it, and chip_smoke.py,
-  loads neither jax nor ddsp_piano_tpu (checked in a fresh interpreter).
+  loads neither jax nor ddsp_piano_tpu, nor tensorflow, which the port
+  imports only to read or write a TF checkpoint (checked in a fresh
+  interpreter).
 - An entry point called with no device on a host without CUDA raises.
 - chip_smoke.py exits non-zero, printing no result, without a card and in
   a directory that holds nothing else of the repository.
@@ -28,10 +30,11 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'ddsp_piano_tpu'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'ddsp_piano_tpu',
+                                    'tensorflow'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 31, names
+assert len(names) >= 35, names
 """
 
 
@@ -57,6 +60,14 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         cli.main(cli.process_args(['in.mid', 'out.wav']))
     assert get_model('maestro_v2', device='cpu').device.type == 'cpu'
+
+
+def test_evaluate_cli_raises_without_cuda(monkeypatch, tmp_path):
+    from ddsp_piano_torch import evaluate_model as cli
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        cli.main(cli.process_args([str(tmp_path), str(tmp_path / 'out')]))
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take():

@@ -121,9 +121,13 @@ def test_synthesize_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize('flag', [['--streaming'], ['--ckpt', 'x']])
 def test_synthesize_cli_refuses_unported_options(tmp_path, flag):
+    """--streaming is not ported; --ckpt is, and a path that holds no
+    checkpoint raises a clear error."""
     from ddsp_piano_torch import synthesize_midi_file as cli
 
-    with pytest.raises(SystemExit, match='not'):
+    error, match = ((FileNotFoundError, "'x' holds no checkpoint")
+                    if flag[0] == '--ckpt' else (SystemExit, 'not ported'))
+    with pytest.raises(error, match=match):
         cli.main(cli.process_args(
             flag + ['--device', 'cpu', DEMO_MIDI, str(tmp_path / 'o.wav')]))
 

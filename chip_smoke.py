@@ -72,7 +72,7 @@ non-zero exit code and no result line:
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
-   be finite. Prints the step time and its parts; after phase 12 (a
+   be finite. Prints the step time and its parts; after phase 15 (a
    trace before a timed render slows it), a torch.profiler view of three
    more steps: the device's busy share, the operators with the most
    device and host time, and each hand-written kernel's device events
@@ -94,11 +94,36 @@ non-zero exit code and no result line:
    plain version at its inputs. Prints the sweep's and the eval step's
    ms a segment, and whether ``import tensorflow`` works (a fact of the
    machine, not a check).
-13. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+13. Gate 2, the teacher-student soak: maestro_v2 at full width, phase 1,
+   student weights seed 1, 150 steps of batch 6 x 3 s through the Trainer
+   API on phase 9's mini-MAESTRO, 24 batches staged on the card before the
+   first step and cycled, every launch counter set to 0 just before the
+   first step and read just after the last (K1, K2 and K4-K7 must have
+   launched). Prints the loss every 10 steps, the ratio of the mean of
+   the last 20 losses to that of the first 20 and the median step time;
+   fails on a non-finite loss or a ratio not below 1.
+14. The v2 streaming path: ``synthesize_midi_file --streaming
+   --chunk_seconds 4`` renders all of demo.mid (5625 frames, padded to 6
+   chunks of 1000, plus the flush), counters set to 0 just before and read
+   just after: K1, K2 and K3 must launch exactly (chunks + 1) x (1, 2, 1)
+   times and no other kernel. Forward median of three; each launch held
+   against its plain version at its inputs. The streamed library render
+   against the one-shot forward on one full-length noise draw (0.02 of
+   peak, correlation above 0.999, all but the flushed frame). Forward
+   time and peak memory, streamed against one-shot, on demo.mid and on
+   its conditioning tiled to ~180 s.
+15. The dafx22 streaming path: ``-c dafx22 --streaming`` on 10 s of
+   demo.mid with each oscillator, counted as in phase 14: the Normalize
+   sweeps (K2 once a chunk for the context slot, twice and K3 once for the
+   mono slot), then the render; K1 with the default oscillator and K8 with
+   ``--oscillator full``, never both. Each launch held against its plain
+   version; each streamed library render against the one-shot forward on
+   one draw.
+16. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-14. One JSON line of kernel numbers (K1's row at the training step's
+17. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render and the CLI run), then the
    result line.
 
@@ -145,6 +170,20 @@ EVAL_SEGMENTS = 5
 EVAL_RTOL = 1e-4               # a segment's loss, b = 1 against b = 4
 CKPT_RENDER_TOL = 1e-6         # share of peak: the --ckpt render against
                                # an in-process render of the same weights
+# Gate 2, the teacher-student soak: SOAK_STEPS steps cycling SOAK_BATCHES
+# staged batches; the mean of the last SOAK_WINDOW losses must be below
+# that of the first SOAK_WINDOW.
+SOAK_STEPS = 150
+SOAK_BATCHES = 24
+SOAK_WINDOW = 20
+# Streaming: the CLI's default chunk; demo.mid's conditioning tiled to
+# ~180 s (8 x 22.5 s) for the memory comparison; streamed against one-shot
+# within 0.02 of peak and a correlation above 0.999 (tests/
+# test_streaming.py:93-98, :257).
+STREAM_CHUNK_SECONDS = 4.0
+STREAM_LONG_TILES = 8
+STREAM_TOL = 0.02
+STREAM_MIN_CORR = 0.999
 
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores and
 # HBM bandwidth.
@@ -862,8 +901,11 @@ def path_kernels(capture, what):
                     err = (got - want).abs().max().item()
                     ok = np.isfinite(err) and err <= GRU_TOL
                 else:
-                    err = ((got - want).abs().max()
-                           / want.abs().max()).item()
+                    # A share of peak; absolute where the input is silent
+                    # (a streamed render's padded chunks and its flush).
+                    err = (got - want).abs().max().item()
+                    peak = want.abs().max().item()
+                    err = err / peak if peak > 0 else err
                     ok = np.isfinite(err) and err <= OSC_TOL
                 shape = tuple(args[0][0].shape if kernel.startswith(
                     'oscillator') else args[0].shape)
@@ -878,6 +920,18 @@ def path_kernels(capture, what):
 def kernels_line(rows):
     return '; '.join(f"{k} {shape} {ms:.4f} ms (err {err:.3g})"
                      for k, shape, ms, err in rows)
+
+
+def grouped_kernels_line(rows):
+    """kernels_line with the launches of one kernel at one shape merged:
+    their count, median ms and largest error."""
+    groups = {}
+    for k, shape, ms, err in rows:
+        groups.setdefault((k, shape), []).append((ms, err))
+    return '; '.join(
+        f"{k} {shape} x{len(v)} {statistics.median(m for m, _ in v):.4f} ms "
+        f"(err at most {max(e for _, e in v):.3g})"
+        for (k, shape), v in groups.items())
 
 
 def main_path():
@@ -1635,7 +1689,7 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 13 -----------------------------------------------------------------
+# -- phase 16 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight):
@@ -1749,6 +1803,299 @@ def compare_segment(config, cpu):
           f"{SLICE_TOL:g}); f0_hz {errs['f0_hz']:.3g}, amplitudes "
           f"{errs['amplitudes']:.3g}, reverb_ir {errs['reverb_ir']:.3g}",
           flush=True)
+
+
+# -- phase 13 -----------------------------------------------------------------
+
+
+def soak_batches(trainer, n):
+    """``n`` batches of the mini-MAESTRO's train split (shuffled), staged
+    on the card before the soak, so that the data thread's cost stays out
+    of it."""
+    from ddsp_piano_torch.data import pipeline
+
+    batches = pipeline.get_dataset(MAESTRO_DIR, split='train',
+                                   duration=SEGMENT_SECONDS,
+                                   batch_size=TRAIN_BATCH, shuffle=True,
+                                   sample_rate=24000, max_polyphony=16,
+                                   num_parallel_calls=1,
+                                   shuffle_buffer_segments=16,
+                                   seed=STUDENT_SEED)
+    staged = [trainer.stage(next(batches)) for _ in range(n)]
+    batches.close()
+    return staged
+
+
+def gate2_soak():
+    """Teacher-student soak: maestro_v2 at full width, phase 1, student
+    weights of seed 1, SOAK_STEPS steps of batch 6 x 3 s through the
+    Trainer API on phase 9's mini-MAESTRO (the seed-0 teacher's render of
+    demo.mid), cycling SOAK_BATCHES batches staged ahead. Fails on a
+    non-finite loss or unless the mean of the last SOAK_WINDOW losses is
+    below the mean of the first SOAK_WINDOW."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=DEV, seed=STUDENT_SEED)
+    trainer = Trainer(model, first_phase=True, seed=STUDENT_SEED,
+                      record_timeline=True)
+    staged = soak_batches(trainer, SOAK_BATCHES)
+    sync()
+    build.reset_launches()
+    losses = []
+    start = time.perf_counter()
+    for step in range(SOAK_STEPS):
+        losses.append(trainer.train_step(staged[step % len(staged)])[
+            'total_loss'])
+    sync()
+    wall = time.perf_counter() - start
+    launches = dict(build.LAUNCHES)
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        fail(f"the soak launched no {missing} kernel: {launches}")
+    trainer.check_pending()
+    losses = torch.stack(losses).float().cpu().numpy()
+    if not np.isfinite(losses).all():
+        fail(f"soak: non-finite losses at steps "
+             f"{np.flatnonzero(~np.isfinite(losses)).tolist()}")
+    head = float(np.mean(losses[:SOAK_WINDOW]))
+    tail = float(np.mean(losses[-SOAK_WINDOW:]))
+    if not tail < head:
+        fail(f"soak: the mean of the last {SOAK_WINDOW} losses {tail:.4f} is "
+             f"not below the mean of the first {SOAK_WINDOW} {head:.4f}")
+    step_ms = statistics.median(t[0] for t in trainer.step_times()[1:])
+    return dict(losses=losses, head=head, tail=tail, ratio=tail / head,
+                step_ms=step_ms, wall_ms=1e3 * wall / SOAK_STEPS,
+                launches=launches)
+
+
+# -- phases 14-15 -------------------------------------------------------------
+
+
+STREAM_KERNELS = ('oscillator_skip', 'gru_scan', 'note_release')
+
+
+def demo_features(seconds=None, tiles=1):
+    """demo.mid's conditioning on the card (all of it, or ``seconds`` after
+    the 0.5 s warm-up), tiled ``tiles`` times along time."""
+    from ddsp_piano_torch.data.io import load_midi_as_conditioning
+
+    inputs = load_midi_as_conditioning(DEMO_MIDI, duration=seconds,
+                                       warm_up_duration=0.5)
+    tile = lambda x: torch.from_numpy(np.concatenate([x] * tiles, axis=1))
+    return {'conditioning': tile(inputs['conditioning']).to(DEV),
+            'pedal': tile(inputs['pedal']).to(DEV),
+            'piano_model': torch.tensor([[PIANO_TYPE]], device=DEV)}
+
+
+def stream_against_one_shot(model, features, chunk_frames, what):
+    """The streamed render (uniform chunks) against the one-shot forward of
+    the same model on the same features and one full-length noise draw:
+    all but the flushed last frame within STREAM_TOL of peak, correlation
+    above STREAM_MIN_CORR, wet and dry. Returns the wet and dry gaps."""
+    from ddsp_piano_torch.models.streaming import StreamingSynthesizer
+
+    up = model.sample_rate // model.frame_rate
+    n_samples = features['conditioning'].shape[1] * up
+    noise = 2.0 * torch.rand((model.n_synths, n_samples), device=DEV,
+                             generator=torch.Generator(device=DEV
+                                                       ).manual_seed(SEED)
+                             ) - 1.0
+    with torch.inference_mode():
+        one = model(features, noise=noise)
+        wet, dry = StreamingSynthesizer(model, chunk_frames
+                                        ).synthesize_scanned(
+            features, noise=noise, return_dry=True)
+    gaps = {}
+    for stem, got, want in (('wet', wet, one['audio_synth']),
+                            ('dry', dry, one['add']['signal'])):
+        a = want[0, :-up].double().cpu().numpy()
+        b = got[0, :-up].double().cpu().numpy()
+        err = float(np.abs(b - a).max() / np.abs(a).max())
+        corr = float(np.corrcoef(a, b)[0, 1])
+        if not (err <= STREAM_TOL and corr > STREAM_MIN_CORR):
+            fail(f"{what}: streamed {stem} differs from the one-shot render "
+                 f"by {err} of peak (tolerance {STREAM_TOL}), correlation "
+                 f"{corr} (least {STREAM_MIN_CORR})")
+        gaps[stem] = (err, corr)
+    return gaps
+
+
+def render_cost(fn, n=3):
+    """(median forward seconds over ``n`` calls, peak bytes the card
+    allocated above what was allocated before) of ``fn`` under
+    inference_mode, each call after a sync."""
+    times, peaks = [], []
+    for _ in range(n):
+        sync()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        with torch.inference_mode():
+            out = fn()
+        sync()
+        times.append(time.perf_counter() - start)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        del out
+    return statistics.median(times), max(peaks), times
+
+
+def streaming_costs(model, chunk_frames):
+    """Forward time and peak memory, streamed (uniform chunks) against
+    one-shot, on demo.mid and on its conditioning tiled to ~180 s; the
+    noise drawn from a generator, as the CLI draws it."""
+    from ddsp_piano_torch.models.streaming import (StreamingSynthesizer,
+                                                   pad_to_chunks)
+
+    costs = {}
+    for name, tiles in (('demo', 1), ('tiled', STREAM_LONG_TILES)):
+        features = pad_to_chunks(demo_features(tiles=tiles), chunk_frames)
+        seconds = features['conditioning'].shape[1] / model.frame_rate
+        gen = lambda: torch.Generator(device=DEV).manual_seed(SEED)
+        streamer = StreamingSynthesizer(model, chunk_frames)
+        row = {'seconds': seconds}
+        for kind, fn in (
+                ('one_shot', lambda: model(features, generator=gen())[
+                    'audio_synth']),
+                ('streamed', lambda: streamer.synthesize_scanned(
+                    features, generator=gen()))):
+            fn_time, peak, times = render_cost(fn)
+            row[kind] = dict(forward=fn_time, peak=peak, times=times,
+                             rtf=seconds / fn_time)
+        costs[name] = row
+        del features
+        torch.cuda.empty_cache()
+    return costs
+
+
+def streaming_cli(config, seconds, oscillator, expected):
+    """``synthesize_midi_file -c config --streaming --chunk_seconds
+    STREAM_CHUNK_SECONDS`` on demo.mid: a warm-up run records the kernels'
+    inputs; the counters are set to 0 just before the counted run and read
+    just after; ``expected(chunks)`` gives each kernel's launches, which
+    must be exact (every other kernel 0). Each launch is then held against
+    its plain version at its inputs, and timed."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+    from ddsp_piano_torch.kernels import build
+
+    out = os.path.join(OUT_DIR, f'demo_{config}_{oscillator}_stream.wav')
+    argv = ['-c', config, '--streaming', '--chunk_seconds',
+            str(STREAM_CHUNK_SECONDS), '-u', '--seed', str(SEED),
+            '--piano_type', str(PIANO_TYPE), '--oscillator', oscillator,
+            '--device', DEV.type]
+    if seconds is not None:
+        argv += ['-d', str(seconds)]
+    args = cli.process_args(argv + [DEMO_MIDI, out])
+    shapes = {}
+    with capturing(shapes):
+        cli.main(args)
+    sync()
+    build.reset_launches()
+    result = cli.main(args)
+    sync()
+    launches = dict(build.LAUNCHES)
+    want = dict.fromkeys(launches, 0)
+    want.update(expected(result['chunks']))
+    if launches != want:
+        fail(f"{config} --streaming --oscillator {oscillator}: launches "
+             f"{launches}, expected {want} for {result['chunks']} chunks")
+    forwards = [result['seconds']] + timed_renders(cli, args)
+    audio, sr = result['audio'], result['sample_rate']
+    for name, x in (('wet', audio), ('dry', result['dry'])):
+        rms = float(np.sqrt(np.mean(x.astype(np.float64) ** 2)))
+        if not np.isfinite(x).all() or rms <= 1e-4:
+            fail(f"{config} streamed {name} audio not finite or silent "
+                 f"(rms {rms})")
+    if os.path.getsize(out + '_unreverbed.wav') < audio.size:
+        fail("the streamed render wrote no dry stem")
+    seconds_out = len(audio) / sr
+    forward = statistics.median(forwards)
+    return dict(launches=launches, chunks=result['chunks'],
+                forward=forward, forwards=forwards,
+                rtf=seconds_out / forward, seconds=seconds_out,
+                model=result['model'],
+                kernel_ms=path_kernels(
+                    shapes, f'{config} --streaming --oscillator {oscillator}'))
+
+
+def v2_streaming():
+    """Phase 14: the v2 streaming render of all of demo.mid through the
+    CLI (K1, K2, K3 exactly (chunks + 1) x (1, 2, 1) times), the streamed
+    library render against the one-shot on one draw, and streamed against
+    one-shot forward time and peak memory at demo.mid and ~180 s."""
+    from ddsp_piano_torch.models.streaming import pad_to_chunks
+
+    run = streaming_cli('maestro_v2', None, 'skip', lambda n: {
+        'oscillator_skip': n + 1, 'gru_scan': 2 * (n + 1),
+        'note_release': n + 1})
+    model = run.pop('model')
+    chunk_frames = int(STREAM_CHUNK_SECONDS * model.frame_rate)
+    run['gaps'] = stream_against_one_shot(
+        model, pad_to_chunks(demo_features(), chunk_frames), chunk_frames,
+        'v2 streaming')
+    run['costs'] = streaming_costs(model, chunk_frames)
+    return run
+
+
+def dafx22_streaming():
+    """Phase 15: ``-c dafx22 --streaming`` on 10 s of demo.mid with each
+    oscillator: the Normalize sweeps (context: K2 a chunk; mono: K2 twice
+    and K3 a chunk) then the render; K1 or K8, never both. Each run's
+    streamed library render against the one-shot on one draw."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.models.streaming import pad_to_chunks
+
+    runs = {}
+    for oscillator, osc_kernel in (('skip', 'oscillator_skip'),
+                                   ('full', 'oscillator_full')):
+        run = streaming_cli('dafx22', MAIN_PATH_SECONDS, oscillator,
+                            lambda n, k=osc_kernel: {
+                                k: n + 1, 'gru_scan': 3 * n + 2 * (n + 1),
+                                'note_release': n + (n + 1)})
+        model = run.pop('model')
+        chunk_frames = int(STREAM_CHUNK_SECONDS * model.frame_rate)
+        features = pad_to_chunks(demo_features(MAIN_PATH_SECONDS),
+                                 chunk_frames)
+        # dafx22's z encoder is built for one length: the padded one.
+        whole = get_model('dafx22', inference=True, device=DEV, seed=SEED,
+                          duration=features['conditioning'].shape[1]
+                          / model.frame_rate, oscillator=oscillator)
+        run['gaps'] = stream_against_one_shot(
+            whole, features, chunk_frames,
+            f'dafx22 streaming --oscillator {oscillator}')
+        runs[oscillator] = run
+    return runs
+
+
+def streaming_line(what, run):
+    gaps = '; '.join(f"{stem} {err:.3g} (correlation {corr:.7f})"
+                     for stem, (err, corr) in run['gaps'].items())
+    return (f"{what}: demo.mid {run['seconds']:g} s in {run['chunks']} "
+            f"chunks of {STREAM_CHUNK_SECONDS:g} s + the flush, on cuda; "
+            f"forward {1e3 * run['forward']:.1f} ms ({run['rtf']:.1f}x "
+            f"realtime; median of {forwards_text(run['forwards'])} ms); "
+            f"launches {run['launches']}; streamed against one-shot "
+            f"(library, one draw; all but the last frame): {gaps} "
+            f"(tolerance {STREAM_TOL:g}); kernels at their own inputs, "
+            f"each against its plain version: "
+            + grouped_kernels_line(run['kernel_ms']))
+
+
+def costs_line(costs):
+    parts = []
+    for name, row in costs.items():
+        one, st = row['one_shot'], row['streamed']
+        parts.append(
+            f"{name} ({row['seconds']:g} s): one-shot "
+            f"{1e3 * one['forward']:.1f} ms ({one['rtf']:.1f}x), peak "
+            f"{one['peak'] / 2**20:.1f} MiB; streamed "
+            f"{1e3 * st['forward']:.1f} ms ({st['rtf']:.1f}x), peak "
+            f"{st['peak'] / 2**20:.1f} MiB; forwards ms one-shot "
+            f"{forwards_text(one['times'])}, streamed "
+            f"{forwards_text(st['times'])}")
+    return ('v2 streamed against one-shot (library API, medians of 3, peak '
+            'memory above the model\'s): ' + ' | '.join(parts))
 
 
 # -- main ---------------------------------------------------------------------
@@ -1929,6 +2276,28 @@ def main():
           f"{e['launches']}; its kernels at their inputs, each against its "
           f"plain version: " + kernels_line(e['kernel_ms']), flush=True)
     print(tensorflow_line(), flush=True)
+
+    soak = gate2_soak()
+    print(f"gate 2 soak: maestro_v2 b={TRAIN_BATCH} x {SEGMENT_SECONDS:g} s, "
+          f"phase 1, student seed {STUDENT_SEED}, {SOAK_STEPS} steps over "
+          f"{SOAK_BATCHES} staged batches of the mini-MAESTRO: loss every 10 "
+          f"steps " + ', '.join(f"{v:.4f}" for v in soak['losses'][::10])
+          + f", last {soak['losses'][-1]:.4f}; mean of the first "
+          f"{SOAK_WINDOW} {soak['head']:.4f}, of the last {SOAK_WINDOW} "
+          f"{soak['tail']:.4f}, ratio {soak['ratio']:.4f}; step median "
+          f"{soak['step_ms']:.2f} ms (CUDA events), wall "
+          f"{soak['wall_ms']:.2f} ms a step; launches {soak['launches']}",
+          flush=True)
+
+    stream = v2_streaming()
+    print(streaming_line('v2 streaming path', stream), flush=True)
+    print(costs_line(stream['costs']), flush=True)
+    for oscillator, r in dafx22_streaming().items():
+        print(streaming_line(f'dafx22 streaming path, --oscillator '
+                             f'{oscillator}', r)
+              + f"; K2 launches {r['launches']['gru_scan']} (the Normalize "
+              f"sweeps {3 * r['chunks']}, the render "
+              f"{2 * (r['chunks'] + 1)})", flush=True)
 
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:

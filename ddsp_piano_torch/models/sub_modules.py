@@ -59,8 +59,13 @@ class ContextNetwork(nn.DictModule):
         self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
                                   out_features)
 
+    @staticmethod
+    def _inputs(conditioning, pedal, z):
+        return torch.cat([_collapse_last_axis(conditioning), pedal, z],
+                         dim=-1)
+
     def forward(self, conditioning, pedal, z):
-        x = torch.cat([_collapse_last_axis(conditioning), pedal, z], dim=-1)
+        x = self._inputs(conditioning, pedal, z)
         return _split_outputs(self.dense_out(self.model(x)),
                               self.output_splits)
 
@@ -256,9 +261,13 @@ class MonophonicNetwork(nn.DictModule):
         self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
                                   out_features)
 
+    @staticmethod
+    def _inputs(conditioning, extended_pitch, context):
+        return torch.cat([extended_pitch / MIDI_NORM,
+                          _norm_conditioning(conditioning), context], dim=-1)
+
     def forward(self, conditioning, extended_pitch, context):
-        x = torch.cat([extended_pitch / MIDI_NORM,
-                       _norm_conditioning(conditioning), context], dim=-1)
+        x = self._inputs(conditioning, extended_pitch, context)
         return _split_outputs(self.dense_out(self.model(x)),
                               self.output_splits)
 
@@ -503,11 +512,16 @@ class NoteRelease(nn.DictModule):
         self.cell = F0ProcessorCell(frame_rate=frame_rate)
 
     def forward(self, conditioning, initial_state: Optional[torch.Tensor]
-                = None):
+                = None, return_state: bool = False):
+        """(b, t, 2) conditioning -> (b, t, 1) extended pitch; with
+        ``return_state`` also the final (b, 2) [held note, release steps],
+        which streaming synthesis carries into the next chunk."""
         active_pitch = conditioning[..., 0:1]                 # (b, t, 1)
         b = active_pitch.shape[0]
         x = active_pitch.transpose(0, 1).contiguous()         # (t, b, 1)
         state0 = (active_pitch.new_zeros((b, 2)) if initial_state is None
                   else initial_state)
-        ys, _ = note_release_scan(x, self.cell.threshold(), state0)
+        ys, state = note_release_scan(x, self.cell.threshold(), state0)
+        if return_state:
+            return ys.transpose(0, 1), state
         return ys.transpose(0, 1)

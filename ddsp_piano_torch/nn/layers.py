@@ -125,10 +125,21 @@ class Normalize(nn.Module):
         nn.init.ones_(self.scale)
         nn.init.zeros_(self.shift)
 
+    @property
+    def features(self) -> int:
+        return self.scale.shape[-1]
+
     def forward(self, x):
         axes = tuple(range(1, x.dim()))
         mean = torch.mean(x, dim=axes, keepdim=True)
         var = torch.mean(torch.square(x - mean), dim=axes, keepdim=True)
+        return self.apply_with_stats(x, mean, var)
+
+    def apply_with_stats(self, x, mean, var):
+        """Normalize with given statistics (broadcasting against x, e.g.
+        (batch, 1, 1)): streaming synthesis sweeps the file for its
+        whole-sequence mean and variance, then normalizes every chunk with
+        them (ddsp_piano_tpu/nn/layers.py:180-188)."""
         xn = (x - mean) * torch.rsqrt(var + self.EPSILON)
         return xn * self.scale.reshape(-1) + self.shift.reshape(-1)
 
@@ -189,15 +200,21 @@ class GRU(nn.Module):
             self.recurrent_kernel.copy_(w)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x, initial_state: Optional[torch.Tensor] = None):
-        """x: (batch, time, in_features) -> (batch, time, units)."""
+    def forward(self, x, initial_state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+        """x: (batch, time, in_features) -> (batch, time, units); with
+        ``return_state`` also the final hidden state (batch, units), which
+        streaming synthesis carries into the next chunk."""
         b = x.shape[0]
         x_proj = torch.matmul(x, self.kernel) + self.bias[0]
         x_proj = x_proj.transpose(0, 1).contiguous()     # (time, batch, 3u)
         h0 = (x.new_zeros((b, self.units)) if initial_state is None
               else initial_state)
         hs = gru_scan(x_proj, self.recurrent_kernel, self.bias[1], h0)
-        return hs.transpose(0, 1)
+        out = hs.transpose(0, 1)
+        if return_state:
+            return out, hs[-1]
+        return out
 
 
 class Fc(nn.Sequential):

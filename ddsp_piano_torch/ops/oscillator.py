@@ -15,7 +15,7 @@ kernel computes the same terms and skips partials that are exactly zero.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,27 +60,66 @@ def mod_2pi(x: torch.Tensor) -> torch.Tensor:
     return torch.where(r < 0, r + _2PI, r)
 
 
-def framewise_osc_controls(harmonic_frequencies: torch.Tensor,
-                           harmonic_amplitudes: torch.Tensor,
-                           upsampling: int,
-                           sample_rate: int) -> FramewiseOscControls:
-    """Frame-rate oscillator controls from (b, n_frames, K) partial
-    frequencies (Hz) and amplitudes. The phase cumsum is a plain
-    torch.cumsum (the JAX package's _blocked_cumsum is a TPU schedule),
-    taken in float64."""
-    f = core.f32(harmonic_frequencies)
-    a = core.f32(harmonic_amplitudes)
-    f_hi = torch.cat([f[:, 1:], f[:, -1:]], dim=1)
-    a_hi = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+def phase_increments(f: torch.Tensor, f_hi: torch.Tensor, upsampling: int,
+                      sample_rate: int) -> torch.Tensor:
+    """Each frame's phase advance, mod 2pi, computed in float32 and widened
+    to float64: w (up f_lo + (f_hi - f_lo) (up - 1) / 2)."""
     up = float(upsampling)
     w_scale = _2PI / float(sample_rate)
     inc = w_scale * (up * f + (f_hi - f) * ((up - 1.0) / 2.0))
-    inc = mod_2pi(inc).double()
+    return mod_2pi(inc).double()
+
+
+def framewise_osc_controls(harmonic_frequencies: torch.Tensor,
+                           harmonic_amplitudes: torch.Tensor,
+                           upsampling: int,
+                           sample_rate: int,
+                           initial_phase: Optional[torch.Tensor] = None,
+                           lookahead: bool = False) -> FramewiseOscControls:
+    """Frame-rate oscillator controls from (b, n_frames, K) partial
+    frequencies (Hz) and amplitudes. The phase cumsum is a plain
+    torch.cumsum (the JAX package's _blocked_cumsum is a TPU schedule),
+    taken in float64.
+
+    Streaming (ops/oscillator.py:133-172): ``initial_phase`` (b, 1, K),
+    the phase carried from the previous chunk, is added before the one
+    rounding to float32 (pass it in float64, as
+    :func:`framewise_final_phase` returns it); with ``lookahead`` the last
+    frame is only the interpolation endpoint, so n_frames - 1 frames
+    render."""
+    f = core.f32(harmonic_frequencies)
+    a = core.f32(harmonic_amplitudes)
+    if lookahead:
+        f, f_hi = f[:, :-1], f[:, 1:]
+        a, a_hi = a[:, :-1], a[:, 1:]
+    else:
+        f_hi = torch.cat([f[:, 1:], f[:, -1:]], dim=1)
+        a_hi = torch.cat([a[:, 1:], a[:, -1:]], dim=1)
+    inc = phase_increments(f, f_hi, upsampling, sample_rate)
     # The frame-rate phase accumulates in float64: exact to rounding
     # whatever order the device sums in. A float32 sum reaches n_frames *
     # 2pi, where one ulp is already ~1e-4 rad at 250 frames.
-    phase0 = mod_2pi(torch.cumsum(inc, dim=1) - inc).float()
-    return FramewiseOscControls(f, f_hi, a, a_hi, phase0)
+    phase = torch.cumsum(inc, dim=1) - inc
+    if initial_phase is not None:
+        phase = phase + initial_phase.double()
+    return FramewiseOscControls(f, f_hi, a, a_hi, mod_2pi(phase).float())
+
+
+def framewise_final_phase(controls: FramewiseOscControls, upsampling: int,
+                          sample_rate: int,
+                          initial_phase: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """The phase after the last frame, (b, 1, K) float64 mod 2pi: the
+    phase the next chunk starts from (ops/oscillator.py:175-188).
+    ``initial_phase`` is the one the controls were made with. It is the
+    float64 sum of every frame's advance, so a streamed render carries its
+    phase as exactly as the one-shot cumsum and rounds once a chunk."""
+    inc = phase_increments(controls.f_lo, controls.f_hi, upsampling,
+                            sample_rate)
+    total = torch.sum(inc, dim=1, keepdim=True)
+    if initial_phase is not None:
+        total = total + initial_phase.double()
+    return mod_2pi(total)
 
 
 def sample_tables(upsampling: int, device) -> Tuple[torch.Tensor, ...]:

@@ -121,13 +121,17 @@ class MultiInharmonic(InHarmonic):
             b, n_frames, n_harm * n_sub)
         return freqs, amps
 
-    def get_signal(self, amplitudes, harmonic_distribution, harmonic_shifts,
-                   f0_hz):
-        up = self.upsampling
-        freqs, amps = self.fold_substrings(amplitudes, harmonic_distribution,
-                                           harmonic_shifts, f0_hz)
-        controls = oscillator.framewise_osc_controls(freqs, amps, up,
-                                                     self.sample_rate)
+    def render(self, controls: oscillator.FramewiseOscControls
+               ) -> torch.Tensor:
+        """Framewise controls -> (b, n_frames * up) audio through the
+        chosen oscillator's front door."""
         render = (render_framewise_skip if self.oscillator == 'skip'
                   else render_framewise_full)
-        return render(controls, up, self.sample_rate)
+        return render(controls, self.upsampling, self.sample_rate)
+
+    def get_signal(self, amplitudes, harmonic_distribution, harmonic_shifts,
+                   f0_hz):
+        freqs, amps = self.fold_substrings(amplitudes, harmonic_distribution,
+                                           harmonic_shifts, f0_hz)
+        return self.render(oscillator.framewise_osc_controls(
+            freqs, amps, self.upsampling, self.sample_rate))

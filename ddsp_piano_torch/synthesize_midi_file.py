@@ -3,7 +3,8 @@
     python -m ddsp_piano_torch.synthesize_midi_file
         [-c maestro_v2|dafx22|dafx22_24khz] [--ckpt PATH] [--piano_type N]
         [-wu S] [-d S] [-n DBFS] [-u] [--seed N] [--oscillator skip|full]
-        [--device cuda|cpu] midi_file out.wav
+        [--streaming [--chunk_seconds S]] [--device cuda|cpu]
+        midi_file out.wav
 
 The flags mean what they mean for the JAX package's synthesize_midi_file.py.
 The MIDI is read at the config's frame rate and polyphony, then the model
@@ -16,7 +17,11 @@ directory holding ``.index`` files; reading it needs TensorFlow). Without
 --ckpt the weights are the Keras-style initial weights (seed 0). --seed
 seeds the noise synth. --oscillator full renders every partial with the all-partials
 kernel (forward only), as DDSP_PIANO_TPU_PALLAS=1 does in the JAX package;
-the default skips silent and above-Nyquist partials.
+the default skips silent and above-Nyquist partials. --streaming renders
+chunk by chunk (models/streaming.py, the uniform-chunk driver, as the JAX
+CLI's synthesize_scanned): the file is right-padded to whole chunks of
+--chunk_seconds, the card holds one chunk's controls at a time, and the
+audio is cropped to the file's samples.
 """
 
 from __future__ import annotations
@@ -52,7 +57,11 @@ def process_args(argv=None):
     parser.add_argument('--seed', type=int, default=0,
                         help="RNG seed for the noise synthesizer.")
     parser.add_argument('--streaming', action='store_true',
-                        help="Chunked rendering (not supported yet).")
+                        help="Render in fixed-size chunks with carried "
+                             "state (bounded memory for any file length).")
+    parser.add_argument('--chunk_seconds', type=float, default=4.0,
+                        help="Streaming chunk length (default: "
+                             "%(default)s).")
     parser.add_argument('--oscillator', choices=('skip', 'full'),
                         default='skip',
                         help="Additive oscillator: skip silent partials, "
@@ -66,19 +75,38 @@ def process_args(argv=None):
     return parser.parse_args(argv)
 
 
+def render_streaming(model, features, chunk_seconds: float,
+                     generator: torch.Generator):
+    """Streamed (wet, dry, chunks): the conditioning right-padded to whole
+    chunks, the audio cropped to the unpadded frames' samples."""
+    from ddsp_piano_torch.models.streaming import (StreamingSynthesizer,
+                                                   pad_to_chunks)
+
+    chunk_frames = int(chunk_seconds * model.frame_rate)
+    if chunk_frames < 1:
+        raise SystemExit(
+            f"--chunk_seconds {chunk_seconds} is below one frame period "
+            f"(1/{model.frame_rate} s).")
+    padded = pad_to_chunks(features, chunk_frames)
+    audio, dry = StreamingSynthesizer(model, chunk_frames).synthesize_scanned(
+        padded, generator=generator, return_dry=True)
+    n_samples = features['conditioning'].shape[1] * (model.sample_rate
+                                                     // model.frame_rate)
+    return (audio[:, :n_samples], dry[:, :n_samples],
+            padded['conditioning'].shape[1] // chunk_frames)
+
+
 def main(args) -> dict:
     """Render and write the wav(s). Returns the wet and dry audio (numpy,
     warm-up cropped), the sample rate, the forward's wall seconds, the
-    restore's wall seconds and the model."""
+    restore's wall seconds, the model and, with --streaming, the chunk
+    count."""
     from ddsp_piano_torch.configs import config_rates, get_model
     from ddsp_piano_torch.data import audio_io
     from ddsp_piano_torch.data.io import load_midi_as_conditioning
     from ddsp_piano_torch.device import resolve_device
     from ddsp_piano_torch.training.checkpoints import restore_params
 
-    if args.streaming:
-        raise SystemExit("--streaming is not ported to ddsp_piano_torch yet; "
-                         "render the whole file in one pass.")
     device = resolve_device(args.device)
     rates = config_rates(args.config)
     inputs = load_midi_as_conditioning(args.midi_file,
@@ -100,11 +128,16 @@ def main(args) -> dict:
         'piano_model': torch.tensor([[args.piano_type]], device=device),
     }
     generator = torch.Generator(device=device).manual_seed(args.seed)
+    chunks = None
     start = time.perf_counter()
     with torch.inference_mode():
-        outs = model(features, generator=generator)
-        audio = outs['audio_synth'][0].cpu().numpy()
-        dry = outs['add']['signal'][0].cpu().numpy()
+        if args.streaming:
+            audio, dry, chunks = render_streaming(
+                model, features, args.chunk_seconds, generator)
+        else:
+            outs = model(features, generator=generator)
+            audio, dry = outs['audio_synth'], outs['add']['signal']
+        audio, dry = audio[0].cpu().numpy(), dry[0].cpu().numpy()
     seconds = time.perf_counter() - start
 
     sample_rate = model.sample_rate
@@ -119,9 +152,12 @@ def main(args) -> dict:
         if args.normalize is not None:
             audio_io.normalize_audio(dry_file, args.normalize)
     log.info("Audio saved at %s.", args.out_file)
-    return {'audio': audio, 'dry': dry, 'sample_rate': sample_rate,
-            'seconds': seconds, 'restore_seconds': restore_seconds,
-            'model': model}
+    result = {'audio': audio, 'dry': dry, 'sample_rate': sample_rate,
+              'seconds': seconds, 'restore_seconds': restore_seconds,
+              'model': model}
+    if chunks is not None:
+        result['chunks'] = chunks
+    return result
 
 
 if __name__ == '__main__':

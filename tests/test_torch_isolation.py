@@ -34,7 +34,8 @@ bad = sorted(m for m in sys.modules
                                     'tensorflow'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 35, names
+assert len(names) >= 36, names
+assert 'ddsp_piano_torch.models.streaming' in names, names
 """
 
 
@@ -57,8 +58,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         get_model('maestro_v2', inference=True)
-    with pytest.raises(RuntimeError, match='CUDA is not available'):
-        cli.main(cli.process_args(['in.mid', 'out.wav']))
+    for flags in ([], ['--streaming']):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            cli.main(cli.process_args(flags + ['in.mid', 'out.wav']))
     assert get_model('maestro_v2', device='cpu').device.type == 'cpu'
 
 

@@ -119,14 +119,17 @@ def test_synthesize_cli_on_cpu(tmp_path):
     assert os.path.exists(out + '_unreverbed.wav')
 
 
-@pytest.mark.parametrize('flag', [['--streaming'], ['--ckpt', 'x']])
+@pytest.mark.parametrize('flag', [['--streaming', '--chunk_seconds',
+                                   '0.001'], ['--ckpt', 'x']])
 def test_synthesize_cli_refuses_unported_options(tmp_path, flag):
-    """--streaming is not ported; --ckpt is, and a path that holds no
+    """A streaming chunk below one frame period raises, as the JAX CLI
+    does (synthesize_midi_file.py:131-157); a --ckpt path that holds no
     checkpoint raises a clear error."""
     from ddsp_piano_torch import synthesize_midi_file as cli
 
     error, match = ((FileNotFoundError, "'x' holds no checkpoint")
-                    if flag[0] == '--ckpt' else (SystemExit, 'not ported'))
+                    if flag[0] == '--ckpt'
+                    else (SystemExit, 'below one frame'))
     with pytest.raises(error, match=match):
         cli.main(cli.process_args(
             flag + ['--device', 'cpu', DEMO_MIDI, str(tmp_path / 'o.wav')]))

@@ -380,6 +380,95 @@ def test_phase_with_no_trainable_parameter_matches_jax(jax_v2):
                                    rtol=1e-4, err_msg=key)
 
 
+TRAJECTORY_STEPS = 10
+# The start of the control trajectory: every weight times 1 + 2^-22, a
+# rounding-level change.
+TRAJECTORY_NUDGE = 2.0 ** -22
+
+
+def _port_trajectory(params, batches, draws, logmag_weight, nudge=0.0):
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = _v2_small()
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    model.loss_objs[0].logmag_weight = logmag_weight
+    with torch.no_grad():
+        for p in model.parameters():
+            p.mul_(1.0 + nudge)
+    trainer = Trainer(model, first_phase=True)
+    losses = [float(trainer.train_step(b, noise=torch.from_numpy(
+        np.array(n)))['total_loss']) for b, n in zip(batches, draws)]
+    trainer.check_pending()
+    return np.array(losses), trainer
+
+
+@pytest.mark.parametrize('loss', ['v2', 'magnitudes'])
+def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
+    """The port's Trainer against the JAX package's for 10 steps of the
+    v2 loss (magnitudes and log magnitudes) and of its magnitude term
+    alone, from the same parameters, on the same batches and the same
+    injected noise draws.
+
+    The trajectory is chaotic at init: Adam's first updates are ~lr times
+    the sign of each gradient, and the v2 loss's gradients are
+    ill-conditioned at near-silent bins (7.7e-2 of a leaf's peak from
+    jax.grad, test_whole_step_gradients_match_jax). Measured: a weight
+    change of 2^-22 moves the port's own v2 loss by up to 2.2 % within 10
+    steps, and the port's v2 losses part from JAX's by 1.7e-3 at step 1
+    and up to 5.1 % (magnitudes alone: 1.4 % and 1.2e-3). So each step's
+    loss is held at rtol 1e-3 only at the first step, where the
+    parameters are the same (ROADMAP C.1), and the whole trajectory
+    against that control: the port's largest gap to JAX within four times
+    the control's largest gap. The final parameters' largest gap, a share
+    of each leaf's peak, is printed."""
+    from ddsp_piano_tpu.configs import get_model as jax_get_model
+    from ddsp_piano_tpu.parallel import mesh as mesh_lib
+    from ddsp_piano_tpu.training.trainer import Trainer as JaxTrainer
+
+    _, params, mask = jax_v2
+    logmag_weight = 1.0 if loss == 'v2' else 0.0
+    jmodel = jax_get_model('maestro_v2', duration=0.5, n_synths=4,
+                           first_phase=True)
+    jmodel.loss_objs[0].logmag_weight = logmag_weight
+    jtrainer = JaxTrainer(jmodel, first_phase=True,
+                          mesh=mesh_lib.get_mesh(1))
+    state = jtrainer.state_with_params(
+        jtrainer.init_state(jax.random.PRNGKey(0)), params)
+    batches = [_v2_batch(seed=step) for step in range(TRAJECTORY_STEPS)]
+    rngs = [jax.random.PRNGKey(100 + step)
+            for step in range(TRAJECTORY_STEPS)]
+    # The noise synth's draw inside the JAX step (models/dag.py:123).
+    draws = [jax.random.uniform(jax.random.fold_in(rng, 1), (8, 12000),
+                                jnp.float32, -1.0, 1.0) for rng in rngs]
+    want = []
+    for batch, rng in zip(batches, rngs):
+        state, losses = jtrainer.train_step(state, batch, rng=rng)
+        want.append(float(losses['total_loss']))
+    want = np.array(want)
+    got, trainer = _port_trajectory(params, batches, draws, logmag_weight)
+    control, _ = _port_trajectory(params, batches, draws, logmag_weight,
+                                  nudge=TRAJECTORY_NUDGE)
+    final = dict(flatten_tree(jax.tree.map(np.asarray, state.params)))
+    gaps = {name: float(np.abs(p.detach().numpy() - final[name]).max()
+                        / max(np.abs(final[name]).max(), 1e-30))
+            for name, p in trainer.named_params}
+    worst = max(gaps, key=gaps.get)
+    gap = np.abs(got - want) / want
+    control_gap = np.abs(control - got) / got
+    fmt = lambda a: np.array2string(a, precision=2, max_line_width=200)
+    print(f"\n{loss} loss, {TRAJECTORY_STEPS} steps, port / JAX: "
+          + ', '.join(f"{g:.5f}/{w:.5f}" for g, w in zip(got, want))
+          + f"; relative gap {fmt(gap)}, largest {gap.max():.3g}; control "
+          f"(weights x (1 + 2^-22)) {fmt(control_gap)}, largest "
+          f"{control_gap.max():.3g}; final parameters, gap / leaf peak: "
+          f"worst {worst} {gaps[worst]:.3g}, median "
+          f"{np.median(list(gaps.values())):.3g}")
+    assert set(gaps) == {n for n, m in flatten_tree(mask) if m}
+    assert np.isfinite(want).all() and np.isfinite(got).all()
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
+    assert gap.max() <= 4.0 * control_gap.max(), (gap, control_gap)
+
+
 @pytest.mark.parametrize('config,trainable', [('maestro_v2', 0),
                                               ('dafx22', 7)])
 def test_second_phase_optimizer(config, trainable):

@@ -119,11 +119,33 @@ non-zero exit code and no result line:
    ``--oscillator full``, never both. Each launch held against its plain
    version; each streamed library render against the one-shot forward on
    one draw.
-16. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+16. The configurations ported last (enstdkcl_8khz, enstdkcl_32khz,
+   multi_instruments, surrogate, maestro_v2_regularized): each renders
+   10 s of demo.mid through ``synthesize_midi_file.main -c <name>`` on
+   ``cuda`` (enstdkcl_32khz also with ``--oscillator full``), counters and
+   peak memory set to 0 just before the counted render and read just
+   after: K1 (K8 with ``full``), K2 and K3 must launch and no other
+   kernel; the surrogate synth has no oscillator kernel (K2, K3). The
+   forward is the median of three; each launch is held against its plain
+   version at its inputs; the 3 s segment on the card against its CPU
+   render (1.1e-4 of peak); the peak memory is printed, and its excess
+   over what was allocated before the render.
+17. A phase-1 training step of each of those configurations (student
+   seed 1; b = 6 x 3 s of demo.mid rendered on the card by the config's
+   seed-0 model, no data thread) through the Trainer API, counters set to
+   0 just before and read just after: K2, K5, K6, K7 and, but for the
+   surrogate, K1 and K4 must launch (K4 at up 32 and 128 through its
+   generic kernel). Each launch is held against its plain version at its
+   inputs, with K4's bound and K2's and K5's plans; three more steps are
+   timed with CUDA events; one step's gradients (the magnitude term and
+   the regularisers) on the card against the CPU's on the same batch and
+   noise draw, each leaf within 1e-3 of its peak (a scalar leaf 1e-2),
+   cosine 0.99999.
+18. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-17. One JSON line of kernel numbers (K1's row at the training step's
+19. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render and the CLI run), then the
    result line.
 
@@ -455,10 +477,11 @@ def segment_inputs(device, upsampling):
     return features, noise.to(device)
 
 
-# What phase 5 compares: the two stems, then the controls they come from.
+# What phases 5, 8 and 16 compare: the two stems, then the controls they
+# come from (those the configuration has).
 SEGMENT_OUTPUTS = ('wet', 'dry', 'f0_hz', 'inharm_coef', 'extended_pitch',
                    'amplitudes', 'harmonic_distribution', 'magnitudes',
-                   'reverb_ir')
+                   'reverb_ir', 'decays', 'decay_time')
 
 
 def _copy(args):
@@ -509,7 +532,8 @@ def render_segment(device, capture=None, config='maestro_v2'):
         outs = model(features, noise=noise)
     outs['wet'] = outs['audio_synth'][0]
     outs['dry'] = outs['add']['signal'][0]
-    return {k: outs[k].float().cpu().numpy() for k in SEGMENT_OUTPUTS}
+    return {k: outs[k].float().cpu().numpy() for k in SEGMENT_OUTPUTS
+            if k in outs}
 
 
 def to_card(args, device=None):
@@ -701,6 +725,28 @@ def plan_text(kernel, b, u):
             f"with an SM to each CTA")
 
 
+def gru_bound(t, b, u):
+    """K2's bound at (T, B, u): h U + b and the gates a (step, row); the
+    x_proj read, hs written, weights read once."""
+    three_u = 3 * u
+    flops = t * b * (2 * u * three_u + three_u + GRU_GATE_FLOPS_PER_UNIT * u)
+    nbytes = 4 * (t * b * three_u + t * b * u + u * three_u + three_u
+                  + b * u)
+    return bound(flops, nbytes)
+
+
+def gru_bwd_bound(t, b, u):
+    """K5's bound at (T, B, u): the recomputed h U + b, the chain's three
+    U^T products and the gates a (step, row); its inputs read and five
+    streams written once."""
+    three_u = 3 * u
+    flops = t * b * (4 * u * three_u + 2 * three_u
+                     + GRU_BWD_GATE_FLOPS_PER_UNIT * u)
+    nbytes = 4 * (t * b * three_u + 2 * t * b * u + 2 * u * three_u
+                  + three_u + b * u + 4 * t * b * u + b * u)
+    return bound(flops, nbytes)
+
+
 def check_gru(calls):
     from ddsp_piano_torch.kernels import gru as kgru
 
@@ -725,14 +771,10 @@ def check_gru(calls):
             plain_ms = median_ms(lambda: kgru.gru_scan_plain(
                 x_proj, rec_kernel, rec_bias, h0), n=20, warmup=1)
             library_ms = median_ms(library)
-        flops = t * b * (2 * u * three_u + three_u
-                         + GRU_GATE_FLOPS_PER_UNIT * u)
-        nbytes = 4 * (t * b * three_u + t * b * u + u * three_u + three_u
-                      + b * u)
         rows.append(dict(u=u, b=b, t=t, err=err, lib_err=lib_err, ms=ms,
                          card_ms=card_ms, plain_ms=plain_ms,
                          library_ms=library_ms,
-                         bound=bound(flops, nbytes),
+                         bound=gru_bound(t, b, u),
                          plan=plan_text('gru_scan', b, u)))
     total = dict(name='gru_scan', max_abs_err=max(r['err'] for r in rows))
     for key in ('ms', 'card_ms', 'plain_ms', 'library_ms'):
@@ -1131,7 +1173,6 @@ def check_oscillator_bwd(calls):
     from ddsp_piano_torch.kernels import oscillator as kosc
 
     (controls, g, up, sr), = calls
-    b, n_frames, k = controls.f_lo.shape
     got = kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
     want = kosc.render_framewise_vjp_plain(controls, g, up, sr)
     sync()
@@ -1144,15 +1185,11 @@ def check_oscillator_bwd(calls):
                  f"version in d{name}: {err} > {OSC_BWD_TOL} x peak {peak}")
         errs.append(err)
         rel.append(err / max(peak, 1e-30))
-    f_lo, f_hi, a_lo, a_hi, _ = controls
-    audible = torch.minimum(f_lo, f_hi) < sr / 2.0
-    silent = audible & (a_lo == 0) & (a_hi == 0)
+    silent = osc_bwd_cells(controls, sr)[1]
     if not all(bool((d[silent] == 0).all()) for d in (got.f_lo, got.f_hi,
                                                        got.phase0)):
         fail("oscillator backward kernel: a silent cell's d f_lo, d f_hi or "
              "d phase0 is not 0")
-    n_silent = silent.sum().item()
-    n_sounding = audible.sum().item() - n_silent
     del got, want
     kernel = lambda: kosc.render_framewise_skip_bwd_cuda(controls, g, up, sr)
     times = event_times(kernel)
@@ -1160,10 +1197,8 @@ def check_oscillator_bwd(calls):
     plain_ms = median_ms(lambda: kosc.render_framewise_vjp_plain(
         controls, g, up, sr), n=5, warmup=1)
     library_ms, slices = library_osc_bwd_ms(controls, g, up, sr)
-    flops = (OSC_BWD_FLOPS_SOUNDING * n_sounding
-             + OSC_BWD_FLOPS_SILENT * n_silent) * up
-    nbytes = 4 * (10 * b * n_frames * k + b * n_frames * up)
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by, n_sounding, n_silent = osc_bwd_bound(controls, up,
+                                                             sr)
     computed = n_sounding + n_silent
     detail = (f"controls 5 x {tuple(controls.f_lo.shape)}, g "
               f"{tuple(g.shape)}; cells below Nyquist {computed}/"
@@ -1177,6 +1212,27 @@ def check_oscillator_bwd(calls):
                 ms=statistics.median(times),
                 plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by, card_ms=card_ms), detail
+
+
+def osc_bwd_cells(controls, sr):
+    """K4's cells below Nyquist (at either end of the frame), and those of
+    them that are silent (a_lo = a_hi = 0)."""
+    f_lo, f_hi, a_lo, a_hi, _ = controls
+    audible = torch.minimum(f_lo, f_hi) < sr / 2.0
+    return audible, audible & (a_lo == 0) & (a_hi == 0)
+
+
+def osc_bwd_bound(controls, up, sr):
+    """K4's bound at its inputs, from the sounding and silent cells it
+    computes: (ms, what bounds it, sounding cells, silent cells)."""
+    b, n_frames, k = controls.f_lo.shape
+    audible, silent = osc_bwd_cells(controls, sr)
+    n_silent = silent.sum().item()
+    n_sounding = audible.sum().item() - n_silent
+    flops = (OSC_BWD_FLOPS_SOUNDING * n_sounding
+             + OSC_BWD_FLOPS_SILENT * n_silent) * up
+    nbytes = 4 * (10 * b * n_frames * k + b * n_frames * up)
+    return bound(flops, nbytes) + (n_sounding, n_silent)
 
 
 def library_osc_bwd_ms(controls, g, up, sr, rows=8):
@@ -1244,15 +1300,11 @@ def check_gru_bwd(calls):
             fwd_ms = median_ms(library)
             fwd_bwd_ms = median_ms(lambda: torch.autograd.grad(
                 library(), [x, h], g))
-        flops = t * b * (4 * u * three_u + 2 * three_u
-                         + GRU_BWD_GATE_FLOPS_PER_UNIT * u)
-        nbytes = 4 * (t * b * three_u + 2 * t * b * u + 2 * u * three_u
-                      + three_u + b * u + 4 * t * b * u + b * u)
         rows.append(dict(u=u, b=b, t=t, err=err, peak=peak, rel=rel,
                          median=(min(medians), max(medians)), ms=ms,
                          card_ms=card_ms, plain_ms=plain_ms,
                          library_ms=fwd_bwd_ms - fwd_ms,
-                         bound=bound(flops, nbytes),
+                         bound=gru_bwd_bound(t, b, u),
                          plan=plan_text('gru_scan_bwd', b, u)))
     total = dict(name='gru_scan_bwd', max_abs_err=max(r['err'] for r in rows))
     for key in ('ms', 'card_ms', 'plain_ms', 'library_ms'):
@@ -1689,21 +1741,30 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 16 -----------------------------------------------------------------
+# -- phase 18 -----------------------------------------------------------------
 
 
-def step_gradients(device, batch, noise, logmag_weight):
-    from ddsp_piano_torch.configs import get_model
+def step_gradients(device, batch, noise, logmag_weight,
+                   config='maestro_v2'):
+    """The total loss and each trainable leaf's gradient (zeros for a leaf
+    the step does not reach) of one phase-1 step from the student weights
+    on ``device``."""
+    from ddsp_piano_torch.configs import config_rates, get_model
     from ddsp_piano_torch.training.trainer import Trainer
 
-    model = get_model('maestro_v2', device=device, seed=STUDENT_SEED)
+    seconds = (batch['conditioning'].shape[1]
+               / config_rates(config)['frame_rate'])
+    model = get_model(config, device=device, seed=STUDENT_SEED,
+                      duration=seconds)
     model.loss_objs[0].logmag_weight = logmag_weight
     trainer = Trainer(model, first_phase=True)
     losses = trainer.forward_backward(
         {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
         noise=noise.to(device))
     return (float(losses['total_loss']),
-            {n: p.grad.detach().cpu() for n, p in trainer.named_params})
+            {n: (torch.zeros(p.shape) if p.grad is None
+                 else p.grad.detach().cpu())
+             for n, p in trainer.named_params})
 
 
 @contextlib.contextmanager
@@ -1792,7 +1853,7 @@ def compare_segment(config, cpu):
     gpu = render_segment(DEV, config=config)
     errs = {k: float(np.abs(gpu[k] - cpu[k]).max()
                      / max(np.abs(cpu[k]).max(), 1e-30))
-            for k in SEGMENT_OUTPUTS}
+            for k in cpu}
     for stem in ('wet', 'dry'):
         if not errs[stem] <= SLICE_TOL:
             fail(f"{config}: {stem} render on cuda differs from the cpu "
@@ -1800,8 +1861,10 @@ def compare_segment(config, cpu):
                  f"peak of each output: {errs}")
     print(f"{config} cuda vs cpu plain, {SEGMENT_SECONDS:g} s: max-abs / "
           f"peak wet {errs['wet']:.3g}, dry {errs['dry']:.3g} (tolerance "
-          f"{SLICE_TOL:g}); f0_hz {errs['f0_hz']:.3g}, amplitudes "
-          f"{errs['amplitudes']:.3g}, reverb_ir {errs['reverb_ir']:.3g}",
+          f"{SLICE_TOL:g}); " + ', '.join(
+              f"{k} {errs[k]:.3g}" for k in ('f0_hz', 'amplitudes',
+                                            'reverb_ir', 'decays',
+                                            'decay_time') if k in errs),
           flush=True)
 
 
@@ -2098,6 +2161,323 @@ def costs_line(costs):
             'memory above the model\'s): ' + ' | '.join(parts))
 
 
+# -- phases 16-17 -------------------------------------------------------------
+
+
+# The configurations ported last, each rendered with the default oscillator
+# and enstdkcl_32khz also with the all-partials one (K8 at up = 128).
+CONFIG_RENDERS = (('enstdkcl_8khz', 'skip'), ('enstdkcl_32khz', 'skip'),
+                  ('enstdkcl_32khz', 'full'), ('multi_instruments', 'skip'),
+                  ('surrogate', 'skip'), ('maestro_v2_regularized', 'skip'))
+NEW_CONFIGS = ('enstdkcl_8khz', 'enstdkcl_32khz', 'multi_instruments',
+               'surrogate', 'maestro_v2_regularized')
+STEP_TIMED = 3                 # timed steps after the counted one
+# A scalar leaf's gradient (NoteRelease's release_duration, the FDN's t60
+# and tone) is one sum over every (row, frame) cell, with cancellation;
+# the L1 magnitude term's sign flips where the card's and the CPU's
+# magnitudes tie move it by more than a wide leaf's (measured 1.04e-3 of
+# its peak for enstdkcl_8khz's release_duration). Held within
+# STEP_TOL_SCALAR; every other leaf within STEP_TOL_MAG; the whole
+# gradient's cosine at least STEP_MIN_COSINE_MAG.
+STEP_TOL_SCALAR = 1e-2
+STEP_MIN_COSINE_MAG = 0.99999
+
+
+def render_kernels(config, oscillator):
+    """The kernels a render of ``config`` launches. The surrogate synth
+    renders its decaying partials in plain torch, as the JAX package does
+    in jnp: no oscillator kernel."""
+    if config == 'surrogate':
+        return ('gru_scan', 'note_release')
+    return (f'oscillator_{oscillator}', 'gru_scan', 'note_release')
+
+
+def step_kernels(config):
+    """The kernels a phase-1 training step of ``config`` launches."""
+    gru_nr = ('gru_scan', 'gru_scan_bwd', 'note_release_res',
+              'note_release_bwd')
+    if config == 'surrogate':
+        return gru_nr
+    return ('oscillator_skip', 'oscillator_skip_bwd') + gru_nr
+
+
+def check_launches(what, launches, want):
+    missing = [k for k in want if launches.get(k, 0) == 0]
+    unwanted = [k for k, n in launches.items() if n and k not in want]
+    if missing or unwanted:
+        fail(f"{what}: launches {launches} (must launch {list(want)} and "
+             f"no other kernel)")
+
+
+def memory_peak_mib(before):
+    """(torch.cuda.max_memory_allocated, and its excess over ``before``,
+    what was allocated when the peak was reset), MiB: the excess is the
+    path's own, the rest what earlier phases and the path's model hold."""
+    peak = torch.cuda.max_memory_allocated()
+    return peak / 2 ** 20, (peak - before) / 2 ** 20
+
+
+def config_render(config, oscillator):
+    """``synthesize_midi_file -c config`` on 10 s of demo.mid on the card,
+    after a warm-up render that records the front doors' inputs; counters
+    and peak memory set to 0 just before the counted render and read just
+    after. Each launch is then held against its plain version at its
+    inputs."""
+    from ddsp_piano_torch import synthesize_midi_file as cli
+    from ddsp_piano_torch.kernels import build
+
+    out = os.path.join(OUT_DIR, f'demo_{config}_{oscillator}.wav')
+    args = cli.process_args(['-c', config, '-d', str(MAIN_PATH_SECONDS),
+                             '-u', '--seed', str(SEED), '--piano_type',
+                             str(PIANO_TYPE), '--oscillator', oscillator,
+                             '--device', DEV.type, DEMO_MIDI, out])
+    what = f"{config} --oscillator {oscillator}"
+    shapes = {}
+    with capturing(shapes):
+        cli.main(args)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.reset_launches()
+    result = cli.main(args)
+    sync()
+    launches = dict(build.LAUNCHES)
+    peak_mib = memory_peak_mib(before)
+    check_launches(what, launches, render_kernels(config, oscillator))
+    forwards = [result['seconds']] + timed_renders(cli, args)
+    audio, dry, sr = result['audio'], result['dry'], result['sample_rate']
+    if audio.shape != (int(MAIN_PATH_SECONDS * sr),):
+        fail(f"{what}: audio of shape {audio.shape} at {sr} Hz")
+    rms = float(np.sqrt(np.mean(dry.astype(np.float64) ** 2)))
+    if not (np.isfinite(audio).all() and np.abs(audio).max() > 0
+            and np.isfinite(dry).all() and rms > 1e-4):
+        fail(f"{what}: audio not finite, or silent (dry rms {rms})")
+    forward = statistics.median(forwards)
+    return dict(launches={k: n for k, n in launches.items() if n},
+                forward=forward, forwards=forwards,
+                rtf=MAIN_PATH_SECONDS / forward, peak_mib=peak_mib, sr=sr,
+                kernel_ms=path_kernels(shapes, what))
+
+
+def config_renders():
+    """Phase 16: each configuration's render on the card, its launches
+    checked, then its 3 s segment against the CPU's."""
+    for config, oscillator in CONFIG_RENDERS:
+        r = config_render(config, oscillator)
+        print(f"{config} path, --oscillator {oscillator}: demo.mid "
+              f"{MAIN_PATH_SECONDS:g} s at {r['sr']} Hz on cuda, forward "
+              f"{r['forward'] * 1e3:.1f} ms ({r['rtf']:.1f}x realtime; "
+              f"median of {forwards_text(r['forwards'])} ms), peak memory "
+              f"{r['peak_mib'][0]:.1f} MiB (max_memory_allocated), "
+              f"{r['peak_mib'][1]:.1f} above what was allocated before the "
+              f"render; launches "
+              f"{r['launches']}; kernels at its own inputs, each against "
+              f"its plain version: " + grouped_kernels_line(r['kernel_ms']),
+              flush=True)
+        if oscillator == 'skip':
+            compare_segment(config, render_segment('cpu', config=config))
+
+
+def teacher_batch(config):
+    """TRAIN_BATCH consecutive SEGMENT_SECONDS segments of demo.mid as a
+    training batch, the target rendered on the card by the config's
+    initial weights of seed SEED (its training-time model): numpy arrays,
+    as the data pipeline gives them."""
+    from ddsp_piano_torch.configs import config_rates, get_model
+    from ddsp_piano_torch.data.io import load_midi_as_conditioning
+
+    rates = config_rates(config)
+    n_frames = int(SEGMENT_SECONDS * rates['frame_rate'])
+    inputs = load_midi_as_conditioning(
+        DEMO_MIDI, n_synths=rates['n_synths'],
+        frame_rate=rates['frame_rate'],
+        duration=TRAIN_BATCH * SEGMENT_SECONDS)
+    batch = {'conditioning': inputs['conditioning'][0].reshape(
+                 TRAIN_BATCH, n_frames, rates['n_synths'], 2),
+             'pedal': inputs['pedal'][0].reshape(TRAIN_BATCH, n_frames, 4),
+             'piano_model': np.full((TRAIN_BATCH, 1), PIANO_TYPE, np.int32)}
+    teacher = get_model(config, device=DEV, seed=SEED,
+                        duration=SEGMENT_SECONDS)
+    with torch.inference_mode():
+        audio = teacher({k: torch.from_numpy(v).to(DEV)
+                         for k, v in batch.items()},
+                        generator=torch.Generator(device=DEV).manual_seed(
+                            SEED + 3))['audio_synth']
+    batch['audio'] = audio.cpu().numpy()
+    return batch
+
+
+def step_path_kernels(capture, what):
+    """[(kernel, input shape, ms, err, note)] for each kernel launch of a
+    training step, at its inputs: held against its plain version on the
+    card (K1 within OSC_TOL of peak; K2 GRU_TOL absolute; K4 each control
+    gradient within OSC_BWD_TOL of its peak; K5 each stream within
+    GRU_BWD_TOL of its peak; K6, K7 bit-exact), then its CUDA-event time.
+    The note gives K4's bound (its sounding and silent cells) and K2's and
+    K5's plan, time a step and bound."""
+    from ddsp_piano_torch.kernels import gru, note_release, oscillator
+
+    pairs = {
+        'oscillator_skip': (oscillator.render_framewise_skip_cuda,
+                            oscillator.render_framewise_plain),
+        'gru_scan': (gru.gru_scan_cuda, gru.gru_scan_plain),
+        'note_release_res': (note_release.note_release_scan_res_cuda,
+                             note_release.note_release_scan_plain_res),
+        'oscillator_skip_bwd': (oscillator.render_framewise_skip_bwd_cuda,
+                                oscillator.render_framewise_vjp_plain),
+        'gru_scan_bwd': (gru.gru_scan_bwd_cuda, gru.gru_scan_plain_bwd),
+        'note_release_bwd': (note_release.note_release_scan_bwd_cuda,
+                             note_release.note_release_scan_plain_bwd)}
+    rows = []
+    for kernel, calls in sorted(capture.items()):
+        cuda, plain = pairs[kernel]
+        for args in calls:
+            with torch.no_grad():
+                got, want = cuda(*args), plain(*args)
+            sync()
+            if kernel.startswith('note_release'):
+                err = 0.0
+                ok = all(torch.equal(a, w) for a, w in zip(got, want))
+            elif kernel == 'gru_scan':
+                err = (got - want).abs().max().item()
+                ok = np.isfinite(err) and err <= GRU_TOL
+            elif kernel == 'oscillator_skip':
+                err = ((got - want).abs().max()
+                       / want.abs().max().clamp_min(1e-30)).item()
+                ok = np.isfinite(err) and err <= OSC_TOL
+            else:
+                err = max(((a - w).abs().max()
+                           / w.abs().max().clamp_min(1e-30)).item()
+                          for a, w in zip(got, want))
+                ok = np.isfinite(err) and err <= (
+                    OSC_BWD_TOL if kernel == 'oscillator_skip_bwd'
+                    else GRU_BWD_TOL)
+            del got, want
+            shape = tuple(args[0][0].shape if kernel.startswith(
+                'oscillator') else args[0].shape)
+            if not ok:
+                fail(f"{what}: {kernel} at its inputs {shape} differs from "
+                     f"its plain version by {err}")
+            ms = median_ms(lambda: cuda(*args), n=10)
+            note = ''
+            if kernel == 'oscillator_skip_bwd':
+                controls, _, up, sr = args
+                bound_ms, by, sounding, silent = osc_bwd_bound(controls, up,
+                                                               sr)
+                note = (f" up={up}, cells sounding {sounding} silent "
+                        f"{silent}, bound {bound_ms:.5f} ms ({by})")
+            elif kernel in ('gru_scan', 'gru_scan_bwd'):
+                t, b, three_u = args[0].shape
+                u = three_u // 3
+                bound_ms, by = (gru_bound if kernel == 'gru_scan'
+                                else gru_bwd_bound)(t, b, u)
+                note = (f" u={u} B={b}, {1e3 * ms / t:.3f} us/step, bound "
+                        f"{bound_ms:.5f} ms ({by}); "
+                        + plan_text(kernel, b, u))
+            rows.append((kernel, shape, ms, err, note))
+    return rows
+
+
+def config_step(config):
+    """Phase 17 for one configuration: a phase-1 training step (student
+    seed STUDENT_SEED) on its teacher's batch on the card, counted and its
+    kernel launches held against their plain versions; STEP_TIMED more
+    steps timed with CUDA events; one step's gradients (the spectral
+    loss's magnitude term and the regularisers) on the card against the
+    CPU's on the same batch and noise draw."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    what = f"{config} training step"
+    batch = teacher_batch(config)
+    model = get_model(config, device=DEV, seed=STUDENT_SEED,
+                      duration=SEGMENT_SECONDS)
+    trainer = Trainer(model, first_phase=True, seed=STUDENT_SEED)
+    capture = {}
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    build.reset_launches()
+    with capturing(capture, TRAIN_DOORS):
+        losses = trainer.train_step(batch)
+    sync()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    peak_mib = memory_peak_mib(before)
+    loss = float(losses['total_loss'])
+    if not np.isfinite(loss):
+        fail(f"{what}: loss {loss}")
+    check_launches(what, launches, step_kernels(config))
+    rows = step_path_kernels(capture, what)
+    del capture
+    staged = {k: torch.from_numpy(v).to(DEV) for k, v in batch.items()}
+    step_ms = []
+    for _ in range(STEP_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step(staged)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+    trainer.check_pending()
+    del trainer, model, staged
+    noise = noise_draw(config, TRAIN_BATCH, batch['audio'].shape[-1])
+    loss_gpu, grads_gpu = step_gradients(DEV, batch, noise, 0.0, config)
+    loss_cpu, grads_cpu = step_gradients('cpu', batch, noise, 0.0, config)
+    errs, cosine = gradient_gap(grads_gpu, grads_cpu)
+    worst = max(errs, key=errs.get)
+    over = {k: e for k, e in errs.items()
+            if e > (STEP_TOL_SCALAR if grads_cpu[k].numel() == 1
+                    else STEP_TOL_MAG)}
+    if not (np.isfinite(loss_gpu) and not over
+            and cosine >= STEP_MIN_COSINE_MAG
+            and abs(loss_gpu - loss_cpu) <= 1e-4 * abs(loss_cpu)):
+        fail(f"{what}: cuda step differs from the cpu step: loss "
+             f"{loss_gpu} vs {loss_cpu}, leaves over their tolerance "
+             f"({STEP_TOL_MAG}, scalars {STEP_TOL_SCALAR}) {over}, cosine "
+             f"{cosine}")
+    return dict(loss=loss, launches=launches, peak_mib=peak_mib, rows=rows,
+                step_ms=step_ms, loss_gpu=loss_gpu,
+                loss_cpu=loss_cpu, worst=worst, worst_err=errs[worst],
+                median_err=statistics.median(errs.values()), cosine=cosine,
+                n_leaves=len(errs))
+
+
+def noise_draw(config, batch_size, n_samples):
+    """The noise synth's draw for a batch: (n_synths x batch, n_samples),
+    from a seed, on the host."""
+    from ddsp_piano_torch.configs import config_rates
+
+    rows = config_rates(config)['n_synths'] * batch_size
+    return 2.0 * torch.rand((rows, n_samples), generator=torch.Generator(
+        ).manual_seed(SEED + 4)) - 1.0
+
+
+def config_steps():
+    """Phase 17: a training step of each configuration ported last."""
+    for config in NEW_CONFIGS:
+        r = config_step(config)
+        print(f"{config} training step (b={TRAIN_BATCH}, "
+              f"{SEGMENT_SECONDS:g} s, phase 1, student seed {STUDENT_SEED}, "
+              f"on its seed-{SEED} teacher's batch) on cuda: loss "
+              f"{r['loss']:.4f}; launches {r['launches']}; step "
+              f"{statistics.median(r['step_ms']):.2f} ms (median of "
+              + ' / '.join(f"{t:.2f}" for t in r['step_ms'])
+              + f", CUDA events); peak memory {r['peak_mib'][0]:.1f} MiB, "
+              f"{r['peak_mib'][1]:.1f} above what was allocated before the "
+              f"step; "
+              f"kernels at its inputs, each against its plain version: "
+              + '; '.join(f"{k} {shape} {ms:.4f} ms (err {err:.3g}){note}"
+                          for k, shape, ms, err, note in r['rows'])
+              + f"; gradients (magnitude term and regularisers, "
+              f"{r['n_leaves']} leaves) cuda vs cpu: loss "
+              f"{r['loss_gpu']:.6f} vs {r['loss_cpu']:.6f}, worst leaf "
+              f"{r['worst']} {r['worst_err']:.3g} of its peak (tolerance "
+              f"{STEP_TOL_MAG:g}, scalars {STEP_TOL_SCALAR:g}), median "
+              f"{r['median_err']:.3g}, cosine {r['cosine']:.7f}", flush=True)
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2298,6 +2678,9 @@ def main():
               + f"; K2 launches {r['launches']['gru_scan']} (the Normalize "
               f"sweeps {3 * r['chunks']}, the render "
               f"{2 * (r['chunks'] + 1)})", flush=True)
+
+    config_renders()
+    config_steps()
 
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:

@@ -116,3 +116,13 @@ def build(inference: bool = False,
                                     name='audio_stft_loss'),
         ],
     )
+
+
+@register('maestro_v2_regularized')
+def build_regularized(inference: bool = False, duration: float = 3.0,
+                      **overrides) -> PianoModel:
+    """maestro_v2 with the L1 penalty on the FDN's early-IR embeddings
+    (maestro-v2-regularized.gin; ddsp_piano_tpu/configs/maestro_v2.py:
+    113-120)."""
+    overrides.setdefault('regularize_early', True)
+    return build(inference=inference, duration=duration, **overrides)

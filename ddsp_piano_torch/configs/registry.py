@@ -1,7 +1,8 @@
 """Model config registry and the ``get_model`` entry point.
 
-Counterpart of ddsp_piano_tpu/configs/registry.py. maestro_v2, dafx22 and
-dafx22_24khz are ported; other names raise with the list of what exists.
+Counterpart of ddsp_piano_tpu/configs/registry.py, with its eight names:
+the 24 kHz dafx22 and the regularized v2 are registered from their base
+configs' modules. Other names raise with the list of what exists.
 """
 
 from __future__ import annotations
@@ -12,8 +13,12 @@ from typing import Callable, Dict
 from ddsp_piano_torch.device import DeviceLike, resolve_device
 
 _CONFIGS: Dict[str, Callable] = {}
-_CONFIG_MODULES = ('ddsp_piano_torch.configs.maestro_v2',
-                   'ddsp_piano_torch.configs.dafx22')
+_CONFIG_MODULES = ('ddsp_piano_torch.configs.dafx22',
+                   'ddsp_piano_torch.configs.maestro_v2',
+                   'ddsp_piano_torch.configs.enstdkcl_32khz',
+                   'ddsp_piano_torch.configs.enstdkcl_8khz',
+                   'ddsp_piano_torch.configs.multi_instruments',
+                   'ddsp_piano_torch.configs.surrogate')
 
 
 def register(name: str):

@@ -28,11 +28,18 @@ class VectorizedPolyphonicProcessorGroup(nn.Module):
         super().__init__()
         self.additive = additive
         self.noise = noise
-        self.reverb = reverb
+        # The reverb sits under its processor's name, as in the JAX params
+        # tree: 'reverb', or the standalone FDN's 'DelayNetwork'.
+        self.reverb_name = 'reverb' if reverb is None else reverb.name
+        self._modules[self.reverb_name] = reverb
         self.additive_controls = tuple(additive_controls)
         self.noise_controls = tuple(noise_controls)
         self.reverb_controls = tuple(reverb_controls)
         self.n_synths = n_synths
+
+    @property
+    def reverb(self) -> Optional[Processor]:
+        return self._modules[self.reverb_name]
 
     @property
     def processors(self):

@@ -1,8 +1,8 @@
 """Training losses.
 
-Counterpart of ddsp_piano_tpu/models/losses.py:13-98: Loss, SpectralLoss
-(the v2 loss) and ReverbRegularizer (in dafx22's loss list).
-InharmonicityLoss and LoudnessLoss are not ported yet.
+Counterpart of ddsp_piano_tpu/models/losses.py:13-111: Loss, SpectralLoss
+(the v2 loss), ReverbRegularizer (dafx22, multi_instruments, surrogate)
+and InharmonicityLoss (surrogate). LoudnessLoss is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from typing import Sequence
 
 import torch
 
-from ddsp_piano_torch.ops import spectral
+from ddsp_piano_torch.ops import core, spectral
 
 
 class Loss:
@@ -92,4 +92,20 @@ class ReverbRegularizer(Loss):
 
     def compute(self, outputs):
         ir = outputs['reverb_ir']
-        return self.weight * torch.sum(torch.abs(ir)) / ir.shape[0]
+        return self.weight * torch.sum(core.abs_(ir)) / ir.shape[0]
+
+
+class InharmonicityLoss(Loss):
+    """Penalty on negative inharmonicity coefficients, summed and divided
+    by the leading axis of outputs['inharm_coef'] (the stacked voices after
+    the unfold), as losses.py:101-111 divides."""
+
+    def __init__(self, weight: float = 10.0,
+                 name: str = 'inharmonicity_loss'):
+        super().__init__(name=name)
+        self.weight = weight
+
+    def compute(self, outputs):
+        inharm = outputs['inharm_coef']
+        loss = torch.sum(core.maximum(-inharm, 0.0)) / inharm.shape[0]
+        return self.weight * loss

@@ -22,7 +22,7 @@ from ddsp_piano_torch.models.sub_modules import (InharmonicityNetwork,
 
 # Slots whose parameters train in the second phase only (the frequency
 # modules) and in the first phase only (piano_model.py:28-33).
-_SECOND_PHASE_MODULES = ('inharm_model', 'detuner')
+_SECOND_PHASE_MODULES = ('inharm_model', 'detuner', 'surrogate_module')
 _FIRST_PHASE_MODULES = ('note_release', 'context_network',
                         'monophonic_network', 'reverb_model')
 
@@ -30,11 +30,12 @@ _FIRST_PHASE_MODULES = ('note_release', 'context_network',
 class PianoModel(nn.Module):
     """Polyphonic differentiable piano synthesizer."""
 
-    # The slots of the v2 and dafx22 models, in the JAX package's order
-    # (piano_model.py:39-43); other configs' slots come with their slices.
+    # The slots of the ported configurations, in the JAX package's order
+    # (piano_model.py:39-43): its background_noise_model and
+    # harmonic_masking slots are used by none of the registered configs.
     GLOBAL_SLOTS = ('z_encoder', 'context_network', 'reverb_model')
     MONO_SLOTS = ('note_release', 'inharm_model', 'detuner',
-                  'monophonic_network')
+                  'monophonic_network', 'surrogate_module')
 
     def __init__(self, parallelizer: Parallelizer,
                  processor_group: VectorizedPolyphonicProcessorGroup,
@@ -81,9 +82,9 @@ class PianoModel(nn.Module):
         frequency slots in phase 2 (piano_model.py:105-180). Two modules
         split (:147-171): OneHotZEncoder's z ``embedding`` trains in phase
         1 and its inharm/detune embeddings in phase 2;
-        InharmonicityNetwork's slopes and offsets are frozen in every
-        phase. The processor group's parameters (none for v2 and dafx22)
-        train in every phase."""
+        InharmonicityNetwork's (and ParametricTuning's) slopes and offsets
+        are frozen in every phase. The processor group's parameters (the
+        ENSTDkCl models' FDN reverb) train in every phase."""
         mask = {}
         for slot, module in self._module_slots():
             if (isinstance(module, JointParametricInharmTuning)

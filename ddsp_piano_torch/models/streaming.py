@@ -61,10 +61,15 @@ class StreamingSynthesizer:
         if not isinstance(group, VectorizedPolyphonicProcessorGroup):
             raise ValueError("Streaming requires the vectorized polyphonic "
                              "processor group.")
-        if not isinstance(group.additive, MultiInharmonic):
+        unported = self.unported_parts(model)
+        if unported:
             raise ValueError(
-                "Streaming renders the MultiInharmonic additive synth only; "
-                "the surrogate model is not ported to ddsp_piano_torch yet.")
+                "Streaming is not ported for this model's "
+                + ', '.join(unported) + ": the port streams neither the "
+                "surrogate synth, the pedal-only context network nor the "
+                "standalone FDN reverb yet (ddsp_piano_tpu/models/"
+                "streaming.py:83-127, :283-311, :532-560). Render it in one "
+                "pass.")
         if chunk_frames < 1:
             raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
         self.model = model
@@ -88,6 +93,21 @@ class StreamingSynthesizer:
             slots += [('mono', i) for i, layer in enumerate(mono.model)
                       if isinstance(layer, nn.Normalize)]
         return slots
+
+    @staticmethod
+    def unported_parts(model) -> List[str]:
+        """The parts of ``model`` whose streaming is not ported: the
+        pedal-only SimpleContextNet (enstdkcl_8khz), the standalone FDN
+        reverb (the ENSTDkCl models) and the surrogate synth."""
+        group = model.processor_group
+        parts = []
+        if isinstance(model.context_network, sm.SimpleContextNet):
+            parts.append('SimpleContextNet context network')
+        if not isinstance(group.additive, MultiInharmonic):
+            parts.append(f'{type(group.additive).__name__} additive synth')
+        if group.reverb is not None and not isinstance(group.reverb, Reverb):
+            parts.append(f'{type(group.reverb).__name__} reverb')
+        return parts
 
     # -- the networks, with carried state ----------------------------------
 

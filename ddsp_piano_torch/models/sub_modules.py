@@ -1,17 +1,21 @@
-"""Piano model sub-modules of the v2 and dafx22 models.
+"""Piano model sub-modules of the ported configurations.
 
 Counterpart of ddsp_piano_tpu/models/sub_modules.py: ContextNetwork
-(:52-87), FiLMContextNetwork (:123-171), OneHotZEncoder (:174-216),
-MultiInstrumentReverb (:253-292), MultiInstrumentFeedbackDelayReverb
-(:295-370), MonophonicNetwork (:378-412), MonophonicDeepNetwork
-(:415-462), Parallelizer (:470-523), InharmonicityNetwork (:538-582),
-JointParametricInharmTuning (:623-680), Detuner (:716-741),
-F0ProcessorCell and NoteRelease (:875-933). Attribute names follow the JAX
-params pytree, so params.load_jax_params can fill them by name.
+(:52-87), SimpleContextNet (:90-120), FiLMContextNetwork (:123-171),
+OneHotZEncoder (:174-216), MultiInstrumentReverb (:253-292),
+MultiInstrumentFeedbackDelayReverb (:295-370), MonophonicNetwork
+(:378-412), MonophonicDeepNetwork (:415-462), Parallelizer (:470-523),
+InharmonicityNetwork (:538-582), ParametricTuning (:585-620),
+JointParametricInharmTuning (:623-680), Detuner (:716-741), DeepDetuner
+(:744-774), DictInharmonicityModel (:797-823), SurrogateModule
+(:826-872), F0ProcessorCell and NoteRelease (:875-933). Attribute names
+follow the JAX params pytree, so params.load_jax_params can fill them by
+name.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -46,9 +50,40 @@ def _split_outputs(x: torch.Tensor, output_splits) -> tuple:
 class ContextNetwork(nn.DictModule):
     """Global context from conditioning, pedal and z: a config-driven layer
     list (dafx22: Dense32 leaky -> GRU64 -> Normalize), then a dense_out
-    head split into ``output_splits``."""
+    head split into ``output_splits``. ``normalize_pitch`` scales the
+    conditioning's pitches by 1/128 first (enstdkcl_32khz,
+    multi_instruments)."""
 
     input_keys = ('conditioning', 'pedal', 'z')
+
+    def __init__(self, layers: Sequence[tnn.Module], out_features: int,
+                 output_splits=(('context', 32),), normalize_pitch=False):
+        super().__init__()
+        self.model = tnn.Sequential(*layers)
+        self.output_splits = tuple(output_splits)
+        self.output_keys = tuple(k for k, _ in self.output_splits)
+        self.normalize_pitch = normalize_pitch
+        self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
+                                  out_features)
+
+    def _inputs(self, conditioning, pedal, z):
+        if self.normalize_pitch:
+            conditioning = _norm_conditioning(conditioning)
+        return torch.cat([_collapse_last_axis(conditioning), pedal, z],
+                         dim=-1)
+
+    def forward(self, conditioning, pedal, z):
+        x = self._inputs(conditioning, pedal, z)
+        return _split_outputs(self.dense_out(self.model(x)),
+                              self.output_splits)
+
+
+class SimpleContextNet(nn.DictModule):
+    """Context from the pedals alone (a layer list, then dense_out), with
+    FiLM from the instrument z when a z encoder is present
+    (enstdkcl_8khz has none)."""
+
+    input_keys = ('pedal', 'z?')
 
     def __init__(self, layers: Sequence[tnn.Module], out_features: int,
                  output_splits=(('context', 32),)):
@@ -59,15 +94,12 @@ class ContextNetwork(nn.DictModule):
         self.dense_out = nn.Dense(sum(v[1] for v in self.output_splits),
                                   out_features)
 
-    @staticmethod
-    def _inputs(conditioning, pedal, z):
-        return torch.cat([_collapse_last_axis(conditioning), pedal, z],
-                         dim=-1)
-
-    def forward(self, conditioning, pedal, z):
-        x = self._inputs(conditioning, pedal, z)
-        return _split_outputs(self.dense_out(self.model(x)),
-                              self.output_splits)
+    def forward(self, pedal, z=None):
+        context = self.dense_out(self.model(pedal))
+        if z is not None:
+            film_coef, film_bias = torch.chunk(z, 2, dim=-1)
+            context = context * film_coef + film_bias
+        return context
 
 
 class OneHotZEncoder(nn.DictModule):
@@ -224,7 +256,7 @@ class MultiInstrumentFeedbackDelayReverb(nn.DictModule):
         emb = self._early_ir.embeddings
         if not self.regularize_early:
             return emb.new_zeros(())
-        return 1e-1 * torch.sum(torch.abs(emb))
+        return 1e-1 * torch.sum(core.abs_(emb))
 
     def forward(self, piano_model):
         if self.n_instruments == 1:
@@ -364,7 +396,7 @@ class InharmonicityNetwork(nn.DictModule):
     modifiers, with a model-specific weight on the bass bridge through
     global_inharm."""
 
-    input_keys = ('extended_pitch', 'global_inharm')
+    input_keys = ('extended_pitch', 'global_inharm?')
     output_keys = ('inharm_coef',)
     FROZEN = ('slopes', 'offsets')
 
@@ -387,6 +419,9 @@ class InharmonicityNetwork(nn.DictModule):
                  _BASS_INTERCEPT / (MIDI_NORM * _BASS_SLOPE)]))
 
     def forward(self, extended_pitch, global_inharm=None):
+        return self._inharm(extended_pitch, global_inharm)
+
+    def _inharm(self, extended_pitch, global_inharm=None):
         reduced = core.f32(extended_pitch) / MIDI_NORM
         slopes = self.slopes + self.slopes_modifier
         offsets = self.offsets + self.offsets_modifier
@@ -399,8 +434,67 @@ class InharmonicityNetwork(nn.DictModule):
                          keepdim=True)
 
     def regularization(self) -> torch.Tensor:
-        return 0.1 * (torch.sum(torch.abs(self.slopes_modifier))
-                      + torch.sum(torch.abs(self.offsets_modifier)))
+        return 0.1 * (torch.sum(core.abs_(self.slopes_modifier))
+                      + torch.sum(core.abs_(self.offsets_modifier)))
+
+
+class ParametricTuning(InharmonicityNetwork):
+    """Rigaud's parametric tuning: the inharmonicity network's B(m) and a
+    Railsback stretch of the equal temperament around A4, with fixed
+    stretch constants (ENSTDkCl models). The slopes and offsets stay
+    frozen as the network's. Each step is the JAX package's float32
+    operation; exp, tanh, sqrt and the divisions by constants round once
+    from float64 (core.rounded), as the v2 tuning's do."""
+
+    input_keys = ('extended_pitch', 'global_inharm?')
+    output_keys = ('f0_hz', 'inharm_coef')
+
+    REFERENCE_A = 69.0
+    PITCH_TRANSLATION = 64.0      # m_0
+    DECREASE_SLOPE = 24.0         # alpha
+    LOW_BASS_ASYMPTOTE = 4.51 - 1  # K
+
+    def stretching_model(self, notes):
+        x = core.rounded(torch.div, notes - self.PITCH_TRANSLATION,
+                         self.DECREASE_SLOPE)
+        rho = 1.0 - core.rounded(torch.tanh, x)
+        return 1.0 + rho * (self.LOW_BASS_ASYMPTOTE / 2.0)
+
+    def get_deviation_from_ET(self, notes, global_inharm=None):
+        ref = torch.full_like(core.f32(notes), self.REFERENCE_A)
+        ref_inharm = self._inharm(ref, global_inharm)
+        # midi_to_hz(REFERENCE_A) is 440 exactly.
+        ratio = core.rounded(torch.div, core.midi_to_hz(notes), 440.0)
+        rho = self.stretching_model(notes)
+        detuning = 1.0 + ref_inharm * torch.square(ratio * rho)
+        detuning = detuning / (1.0 + self._inharm(notes, global_inharm)
+                               * torch.square(rho))
+        return core.rounded(torch.sqrt, detuning)
+
+    def forward(self, extended_pitch, global_inharm=None):
+        extended_pitch = core.f32(extended_pitch)
+        inharm_coef = self._inharm(extended_pitch, global_inharm)
+        detuning = self.get_deviation_from_ET(extended_pitch, global_inharm)
+        return core.midi_to_hz(extended_pitch) * detuning, inharm_coef
+
+
+class DictInharmonicityModel(nn.DictModule):
+    """B per MIDI pitch, a lookup of the pitch's integer part
+    (multi_instruments), with a penalty on negative entries."""
+
+    input_keys = ('extended_pitch', 'piano_model?')
+    output_keys = ('inharm_coef',)
+
+    def __init__(self, n_instruments=1):
+        super().__init__()
+        self.layer = nn.Embedding(128 * n_instruments, 1,
+                                  embeddings_init='zeros')
+
+    def forward(self, extended_pitch, piano_model=None):
+        return self.layer(extended_pitch[..., 0])
+
+    def regularization(self) -> torch.Tensor:
+        return 1e2 * torch.sum(torch.relu(-self.layer.embeddings))
 
 
 class Detuner(nn.DictModule):
@@ -409,7 +503,7 @@ class Detuner(nn.DictModule):
     ``use_detune`` (phase 1 of training) every substring sits at the
     pitch."""
 
-    input_keys = ('extended_pitch', 'global_detuning')
+    input_keys = ('extended_pitch', 'global_detuning?')
     output_keys = ('f0_hz',)
 
     def __init__(self, n_substrings=2, use_detune=True):
@@ -422,6 +516,33 @@ class Detuner(nn.DictModule):
         if self.use_detune:
             detuning = core.rounded(torch.tanh,
                                     self.layer(extended_pitch / MIDI_NORM))
+            if global_detuning is not None:
+                detuning = detuning + core.rounded(torch.tanh,
+                                                   global_detuning)
+            extended_pitch = extended_pitch + detuning
+        return core.midi_to_hz(extended_pitch)
+
+
+class DeepDetuner(nn.DictModule):
+    """One f0 per substring: midi_to_hz(pitch + tanh(MLP(pitch / 128)) +
+    tanh(global_detuning)), the output layer zero-initialised (surrogate).
+    Without ``use_detune`` (phase 1) every substring sits at the pitch."""
+
+    input_keys = ('extended_pitch', 'global_detuning?')
+    output_keys = ('f0_hz',)
+
+    def __init__(self, n_substrings=2, use_detune=True, ch=32, n_layers=3):
+        super().__init__()
+        self.use_detune = use_detune
+        self.hidden_layers = nn.FcStack(ch, 1, layers=n_layers)
+        self.out_layer = nn.Dense(n_substrings, ch, activation='tanh',
+                                  kernel_init='zeros')
+
+    def forward(self, extended_pitch, global_detuning=None):
+        extended_pitch = core.f32(extended_pitch)
+        if self.use_detune:
+            detuning = self.out_layer(
+                self.hidden_layers(extended_pitch / MIDI_NORM))
             if global_detuning is not None:
                 detuning = detuning + core.rounded(torch.tanh,
                                                    global_detuning)
@@ -481,6 +602,45 @@ class JointParametricInharmTuning(nn.DictModule):
         inharm_coef = self.get_inharm(extended_pitch, piano_model)
         detuning = self.get_deviation_from_ET(extended_pitch, piano_model)
         return core.midi_to_hz(extended_pitch) * detuning, inharm_coef
+
+
+class SurrogateModule(nn.DictModule):
+    """Per-pitch partial decays (an embedding of the pitch's integer part,
+    initialised to ones) and the frames since the last onset, for the
+    surrogate synth. The onset counter is the closed form of the
+    reference's recurrent cell: t[i] = i - (the last onset at or before
+    i), from a cummax, no scan; frames before any onset continue the
+    carried count."""
+
+    input_keys = ('conditioning', 'extended_pitch')
+    output_keys = ('decays', 'decay_time')
+
+    def __init__(self, n_harmonics=96):
+        super().__init__()
+        self.amp_model = nn.Embedding(128, n_harmonics,
+                                      embeddings_init='ones')
+
+    def forward(self, conditioning, extended_pitch,
+                initial_state: Optional[torch.Tensor] = None,
+                return_state: bool = False):
+        """initial_state: (b, 1, 1) frames since onset carried across
+        streamed chunks (None: 0, a fresh start); with ``return_state``
+        also the count after the last frame."""
+        decays = self.amp_model(extended_pitch[..., 0])
+        onset = conditioning[..., 1:2]                        # (b, t, 1)
+        b, t, _ = onset.shape
+        idx = torch.arange(t, dtype=torch.float32,
+                           device=onset.device)[None, :, None]
+        carry = (onset.new_zeros((b, 1, 1)) if initial_state is None
+                 else initial_state)
+        marked = torch.where(onset > 0, idx.expand(b, t, 1),
+                             torch.full_like(onset, -math.inf))
+        last_onset = torch.cummax(marked, dim=1).values
+        decay_time = torch.where(torch.isfinite(last_onset),
+                                 idx - last_onset, carry + idx + 1.0)
+        if return_state:
+            return decays, decay_time, decay_time[:, -1:]
+        return decays, decay_time
 
 
 class F0ProcessorCell(tnn.Module):

@@ -12,6 +12,7 @@ embeddings) drawn from an explicit torch.Generator.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from ddsp_piano_torch.kernels.gru import gru_scan
+from ddsp_piano_torch.ops import core
 
 
 def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
@@ -29,6 +31,9 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
 ACTIVATIONS = {
     None: lambda x: x,
     'leaky_relu': leaky_relu,
+    # Rounded once from float64: the DeepDetuner's output layer feeds the
+    # frequency path.
+    'tanh': functools.partial(core.rounded, torch.tanh),
 }
 
 
@@ -166,6 +171,10 @@ class Embedding(nn.Module):
                 draw = torch.randn(shape, generator=generator)
                 self.embeddings.copy_(self.init_mean
                                       + self.init_stddev * draw)
+            elif self.embeddings_init == 'zeros':
+                self.embeddings.zero_()
+            elif self.embeddings_init == 'ones':
+                self.embeddings.fill_(1.0)
             else:
                 raise ValueError(
                     f"Unknown embeddings_init {self.embeddings_init!r}")

@@ -1,5 +1,6 @@
-"""Core signal ops: the subset of ddsp_piano_tpu/ops/core.py that the v2
-and dafx22 renders and the training loss call (core.py:31-136, 162-277).
+"""Core signal ops: the subset of ddsp_piano_tpu/ops/core.py that the
+ported configurations' renders and the training loss call (core.py:31-136,
+162-277).
 """
 
 from __future__ import annotations
@@ -46,6 +47,39 @@ def exp_sigmoid(x, exponent=10.0, max_value=2.0, threshold=1e-7):
     """``max_value * sigmoid(x) ** log(exponent) + threshold``."""
     x = f32(x)
     return max_value * torch.sigmoid(x) ** math.log(exponent) + threshold
+
+
+def positive_tanh(x) -> torch.Tensor:
+    """(tanh(x) + 1) / 2, in (0, 1)."""
+    return 0.5 * (torch.tanh(f32(x)) + 1.0)
+
+
+def exp_tanh(x, max_value=2.0, exponent=10.0, gain=1.0, threshold=1e-7):
+    """exp_sigmoid on tanh, which saturates faster: ``max_value *
+    positive_tanh(gain x) ** log(exponent) + threshold`` (core.py:72-78,
+    the ENSTDkCl, multi-instrument and surrogate synths' scaling)."""
+    y = max_value * positive_tanh(gain * f32(x)) ** math.log(exponent)
+    return y + threshold
+
+
+def abs_(x: torch.Tensor) -> torch.Tensor:
+    """jnp.abs(x), with its gradient: +1 at 0 (torch.abs gives 0 there).
+    The L1 regularisers meet it: the inharmonicity modifiers start at 0."""
+    return torch.where(x >= 0, x, -x)
+
+
+def maximum(x: torch.Tensor, value: float) -> torch.Tensor:
+    """jnp.maximum(x, value), with its gradient: half the cotangent to x
+    where x equals the bound (torch.clamp passes all of it). The bound is
+    filled on x's device (new_tensor would copy it from the host, which
+    synchronises the stream)."""
+    return torch.maximum(x, x.new_full((), value))
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi), with its
+    gradient at the bounds (half, as :func:`maximum`)."""
+    return torch.minimum(maximum(x, lo), x.new_full((), hi))
 
 
 def safe_divide(numerator, denominator, eps=1e-7):
@@ -110,6 +144,14 @@ def harmonic_numbers(n_harmonics: int, device) -> torch.Tensor:
     2 pi df t. Copied to ``device`` once, outside inference mode (as
     ops.filters' constants)."""
     return _harmonic_numbers_on(n_harmonics, torch.device(device))
+
+
+def get_harmonic_frequencies(frequencies, n_harmonics: int
+                             ) -> torch.Tensor:
+    """(..., 1) fundamentals -> (..., n_harmonics) multiples, by the JAX
+    package's float32 harmonic numbers (core.py:101-114)."""
+    frequencies = f32(frequencies)
+    return frequencies * harmonic_numbers(n_harmonics, frequencies.device)
 
 
 def get_inharmonic_freq(f0_hz, inharm_coef, n_harmonics: int):

@@ -1,6 +1,6 @@
 """Feedback-Delay-Network reverb IR by frequency sampling.
 
-Counterpart of ddsp_piano_tpu/ops/fdn.py:54-182, with the batch of
+Counterpart of ddsp_piano_tpu/ops/fdn.py:54-183, with the batch of
 per-instrument parameter sets written out as a leading dimension (the JAX
 package vmaps the per-instance function). 8 delay lines with fixed
 lengths, the Householder-style mixing matrix M = -I + 0.5 ones, a one-pole
@@ -19,6 +19,8 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+
+from ddsp_piano_torch.ops import filters
 
 DEFAULT_DELAY_VALUES = (233.0, 311.0, 421.0, 461.0, 587.0, 613.0, 789.0, 891.0)
 DEFAULT_DELAYS_ALLPASS = (
@@ -130,3 +132,12 @@ def fdn_ir(params: FDNParams, sample_rate: float,
     if early.shape[-1] < n:
         early = torch.nn.functional.pad(early, (0, n - early.shape[-1]))
     return early[:, :n] + late
+
+
+def fdn_reverb_signal(audio: torch.Tensor, ir: torch.Tensor) -> torch.Tensor:
+    """The FDN IR applied by FFT convolution, with no dry mask and no dry
+    add (fdn.py:175-183)."""
+    if ir.dim() == 1:
+        ir = ir[None, :]
+    return filters.fft_convolve(audio, ir, padding='same',
+                                delay_compensation=0)

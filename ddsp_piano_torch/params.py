@@ -67,7 +67,8 @@ def export_jax_params(model: nn.Module) -> Dict[str, Any]:
     arrays, with the structure of the JAX ``PianoModel.init`` tree: one
     entry per slot, and ``processor_group`` holding an empty tree for each
     processor of the JAX group's graph (additive, noise, their ``add`` and
-    the reverb). The structure comes from the port's modules alone; no
+    the reverb, under its name: 'reverb' or the trainable FDN's
+    'DelayNetwork'). The structure comes from the port's modules alone; no
     JAX template is needed. ``load_jax_params`` takes it back."""
     tree = {slot: _module_tree(module)
             for slot, module in model._module_slots()}
@@ -76,5 +77,6 @@ def export_jax_params(model: nn.Module) -> Dict[str, Any]:
                                'noise': _module_tree(group.noise),
                                'add': {}}
     if group.reverb is not None:
-        tree['processor_group']['reverb'] = _module_tree(group.reverb)
+        tree['processor_group'][group.reverb_name] = _module_tree(
+            group.reverb)
     return tree

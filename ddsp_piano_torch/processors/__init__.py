@@ -5,7 +5,8 @@ from ddsp_piano_torch.processors.inharm import InHarmonic, MultiInharmonic
 from ddsp_piano_torch.processors.noise import (DynamicSizeFilteredNoise,
                                                FilteredNoise)
 from ddsp_piano_torch.processors.reverb import FeedbackDelayNetwork, Reverb
+from ddsp_piano_torch.processors.surrogate import SurrogateAdditive
 
 __all__ = ['DynamicSizeFilteredNoise', 'FeedbackDelayNetwork',
            'FilteredNoise', 'InHarmonic', 'MultiInharmonic', 'Processor',
-           'Reverb']
+           'Reverb', 'SurrogateAdditive']

@@ -44,7 +44,7 @@ class InHarmonic(Processor):
                      f0_hz):
         """amplitudes (b, t, 1), harmonic_distribution (b, t, K),
         inharm_coef (b, t, 1), f0_hz (b, t, 1)."""
-        inharm_coef = torch.clamp(core.f32(inharm_coef), min=0.0)
+        inharm_coef = core.maximum(core.f32(inharm_coef), 0.0)
         if self.scale_fn is not None:
             amplitudes = self.scale_fn(amplitudes)
             harmonic_distribution = self.scale_fn(harmonic_distribution)

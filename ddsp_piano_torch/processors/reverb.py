@@ -1,8 +1,9 @@
 """Reverb processors: convolution reverb with a supplied IR, and the FDN IR.
 
 Counterpart of ddsp_piano_tpu/processors/reverb.py: Reverb (dry-tap mask
-plus dry add, :27-64) and FeedbackDelayNetwork.get_ir (:128-135) for the
-v2 model, whose FDN controls come from per-instrument embeddings.
+plus dry add, :27-64) and FeedbackDelayNetwork (:67-160): its get_ir for
+the v2 model, whose FDN controls come from per-instrument embeddings, and
+its trainable mode, the ENSTDkCl models' standalone reverb.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from ddsp_piano_torch.processors.base import Processor
 
 class Reverb(Processor):
     """Convolution reverb with an externally supplied IR."""
+
+    name = 'reverb'
 
     def __init__(self, add_dry: bool = True):
         super().__init__()
@@ -38,17 +41,56 @@ class Reverb(Processor):
 
 
 class FeedbackDelayNetwork(Processor):
-    """FDN IR synthesis from a batch of supplied controls."""
+    """FDN reverb. With supplied controls (the v2 model's per-instrument
+    embeddings) it only synthesises IRs (:meth:`get_ir`). ``trainable``
+    (the ENSTDkCl models' standalone reverb) holds the controls as its own
+    parameters, mapped to controls as reverb.py:113-123 maps them, and
+    reverberates the dry mix with its IR; ``delay_trainable`` makes the
+    delay-line lengths parameters too (else the fixed lengths, a buffer).
+    Its parameters sit under the group's ``DelayNetwork``, the JAX
+    processor's name."""
 
-    def __init__(self, sampling_rate: float = 16000.0, delay_lines: int = 8,
-                 early_ir_length: int = 200):
+    name = 'DelayNetwork'
+
+    def __init__(self, trainable: bool = False,
+                 sampling_rate: float = 16000.0, delay_lines: int = 8,
+                 early_ir_length: int = 200, delay_trainable: bool = False):
         super().__init__()
+        self.trainable = trainable
+        self.delay_trainable = delay_trainable and trainable
         self.sampling_rate = float(sampling_rate)
         self.delay_lines = delay_lines
         self.early_ir_length = early_ir_length
-        self.register_buffer('delay_values', torch.tensor(
-            fdn.DEFAULT_DELAY_VALUES[:delay_lines], dtype=torch.float32),
-            persistent=False)
+        if self.delay_trainable:
+            self.delay_values = torch.nn.Parameter(torch.zeros(delay_lines))
+        else:
+            self.register_buffer('delay_values', torch.tensor(
+                fdn.DEFAULT_DELAY_VALUES[:delay_lines],
+                dtype=torch.float32), persistent=False)
+        if trainable:
+            for name, shape in self._param_shapes():
+                setattr(self, name, torch.nn.Parameter(torch.zeros(shape)))
+
+    def _param_shapes(self):
+        n = self.delay_lines
+        return (('early_ir', (self.early_ir_length,)), ('input_gain', (n,)),
+                ('output_gain', (n,)), ('time_rev_0_sec', ()),
+                ('alpha_tone', ()), ('delays_allpass', (n, 4)),
+                ('gain_allpass', (n, 4)))
+
+    # (mean, stddev) of each trainable parameter's normal init
+    # (reverb.py:97-111).
+    _INIT = {'early_ir': (0.0, 0.1), 'input_gain': (0.25, 0.1),
+             'output_gain': (0.25, 0.1), 'time_rev_0_sec': (2.0, 0.5),
+             'alpha_tone': (0.0, 0.1), 'delays_allpass': (400.0, 60.0),
+             'gain_allpass': (0.25, 0.1), 'delay_values': (400.0, 60.0)}
+
+    def reset_parameters(self, generator: torch.Generator):
+        with torch.no_grad():
+            for name, p in self.named_parameters(recurse=False):
+                mean, std = self._INIT[name]
+                p.copy_(mean + std * torch.randn(p.shape,
+                                                 generator=generator))
 
     @property
     def freq_points(self) -> int:
@@ -62,3 +104,24 @@ class FeedbackDelayNetwork(Processor):
         return fdn.fdn_ir(controls, self.sampling_rate,
                           delay_values=self.delay_values,
                           freq_points=self.freq_points)
+
+    def trained_ir(self) -> torch.Tensor:
+        """(1, freq_points): the IR of the processor's own parameters."""
+        if not self.trainable:
+            raise ValueError("This FeedbackDelayNetwork holds no parameters: "
+                             "its controls come from the reverb model "
+                             "(get_ir).")
+        return self.get_ir(
+            input_gain=self.input_gain[None],
+            output_gain=self.output_gain[None],
+            gain_allpass=self.gain_allpass[None],
+            delays_allpass=self.delays_allpass[None],
+            time_rev_0_sec=core.maximum(self.time_rev_0_sec, 0.0)[None],
+            alpha_tone=torch.sigmoid(self.alpha_tone)[None],
+            early_ir=self.early_ir[None])
+
+    def get_controls(self, audio):
+        return {'audio': audio, 'ir': self.trained_ir()}
+
+    def get_signal(self, audio, ir):
+        return fdn.fdn_reverb_signal(core.f32(audio), ir)

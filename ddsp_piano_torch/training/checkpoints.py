@@ -156,7 +156,8 @@ def _module_paths(module: tnn.Module) -> Pairs:
 
 def _children(module: tnn.Module) -> List[Tuple[str, str]]:
     """A sub-module's weighted children: (attribute, TF name prefix)."""
-    if isinstance(module, (sm.ContextNetwork, sm.MonophonicNetwork)):
+    if isinstance(module, (sm.ContextNetwork, sm.SimpleContextNet,
+                           sm.MonophonicNetwork)):
         return [('model', 'model'), ('dense_out', 'dense_out')]
     if isinstance(module, sm.MonophonicDeepNetwork):
         # The reference wraps this GRU in nn.Rnn, a container holding the
@@ -176,8 +177,12 @@ def _children(module: tnn.Module) -> List[Tuple[str, str]]:
         attrs = module._EMBEDDINGS
     elif isinstance(module, sm.JointParametricInharmTuning):
         attrs = module.WEIGHT_NAMES
-    elif isinstance(module, sm.Detuner):
+    elif isinstance(module, (sm.Detuner, sm.DictInharmonicityModel)):
         attrs = ('layer',)
+    elif isinstance(module, sm.DeepDetuner):
+        attrs = ('hidden_layers', 'out_layer')
+    elif isinstance(module, sm.SurrogateModule):
+        attrs = ('amp_model',)
     else:
         raise NotImplementedError(
             f"No TF mapping for sub-module {type(module).__name__}")

@@ -1,7 +1,9 @@
 """The port's checkpoints against the JAX package's, on the CPU.
 
 - tf_name_map names the same TF variables, with the same shapes, as the
-  JAX package's map (maestro_v2 104, dafx22 and dafx22_24khz 32 each).
+  JAX package's map, for every registered config (N_VARIABLES). Like the
+  JAX map it covers the model's slots, not the processor group (the
+  ENSTDkCl models' trainable FDN reverb has no TF name).
 - A TF checkpoint written by either package is read by the other bit for
   bit; the JAX params tree of the port's weights (export_jax_params) has
   the structure of PianoModel.init's tree, loads back bit for bit and
@@ -29,7 +31,15 @@ from ddsp_piano_torch.training import checkpoints  # noqa: E402
 
 DEMO_MIDI = os.path.join(os.path.dirname(__file__), '..', 'examples',
                          'demo.mid')
-N_VARIABLES = {'maestro_v2': 104, 'dafx22': 32, 'dafx22_24khz': 32}
+N_VARIABLES = {'maestro_v2': 104, 'dafx22': 32, 'dafx22_24khz': 32,
+               'enstdkcl_8khz': 24, 'enstdkcl_32khz': 27,
+               'multi_instruments': 70, 'surrogate': 45,
+               'maestro_v2_regularized': 104}
+# The configurations the TF round trips run on: the first two ported and
+# each one ported since (the 24 kHz dafx22 and the regularized v2 differ
+# from their base configs in widths or a loss only).
+TF_CONFIGS = ['maestro_v2', 'dafx22', 'enstdkcl_8khz', 'enstdkcl_32khz',
+              'multi_instruments', 'surrogate']
 
 
 def _tf():
@@ -83,11 +93,12 @@ def test_tf_name_map_matches_jax(config):
         assert tuple(params[got[tf_name]].shape) == tuple(node.shape), tf_name
 
 
-@pytest.mark.parametrize('config', ['maestro_v2', 'dafx22'])
+@pytest.mark.parametrize('config', TF_CONFIGS)
 def test_import_of_jax_export_is_bit_exact(tmp_path, config):
     """The JAX package's export_tf_weights of PRNGKey(3) init weights,
-    read by the port: every parameter equals load_jax_params of the same
-    tree, with nothing missing, mismatched or unused."""
+    read by the port: every parameter the TF map names equals
+    load_jax_params of the same tree, with nothing missing, mismatched or
+    unused; the others (the processor group's) keep their values."""
     _tf()
     from ddsp_piano_tpu.training import checkpoints as jax_checkpoints
 
@@ -96,31 +107,42 @@ def test_import_of_jax_export_is_bit_exact(tmp_path, config):
     prefix = jax_checkpoints.export_tf_weights(jmodel, tree,
                                                str(tmp_path / 'ckpt-0'))
     model = _port_model(config, seed=1)
+    before = _params(model)
     report = checkpoints.import_tf_weights(model, prefix)
     assert len(report['matched']) == N_VARIABLES[config]
     assert not (report['missing'] or report['mismatched']
                 or report['unused']), report
-    want = load_jax_params(_port_model(config, seed=2),
-                           jax.tree.map(np.asarray, tree))
-    _assert_params_equal(_params(model), _params(want))
+    want = _params(load_jax_params(_port_model(config, seed=2),
+                                   jax.tree.map(np.asarray, tree)))
+    mapped = set(checkpoints.tf_name_map(model).values())
+    got = _params(model)
+    _assert_params_equal({n: got[n] for n in mapped},
+                         {n: want[n] for n in mapped})
+    _assert_params_equal({n: v for n, v in got.items() if n not in mapped},
+                         {n: v for n, v in before.items()
+                          if n not in mapped})
 
 
-@pytest.mark.parametrize('config', ['maestro_v2', 'dafx22'])
+@pytest.mark.parametrize('config', TF_CONFIGS)
 def test_export_read_by_jax_is_bit_exact(tmp_path, config):
     """The port's export_tf_weights, read by the JAX package's
     import_tf_weights: the JAX tree equals export_jax_params of the port's
-    model."""
+    model, but for the processor group, which no TF name covers and which
+    keeps the JAX init's values."""
     _tf()
     from ddsp_piano_tpu.training import checkpoints as jax_checkpoints
 
     model = _port_model(config, seed=5)
     prefix = checkpoints.export_tf_weights(model, str(tmp_path / 'ckpt-0'))
     jmodel = _jax_model(config)
-    back, report = jax_checkpoints.import_tf_weights(
-        jmodel, jmodel.init(jax.random.PRNGKey(4)), prefix)
+    init = jmodel.init(jax.random.PRNGKey(4))
+    back, report = jax_checkpoints.import_tf_weights(jmodel, init, prefix)
     assert not (report['missing'] or report['mismatched']
                 or report['unused']), report
-    _assert_trees_equal(back, export_jax_params(model))
+    want = export_jax_params(model)
+    want['processor_group'] = jax.tree.map(np.asarray,
+                                           init['processor_group'])
+    _assert_trees_equal(back, want)
 
 
 @pytest.mark.parametrize('config', sorted(N_VARIABLES))

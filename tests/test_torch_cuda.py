@@ -67,6 +67,9 @@ GRU_CASES = [
     (192, 16, 1), (64, 13, 1),
     (20, 5, 60),       # one CTA: 5 float4 chunks of k over 8 lanes
     (196, 16, 60),     # 25 units a CTA, 21 in the last
+    # enstdkcl_8khz's context GRU (u = 32) and its, and the surrogate's,
+    # mono GRU (u = 128), at the render's and the training step's rows.
+    (32, 1, 60), (32, 6, 60), (128, 16, 60), (128, 96, 60),
 ]
 
 
@@ -309,8 +312,11 @@ def _osc_batch(kind, up, sr, K, B, n_frames, device):
 
 
 # (up, sample rate, K): v2 and dafx22_24khz (96), dafx22 (64, 2 x 96
-# harmonics) and a generic up that takes no unrolled instance.
-OSC_RATES = [(96, 24000, 128), (64, 16000, 192), (32, 8000, 40)]
+# harmonics), a generic up that takes no unrolled instance, and the
+# ENSTDkCl models' (32 with 48 partials, 128 with 192), which take K4's
+# generic kernel too.
+OSC_RATES = [(96, 24000, 128), (64, 16000, 192), (32, 8000, 40),
+             (32, 8000, 48), (128, 32000, 192)]
 
 
 @pytest.mark.cuda

@@ -34,8 +34,11 @@ bad = sorted(m for m in sys.modules
                                     'tensorflow'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 36, names
-assert 'ddsp_piano_torch.models.streaming' in names, names
+assert len(names) >= 41, names
+for name in ('models.streaming', 'processors.surrogate',
+             'configs.enstdkcl_8khz', 'configs.enstdkcl_32khz',
+             'configs.multi_instruments', 'configs.surrogate'):
+    assert 'ddsp_piano_torch.' + name in names, names
 """
 
 

@@ -384,6 +384,25 @@ TRAJECTORY_STEPS = 10
 # The start of the control trajectory: every weight times 1 + 2^-22, a
 # rounding-level change.
 TRAJECTORY_NUDGE = 2.0 ** -22
+# The nudged starts of the loss-curve distributions (ROADMAP C.1): weights
+# times 1 + k 2^-22, k = 0..3, for each package.
+TRAJECTORY_STARTS = 4
+# Each step's mean loss over the starts, port against JAX: within this
+# many pooled standard errors (two-sided t with 6 degrees of freedom:
+# 5.96 at 0.999).
+TRAJECTORY_SE_MULTIPLE = 6.0
+_TRAJECTORIES = {}
+_JAX_TRAINERS = {}
+
+
+def _trajectory_inputs():
+    batches = [_v2_batch(seed=step) for step in range(TRAJECTORY_STEPS)]
+    rngs = [jax.random.PRNGKey(100 + step)
+            for step in range(TRAJECTORY_STEPS)]
+    # The noise synth's draw inside the JAX step (models/dag.py:123).
+    draws = [jax.random.uniform(jax.random.fold_in(rng, 1), (8, 12000),
+                                jnp.float32, -1.0, 1.0) for rng in rngs]
+    return batches, rngs, draws
 
 
 def _port_trajectory(params, batches, draws, logmag_weight, nudge=0.0):
@@ -402,6 +421,50 @@ def _port_trajectory(params, batches, draws, logmag_weight, nudge=0.0):
     return np.array(losses), trainer
 
 
+def _jax_trainer(logmag_weight):
+    """The JAX package's Trainer for a loss, built (and its step compiled)
+    once per module."""
+    from ddsp_piano_tpu.configs import get_model as jax_get_model
+    from ddsp_piano_tpu.parallel import mesh as mesh_lib
+    from ddsp_piano_tpu.training.trainer import Trainer as JaxTrainer
+
+    if logmag_weight not in _JAX_TRAINERS:
+        jmodel = jax_get_model('maestro_v2', duration=0.5, n_synths=4,
+                               first_phase=True)
+        jmodel.loss_objs[0].logmag_weight = logmag_weight
+        _JAX_TRAINERS[logmag_weight] = JaxTrainer(
+            jmodel, first_phase=True, mesh=mesh_lib.get_mesh(1))
+    return _JAX_TRAINERS[logmag_weight]
+
+
+def _jax_trajectory(params, batches, rngs, logmag_weight, nudge=0.0):
+    jtrainer = _jax_trainer(logmag_weight)
+    start = jax.tree.map(lambda p: p * jnp.float32(1.0 + nudge), params)
+    state = jtrainer.state_with_params(
+        jtrainer.init_state(jax.random.PRNGKey(0)), start)
+    losses = []
+    for batch, rng in zip(batches, rngs):
+        state, step_losses = jtrainer.train_step(state, batch, rng=rng)
+        losses.append(float(step_losses['total_loss']))
+    return np.array(losses), state
+
+
+def _trajectory(package, loss, k, params):
+    """The 10-step loss curve of ``package`` ('port' or 'jax') from the
+    weights times 1 + k 2^-22, computed once per module (with the port's
+    Trainer or the JAX state after the last step)."""
+    key = (package, loss, k)
+    if key not in _TRAJECTORIES:
+        batches, rngs, draws = _trajectory_inputs()
+        logmag_weight = 1.0 if loss == 'v2' else 0.0
+        nudge = k * TRAJECTORY_NUDGE
+        _TRAJECTORIES[key] = (
+            _port_trajectory(params, batches, draws, logmag_weight, nudge)
+            if package == 'port' else
+            _jax_trajectory(params, batches, rngs, logmag_weight, nudge))
+    return _TRAJECTORIES[key]
+
+
 @pytest.mark.parametrize('loss', ['v2', 'magnitudes'])
 def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
     """The port's Trainer against the JAX package's for 10 steps of the
@@ -417,37 +480,15 @@ def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
     steps, and the port's v2 losses part from JAX's by 1.7e-3 at step 1
     and up to 5.1 % (magnitudes alone: 1.4 % and 1.2e-3). So each step's
     loss is held at rtol 1e-3 only at the first step, where the
-    parameters are the same (ROADMAP C.1), and the whole trajectory
-    against that control: the port's largest gap to JAX within four times
-    the control's largest gap. The final parameters' largest gap, a share
-    of each leaf's peak, is printed."""
-    from ddsp_piano_tpu.configs import get_model as jax_get_model
-    from ddsp_piano_tpu.parallel import mesh as mesh_lib
-    from ddsp_piano_tpu.training.trainer import Trainer as JaxTrainer
-
+    parameters are the same, and the whole trajectory against that
+    control: the port's largest gap to JAX within four times the
+    control's largest gap. The curves' distributions are held by
+    test_loss_curve_distributions_match_jax_trainer. The final
+    parameters' largest gap, a share of each leaf's peak, is printed."""
     _, params, mask = jax_v2
-    logmag_weight = 1.0 if loss == 'v2' else 0.0
-    jmodel = jax_get_model('maestro_v2', duration=0.5, n_synths=4,
-                           first_phase=True)
-    jmodel.loss_objs[0].logmag_weight = logmag_weight
-    jtrainer = JaxTrainer(jmodel, first_phase=True,
-                          mesh=mesh_lib.get_mesh(1))
-    state = jtrainer.state_with_params(
-        jtrainer.init_state(jax.random.PRNGKey(0)), params)
-    batches = [_v2_batch(seed=step) for step in range(TRAJECTORY_STEPS)]
-    rngs = [jax.random.PRNGKey(100 + step)
-            for step in range(TRAJECTORY_STEPS)]
-    # The noise synth's draw inside the JAX step (models/dag.py:123).
-    draws = [jax.random.uniform(jax.random.fold_in(rng, 1), (8, 12000),
-                                jnp.float32, -1.0, 1.0) for rng in rngs]
-    want = []
-    for batch, rng in zip(batches, rngs):
-        state, losses = jtrainer.train_step(state, batch, rng=rng)
-        want.append(float(losses['total_loss']))
-    want = np.array(want)
-    got, trainer = _port_trajectory(params, batches, draws, logmag_weight)
-    control, _ = _port_trajectory(params, batches, draws, logmag_weight,
-                                  nudge=TRAJECTORY_NUDGE)
+    want, state = _trajectory('jax', loss, 0, params)
+    got, trainer = _trajectory('port', loss, 0, params)
+    control, _ = _trajectory('port', loss, 1, params)
     final = dict(flatten_tree(jax.tree.map(np.asarray, state.params)))
     gaps = {name: float(np.abs(p.detach().numpy() - final[name]).max()
                         / max(np.abs(final[name]).max(), 1e-30))
@@ -467,6 +508,38 @@ def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
     assert np.isfinite(want).all() and np.isfinite(got).all()
     np.testing.assert_allclose(got[0], want[0], rtol=1e-3)
     assert gap.max() <= 4.0 * control_gap.max(), (gap, control_gap)
+
+
+@pytest.mark.parametrize('loss', ['v2', 'magnitudes'])
+def test_loss_curve_distributions_match_jax_trainer(jax_v2, loss):
+    """ROADMAP C.1: the distributions of the 10-step loss curves, from
+    TRAJECTORY_STARTS nudged starts of each package (weights x (1 + k
+    2^-22), k = 0..3), on the batches and draws of
+    test_ten_step_trajectory_matches_jax_trainer, whose trajectories it
+    shares. No per-step bound holds between two single trajectories of
+    this chaotic start (JAX's own nudged curves part by up to 1.2 %); the
+    means of the two packages' curves must agree at every step within
+    TRAJECTORY_SE_MULTIPLE pooled standard errors. Measured: at most 3.15
+    (v2 loss, step 4) and 1.26 (magnitudes, step 3). Each step's means,
+    spreads and bound are printed."""
+    _, params, _ = jax_v2
+    curves = {package: np.stack([_trajectory(package, loss, k, params)[0]
+                                 for k in range(TRAJECTORY_STARTS)])
+              for package in ('port', 'jax')}
+    n = TRAJECTORY_STARTS
+    mean = {p: c.mean(axis=0) for p, c in curves.items()}
+    sd = {p: c.std(axis=0, ddof=1) for p, c in curves.items()}
+    se = np.sqrt((sd['port'] ** 2 + sd['jax'] ** 2) / n)
+    bound = TRAJECTORY_SE_MULTIPLE * se
+    diff = np.abs(mean['port'] - mean['jax'])
+    print(f"\n{loss} loss, {n} starts a package, per step: " + '; '.join(
+        f"{s}: port {mp:.5f} (sd {sp:.2e}) jax {mj:.5f} (sd {sj:.2e}) "
+        f"|diff| {d:.2e} = {d / max(e, 1e-30):.2f} se, bound {b:.2e}"
+        for s, (mp, sp, mj, sj, d, e, b) in enumerate(zip(
+            mean['port'], sd['port'], mean['jax'], sd['jax'], diff, se,
+            bound))))
+    assert all(np.isfinite(c).all() for c in curves.values())
+    assert (diff <= bound).all(), (diff, bound)
 
 
 @pytest.mark.parametrize('config,trainable', [('maestro_v2', 0),

@@ -141,13 +141,32 @@ non-zero exit code and no result line:
    the regularisers) on the card against the CPU's on the same batch and
    noise draw, each leaf within 1e-3 of its peak (a scalar leaf 1e-2),
    cosine 0.99999.
-18. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+18. The user's training path from a preprocessing cache, at v2's full
+   width on ``cuda``, over phase 9's mini-MAESTRO: ``python -m
+   ddsp_piano_torch.preprocess_maestro`` writes the cache (every cached
+   array held bit-equal to the port's load_track of its row; its bytes
+   and seconds printed); ``train_single_phase.main -b 6 -s 8 -e 1 -k 4
+   --profile 4`` trains on it (packed staging), counters set to 0 just
+   before and read just after: K1, K2 and K4-K7 must launch, K3 in the
+   validation batch, and each launch is held against its plain version at
+   its inputs; the Chrome trace must hold device events of the
+   hand-written kernels (its top device operations printed); the step's
+   CUDA-event median and wall time a step. Then the CLI step (-k 1) on
+   the cache against the raw mini-MAESTRO, -k 4 against -k 1, and
+   ``--staging`` packed, packed32 and dict with each one's wire bytes a
+   step (recorded, not claimed); the three-phase recipe
+   ``train_ddsp_piano.main -s 4 -e 1`` (each phase's last_iter written,
+   phase 2 holding phase 1's weights); ``--debug_nans`` for 2 steps
+   against 2 steps without it (losses within rtol 1e-4, bit-equality
+   reported); ``python -m ddsp_piano_torch.configs.gin_test maestro_v2``
+   on the card. The phase's seconds are printed.
+19. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-19. One JSON line of kernel numbers (K1's row at the training step's
-   inputs, its launches those of the v2 render and the CLI run), then the
-   result line.
+20. One JSON line of kernel numbers (K1's row at the training step's
+   inputs, its launches those of the v2 render, the CLI run and phase
+   18's run; K2-K7's also phase 18's), then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO, the training
 run's checkpoints and the evaluation CSVs go to build/ in the checkout.
@@ -1741,7 +1760,7 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 18 -----------------------------------------------------------------
+# -- phase 19 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight,
@@ -2217,6 +2236,38 @@ def memory_peak_mib(before):
     return peak / 2 ** 20, (peak - before) / 2 ** 20
 
 
+def launch_bound(kernel, args):
+    """(ms, what bounds it) of one K1, K8 or K2 launch at its inputs, as
+    the kernel lines reckon it; None for another kernel."""
+    if kernel in ('oscillator_skip', 'oscillator_full'):
+        controls, up, sr = args[:3]
+        if kernel == 'oscillator_skip':
+            return osc_bound(OSC_FLOPS_PER_TERM * live_cells(controls, sr)
+                             * up, controls, up)
+        k = controls.f_lo.shape[-1]
+        return osc_bound(sum(OSC_FULL_FLOPS_PER_TERM[w] * n * up * k
+                             for w, n in osc_full_walks(controls, up,
+                                                        sr).items()),
+                         controls, up)
+    if kernel == 'gru_scan':
+        t, b, three_u = args[0].shape
+        return gru_bound(t, b, three_u // 3)
+    return None
+
+
+def bounds_line(capture):
+    """Each K1, K8 and K2 shape of a capture with its bound."""
+    seen = {}
+    for kernel, calls in sorted(capture.items()):
+        for args in calls:
+            shape = tuple(args[0][0].shape if kernel.startswith(
+                'oscillator') else args[0].shape)
+            if (kernel, shape) not in seen:
+                seen[kernel, shape] = launch_bound(kernel, to_card(args))
+    return '; '.join(f"{k} {shape} {b[0]:.5f} ms ({b[1]})"
+                     for (k, shape), b in seen.items() if b is not None)
+
+
 def config_render(config, oscillator):
     """``synthesize_midi_file -c config`` on 10 s of demo.mid on the card,
     after a warm-up render that records the front doors' inputs; counters
@@ -2256,7 +2307,8 @@ def config_render(config, oscillator):
     return dict(launches={k: n for k, n in launches.items() if n},
                 forward=forward, forwards=forwards,
                 rtf=MAIN_PATH_SECONDS / forward, peak_mib=peak_mib, sr=sr,
-                kernel_ms=path_kernels(shapes, what))
+                kernel_ms=path_kernels(shapes, what),
+                bounds=bounds_line(shapes))
 
 
 def config_renders():
@@ -2272,8 +2324,8 @@ def config_renders():
               f"{r['peak_mib'][1]:.1f} above what was allocated before the "
               f"render; launches "
               f"{r['launches']}; kernels at its own inputs, each against "
-              f"its plain version: " + grouped_kernels_line(r['kernel_ms']),
-              flush=True)
+              f"its plain version: " + grouped_kernels_line(r['kernel_ms'])
+              + f"; bounds {r['bounds']}", flush=True)
         if oscillator == 'skip':
             compare_segment(config, render_segment('cpu', config=config))
 
@@ -2307,20 +2359,23 @@ def teacher_batch(config):
     return batch
 
 
-def step_path_kernels(capture, what):
+def step_path_kernels(capture, what, timed=True):
     """[(kernel, input shape, ms, err, note)] for each kernel launch of a
     training step, at its inputs: held against its plain version on the
     card (K1 within OSC_TOL of peak; K2 GRU_TOL absolute; K4 each control
     gradient within OSC_BWD_TOL of its peak; K5 each stream within
-    GRU_BWD_TOL of its peak; K6, K7 bit-exact), then its CUDA-event time.
-    The note gives K4's bound (its sounding and silent cells) and K2's and
-    K5's plan, time a step and bound."""
+    GRU_BWD_TOL of its peak; K3, K6, K7 bit-exact), then, if ``timed``,
+    its CUDA-event time (else ms is None). The note gives K4's bound (its
+    sounding and silent cells) and K2's and K5's plan, time a step and
+    bound."""
     from ddsp_piano_torch.kernels import gru, note_release, oscillator
 
     pairs = {
         'oscillator_skip': (oscillator.render_framewise_skip_cuda,
                             oscillator.render_framewise_plain),
         'gru_scan': (gru.gru_scan_cuda, gru.gru_scan_plain),
+        'note_release': (note_release.note_release_scan_cuda,
+                         note_release.note_release_scan_plain),
         'note_release_res': (note_release.note_release_scan_res_cuda,
                              note_release.note_release_scan_plain_res),
         'oscillator_skip_bwd': (oscillator.render_framewise_skip_bwd_cuda,
@@ -2358,9 +2413,15 @@ def step_path_kernels(capture, what):
             if not ok:
                 fail(f"{what}: {kernel} at its inputs {shape} differs from "
                      f"its plain version by {err}")
+            if not timed:
+                rows.append((kernel, shape, None, err, ''))
+                continue
             ms = median_ms(lambda: cuda(*args), n=10)
             note = ''
-            if kernel == 'oscillator_skip_bwd':
+            if kernel == 'oscillator_skip':
+                bound_ms, by = launch_bound(kernel, args)
+                note = f" bound {bound_ms:.5f} ms ({by})"
+            elif kernel == 'oscillator_skip_bwd':
                 controls, _, up, sr = args
                 bound_ms, by, sounding, silent = osc_bwd_bound(controls, up,
                                                                sr)
@@ -2479,6 +2540,284 @@ def config_steps():
 
 
 # -- main ---------------------------------------------------------------------
+
+# -- phase 18 -----------------------------------------------------------------
+
+
+CACHE_DIR = os.path.join(OUT_DIR, 'maestro_cache')
+CACHE_STEPS = 8                # -s of the phase's CLI runs
+CACHE_K = 4                    # -k of its main run
+CACHE_PROFILE = 4              # --profile of its main run
+RECIPE_STEPS = 4
+DEBUG_NANS_STEPS = 2
+DEBUG_NANS_RTOL = 1e-4         # a loss, as phase 17 holds a step's loss
+# K3 launches in the CLI run's validation batch.
+CACHE_DOORS = TRAIN_DOORS + (
+    ('ddsp_piano_torch.kernels.note_release', 'note_release_scan_cuda',
+     'note_release'),)
+CACHE_KERNELS = TRAIN_KERNELS + ('note_release',)
+
+
+def preprocess_cache():
+    """``python -m ddsp_piano_torch.preprocess_maestro`` of the
+    mini-MAESTRO (a child process, as a user runs it), every cached array
+    against the port's load_track of its row: (bytes, seconds, tracks)."""
+    from ddsp_piano_torch.data import pipeline
+
+    if os.path.isdir(CACHE_DIR):
+        shutil.rmtree(CACHE_DIR)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'ddsp_piano_torch.preprocess_maestro',
+         MAESTRO_DIR, CACHE_DIR], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - start
+    if proc.returncode:
+        fail(f"preprocess_maestro failed: {proc.stderr[-2000:]}")
+    n_tracks = 0
+    for split in ('validation', 'train'):
+        with open(os.path.join(CACHE_DIR, f'index_{split}.json')) as f:
+            index = json.load(f)
+        rows, _, models = pipeline.dataset_from_csv(
+            os.path.join(MAESTRO_DIR, 'maestro-v3.0.0.csv'), split=split)
+        if len(rows) != len(index['tracks']):
+            fail(f"cache {split}: {len(index['tracks'])} tracks for "
+                 f"{len(rows)} rows")
+        for row, name in zip(rows, index['tracks']):
+            cached = dict(np.load(os.path.join(CACHE_DIR, name)))
+            want = pipeline.load_track(row, MAESTRO_DIR, models, 24000, 250,
+                                       16)
+            if sorted(cached) != sorted(want) or not all(
+                    np.array_equal(cached[k], np.asarray(want[k]))
+                    and cached[k].dtype == np.asarray(want[k]).dtype
+                    for k in want):
+                fail(f"cache {split}/{name} differs from load_track")
+            n_tracks += 1
+    size = sum(os.path.getsize(os.path.join(CACHE_DIR, n))
+               for n in os.listdir(CACHE_DIR))
+    return size, seconds, n_tracks
+
+
+def cli_run(data, name, flags, capture=None, steps=CACHE_STEPS):
+    """``train_single_phase.main -b TRAIN_BATCH -s steps -e 1`` with
+    ``flags`` on ``data`` (student seed STUDENT_SEED), counters set to 0
+    just before and read just after; its CUDA-event step median and wall
+    time a step (the span of the epoch's steps on the card over their
+    count), both over the epoch's steps."""
+    from ddsp_piano_torch import train_single_phase as cli
+    from ddsp_piano_torch.kernels import build
+
+    exp = os.path.join(OUT_DIR, 'cache_exp', name)
+    if os.path.isdir(exp):
+        shutil.rmtree(exp)
+    args = cli.process_args(['-b', str(TRAIN_BATCH), '-s', str(steps),
+                             '-e', '1', '--seed', str(STUDENT_SEED),
+                             '--device', DEV.type] + flags + [data, exp])
+    sync()
+    build.reset_launches()
+    start = time.perf_counter()
+    with capturing(capture, CACHE_DOORS):
+        result = cli.main(args, record_timeline=True)
+    sync()
+    wall = time.perf_counter() - start
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    losses = result['step_losses']
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"{name}: training losses {losses}")
+    if result.get('nan'):
+        fail(f"{name}: {result['nan']}")
+    events = result['trainer'].timeline[-steps:]
+    events[-1][3].synchronize()
+    step_ms = statistics.median(e[0].elapsed_time(e[3]) for e in events[1:])
+    span_ms = events[0][0].elapsed_time(events[-1][3]) / steps
+    return dict(result=result, launches=launches, wall=wall,
+                step_ms=step_ms, wall_step_ms=span_ms, exp=exp)
+
+
+def trace_kernels(path, top=8):
+    """From a Chrome trace: the hand-written kernels' device events by
+    counter name, and the ``top`` device operations by summed time."""
+    with open(path) as f:
+        events = [e for e in json.load(f).get('traceEvents', [])
+                  if e.get('cat') == 'kernel']
+    found = {k: sum(1 for e in events if piece in e.get('name', ''))
+             for k, piece in KERNEL_SYMBOLS.items()}
+    by_name = {}
+    for e in events:
+        by_name[e['name']] = by_name.get(e['name'], 0.0) + e.get('dur', 0.0)
+    return found, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def staging_bits(batch):
+    """A host batch through each --staging on the card: the packed lanes'
+    decode (packed and packed32) against the dict staging, bit for bit."""
+    from ddsp_piano_torch.training.staging import BatchPacker
+    from ddsp_piano_torch.training.trainer import BatchStager
+
+    want = BatchStager(DEV)(batch)
+    for wire in (True, False):
+        packer = BatchPacker(batch, wire=wire)
+        lanes = torch.from_numpy(packer.pack(batch).view(np.int16)).to(DEV)
+        got = packer.unpack(lanes)
+        sync()
+        bad = [k for k in want if not (got[k].dtype == want[k].dtype
+                                       and torch.equal(got[k], want[k]))]
+        if bad or sorted(got) != sorted(want):
+            fail(f"--staging {'packed' if wire else 'packed32'}: the card's "
+                 f"decode differs from the dict batch at {bad}")
+    return BatchPacker(batch).encodings()
+
+
+def wire_bytes(batch):
+    """Bytes a step puts on the host-to-device link for each --staging."""
+    from ddsp_piano_torch.training.staging import BatchPacker
+
+    return {'packed': BatchPacker(batch).wire_bytes(TRAIN_BATCH),
+            'packed32': BatchPacker(batch, wire=False).wire_bytes(
+                TRAIN_BATCH),
+            'dict': sum(np.asarray(v).nbytes for k, v in batch.items()
+                        if k != 'filename')}
+
+
+def recipe_run():
+    """``train_ddsp_piano.main -s RECIPE_STEPS -e 1`` on the cache: each
+    phase's last_iter checkpoint, phase 2 holding phase 1's weights."""
+    from ddsp_piano_torch import train_ddsp_piano as recipe
+
+    exp = os.path.join(OUT_DIR, 'cache_exp', 'recipe')
+    if os.path.isdir(exp):
+        shutil.rmtree(exp)
+    start = time.perf_counter()
+    results = recipe.main(recipe.process_args(
+        ['-s', str(RECIPE_STEPS), '-e', '1', '--seed', str(STUDENT_SEED),
+         '--device', DEV.type, CACHE_DIR, exp]))
+    sync()
+    seconds = time.perf_counter() - start
+    saved = []
+    for phase in (1, 2, 3):
+        path = os.path.join(exp, f'phase_{phase}', 'last_iter', 'ckpt.pt')
+        if not os.path.isfile(path):
+            fail(f"the recipe wrote no {path}")
+        saved.append(torch.load(path, map_location='cpu',
+                                weights_only=True))
+    if [s['step'] for s in saved] != [RECIPE_STEPS * p for p in (1, 2, 3)]:
+        fail("the recipe's phases ended at steps "
+             f"{[s['step'] for s in saved]}")
+    if not all(torch.equal(saved[1]['model'][k], v)
+               for k, v in saved[0]['model'].items()):
+        fail("the recipe's phase 2 does not hold phase 1's weights")
+    losses = [r['step_losses'] for r in results]
+    if not all(len(v) == RECIPE_STEPS and np.isfinite(v).all()
+               for v in losses):
+        fail(f"the recipe's losses {losses}")
+    return seconds, [v[-1] for v in losses]
+
+
+def cache_path():
+    """Phase 18: the training path as a user runs it, from the cache."""
+    phase_start = time.perf_counter()
+    size, prep_seconds, n_tracks = preprocess_cache()
+    batch = first_batch(TRAIN_BATCH)
+    capture = {}
+    main = cli_run(CACHE_DIR, 'k4_profile', [
+        '-k', str(CACHE_K), '--profile', str(CACHE_PROFILE)], capture)
+    launches = main['launches']
+    missing = [k for k in CACHE_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"the cache path launched no {missing} kernel: {launches}")
+    rows = step_path_kernels(capture, 'the cache path', timed=False)
+    del capture
+    trace = main['result'].get('profile')
+    if not trace or not os.path.isfile(trace):
+        fail(f"--profile wrote no trace ({trace})")
+    found, top = trace_kernels(trace)
+    if not any(found.values()):
+        fail(f"the trace {trace} holds no device event of a hand-written "
+             "kernel")
+    runs = {}
+    for name, data, flags in (
+            ('cache', CACHE_DIR, []), ('raw', MAESTRO_DIR, []),
+            ('cache_k4', CACHE_DIR, ['-k', str(CACHE_K)]),
+            ('packed32', CACHE_DIR, ['--staging', 'packed32']),
+            ('dict', CACHE_DIR, ['--staging', 'dict'])):
+        r = cli_run(data, name, flags)
+        runs[name] = dict(step_ms=r['step_ms'], wall_step_ms=r['wall_step_ms'])
+    recipe_seconds, recipe_losses = recipe_run()
+    plain = cli_run(CACHE_DIR, 'nans_off', [], steps=DEBUG_NANS_STEPS)
+    traced = cli_run(CACHE_DIR, 'nans_on', ['--debug_nans'],
+                     steps=DEBUG_NANS_STEPS)
+    want = plain['result']['step_losses']
+    got = traced['result']['step_losses']
+    if not np.allclose(got, want, rtol=DEBUG_NANS_RTOL, atol=0):
+        fail(f"--debug_nans losses {got} against {want}")
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, '-m', 'ddsp_piano_torch.configs.gin_test',
+         'maestro_v2'], cwd=ROOT, capture_output=True, text=True,
+        timeout=600)
+    gin_seconds = time.perf_counter() - start
+    if proc.returncode or 'train step ok on cuda' not in proc.stdout:
+        fail(f"gin_test maestro_v2 failed: {proc.stdout[-1000:]} "
+             f"{proc.stderr[-2000:]}")
+    return dict(size=size, prep_seconds=prep_seconds, n_tracks=n_tracks,
+                launches=launches, rows=rows, trace=trace, found=found,
+                top=top, step_ms=main['step_ms'],
+                wall_step_ms=main['wall_step_ms'], runs=runs,
+                wire=wire_bytes(batch), encodings=staging_bits(batch),
+                recipe_seconds=recipe_seconds, recipe_losses=recipe_losses,
+                nans=(got, want, got == want), gin_seconds=gin_seconds,
+                gin_last=proc.stdout.strip().splitlines()[-1],
+                seconds=time.perf_counter() - phase_start)
+
+
+def checked_line(rows):
+    """The launches of one kernel at one shape merged: their count and
+    largest error against the plain version."""
+    groups = {}
+    for k, shape, _, err, _ in rows:
+        groups.setdefault((k, shape), []).append(err)
+    return '; '.join(f"{k} {shape} x{len(v)} (err at most {max(v):.3g})"
+                     for (k, shape), v in groups.items())
+
+
+def cache_path_lines(c):
+    runs = c['runs']
+    ratio = lambda a, b: runs[a]['step_ms'] / runs[b]['step_ms']
+    return [
+        f"cache path: preprocess_maestro of the mini-MAESTRO, {c['n_tracks']} "
+        f"tracks, {c['size']} bytes in {c['prep_seconds']:.2f} s, each "
+        f"cached array bit-equal to load_track",
+        f"cache path: train_single_phase -b {TRAIN_BATCH} -s {CACHE_STEPS} "
+        f"-e 1 -k {CACHE_K} --profile {CACHE_PROFILE} on the cache: launches "
+        f"{c['launches']}; every launch against its plain version: "
+        + checked_line(c['rows'])
+        + f"; step median {c['step_ms']:.2f} ms (CUDA events), wall "
+        f"{c['wall_step_ms']:.2f} ms a step",
+        f"cache path trace {os.path.relpath(c['trace'], ROOT)}: hand-written "
+        f"kernels' device events {c['found']}; top device operations (ms "
+        f"over {CACHE_PROFILE} steps): " + '; '.join(
+            f"{name[:60]} {us / 1e3:.3f}" for name, us in c['top']),
+        f"cache path CLI step (-b {TRAIN_BATCH} -s {CACHE_STEPS}, median of "
+        "steps 2 on, CUDA events / wall a step): " + '; '.join(
+            f"{k} {v['step_ms']:.2f} / {v['wall_step_ms']:.2f} ms"
+            for k, v in runs.items())
+        + f"; cache against raw {ratio('cache', 'raw'):.3f}, -k {CACHE_K} "
+        f"against -k 1 {ratio('cache_k4', 'cache'):.3f}, packed32 against "
+        f"packed {ratio('packed32', 'cache'):.3f}, dict against packed "
+        f"{ratio('dict', 'cache'):.3f}; wire bytes a step "
+        f"{c['wire']}; packed encodings {c['encodings']}, the card's decode "
+        f"of packed and packed32 bit-equal to the dict batch",
+        f"cache path recipe: train_ddsp_piano -s {RECIPE_STEPS} -e 1, "
+        f"phases 1-3 in {c['recipe_seconds']:.1f} s, last losses "
+        + ', '.join(f"{v:.4f}" for v in c['recipe_losses'])
+        + "; phase 2 holds phase 1's weights",
+        f"cache path --debug_nans: {DEBUG_NANS_STEPS} steps' losses "
+        f"{[round(v, 6) for v in c['nans'][0]]} against "
+        f"{[round(v, 6) for v in c['nans'][1]]} without it (rtol "
+        f"{DEBUG_NANS_RTOL:g}); bit-equal: {c['nans'][2]}",
+        f"cache path gin_test maestro_v2 on cuda: {c['gin_last']} "
+        f"({c['gin_seconds']:.1f} s); phase {c['seconds']:.1f} s",
+    ]
 
 
 def main():
@@ -2682,6 +3021,10 @@ def main():
     config_renders()
     config_steps()
 
+    cache = cache_path()
+    for line in cache_path_lines(cache):
+        print(line, flush=True)
+
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:
         fail("the profiler recorded no device time over the training steps")
@@ -2728,6 +3071,8 @@ def main():
         else:
             launches = (m['launches'] if row['name'] in RENDER_KERNELS
                         else t['launches'])[row['name']]
+        if row['name'] in CACHE_KERNELS:
+            launches += cache['launches'][row['name']]
         row.update(route=route, source=source, replaces=replaces,
                    launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

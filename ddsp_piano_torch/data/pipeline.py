@@ -1,11 +1,15 @@
-"""Data pipeline: segmentation, batching and the MAESTRO dataset iterators.
+"""Data pipeline: dummy batches, segmentation, batching, the MAESTRO
+dataset iterators and the per-track preprocessing cache.
 
-Copy of ddsp_piano_tpu/data/pipeline.py (split_sequence, segment_track, _stack_group, dataset_from_csv, load_track, _iter_tracks
-with its cache and raw branches, get_dataset, batch_segments_stream,
-get_training_dataset, get_validation_dataset, get_test_dataset,
-Prefetcher). One change:
-dataset_from_csv reads maestro-v3.0.0.csv with the stdlib csv module
-instead of pandas, with the same rows, filters and sorted piano models.
+Copy of ddsp_piano_tpu/data/pipeline.py: get_dummy_data, split_sequence,
+segment_track, _stack_group, batch_segments, dataset_from_csv, load_track,
+preprocess_into_cache, _iter_tracks with its cache and raw branches,
+get_dataset, batch_segments_stream, get_training_dataset,
+get_validation_dataset, get_test_dataset, single_track_dataset and
+Prefetcher. One change: dataset_from_csv reads maestro-v3.0.0.csv with the
+stdlib csv module instead of pandas, with the same rows, filters and sorted
+piano models, so preprocess_into_cache writes the same cache as the JAX
+package's writer.
 """
 
 from __future__ import annotations
@@ -23,6 +27,31 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 log = logging.getLogger(__name__)
+
+
+def get_dummy_data(batch_size: int = 6,
+                   duration: float = 3.0,
+                   sample_rate: int = 16000,
+                   frame_rate: int = 250,
+                   n_synths: int = 16,
+                   n_instruments: int = 10,
+                   seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random features with the canonical shapes, drawn from
+    ``np.random.RandomState(seed)``: conditioning (b, t, n_synths, 2),
+    pedal (b, t, 4), audio (b, n_samples), piano_model (b, 1) int32."""
+    rng = np.random.RandomState(seed)
+    n_frames = int(duration * frame_rate)
+    n_samples = int(duration * sample_rate)
+    return {
+        'conditioning': rng.uniform(
+            0.0, 1.0, (batch_size, n_frames, n_synths, 2)).astype(np.float32),
+        'pedal': rng.uniform(
+            0.0, 1.0, (batch_size, n_frames, 4)).astype(np.float32),
+        'audio': rng.uniform(
+            0.0, 1.0, (batch_size, n_samples)).astype(np.float32),
+        'piano_model': rng.randint(
+            0, n_instruments, (batch_size, 1)).astype(np.int32),
+    }
 
 
 def split_sequence(x: np.ndarray, segment_duration: float, rate: float,
@@ -95,6 +124,20 @@ def _stack_group(group: Sequence[Dict[str, np.ndarray]]
     return batch
 
 
+def batch_segments(segments: Sequence[Dict[str, np.ndarray]],
+                   batch_size: int,
+                   drop_remainder: bool = True
+                   ) -> Iterator[Dict[str, np.ndarray]]:
+    """Stack a list of segment dicts into batches."""
+    n_full = len(segments) // batch_size
+    end = n_full * batch_size if drop_remainder else len(segments)
+    for start in range(0, end, batch_size):
+        group = segments[start:start + batch_size]
+        if len(group) < batch_size and drop_remainder:
+            return
+        yield _stack_group(group)
+
+
 def batch_segments_stream(segments: Iterator[Dict[str, np.ndarray]],
                           batch_size: int
                           ) -> Iterator[Dict[str, np.ndarray]]:
@@ -145,6 +188,47 @@ def load_track(row: Dict, dataset_dir: str, piano_models: np.ndarray,
             'filename': row['audio_filename']}
 
 
+def preprocess_into_cache(cache_dir: str, dataset_dir: str,
+                          split: str = 'train', year: Optional[int] = None,
+                          sample_rate: int = 16000, frame_rate: int = 250,
+                          max_polyphony: int = 16, num_workers: int = 8,
+                          verbose: bool = True) -> Dict:
+    """Preprocess a MAESTRO split into a cache directory: one compressed
+    ``track_<split>_<i:05d>.npz`` of load_track's dict per row, written by
+    a thread pool in row order, and ``index_<split>.json`` with the split,
+    the three rates, the sorted piano models, the track files and each
+    track's year. Returns the index."""
+    os.makedirs(cache_dir, exist_ok=True)
+    rows, n, piano_models = dataset_from_csv(
+        os.path.join(dataset_dir, 'maestro-v3.0.0.csv'), split=split,
+        year=year)
+    index = []
+
+    def process(i_row):
+        i, row = i_row
+        track = load_track(row, dataset_dir, piano_models, sample_rate,
+                           frame_rate, max_polyphony)
+        name = f'track_{split}_{i:05d}.npz'
+        np.savez_compressed(os.path.join(cache_dir, name), **track)
+        return name
+
+    with ThreadPoolExecutor(num_workers) as pool:
+        for j, name in enumerate(pool.map(process, enumerate(rows))):
+            index.append(name)
+            if verbose and (j + 1) % 10 == 0:
+                print(f'  preprocessed {j + 1}/{n} tracks')
+    meta = {'split': split, 'sample_rate': sample_rate,
+            'frame_rate': frame_rate, 'max_polyphony': max_polyphony,
+            'piano_models': [int(y) for y in piano_models],
+            'tracks': index,
+            # Each track's year, so that a year-filtered reader of an
+            # unfiltered cache can take its subset.
+            'track_years': [int(row['year']) for row in rows]}
+    with open(os.path.join(cache_dir, f'index_{split}.json'), 'w') as f:
+        json.dump(meta, f)
+    return meta
+
+
 def _iter_tracks(filename: str, split: str, year, sample_rate, frame_rate,
                  max_polyphony, shuffle: bool, infinite: bool,
                  num_workers: int, seed: int = 0):
@@ -166,14 +250,16 @@ def _iter_tracks(filename: str, split: str, year, sample_rate, frame_rate,
                 f"Preprocessed cache {cache_index!r} was built with "
                 f"{ {k: v[0] for k, v in mismatched.items()} } but the "
                 f"trainer requested { {k: v[1] for k, v in mismatched.items()} }"
-                f". Re-run preprocess_maestro.py with matching settings.")
+                f". Re-run python -m ddsp_piano_torch.preprocess_maestro "
+                f"with matching settings.")
         items = list(meta['tracks'])
         if year is not None:
             years = meta.get('track_years')
             if years is None:
                 raise ValueError(
                     f"year={year} requested but {cache_index!r} predates "
-                    f"per-track year metadata; re-run preprocess_maestro.py "
+                    f"per-track year metadata; re-run "
+                    f"python -m ddsp_piano_torch.preprocess_maestro "
                     f"(or drop the year filter).")
             items = [t for t, y in zip(items, years) if y == year]
         load = lambda name: dict(
@@ -286,6 +372,49 @@ def get_test_dataset(filename, duration=10.0, overlap=0.0, **kwargs):
                        overlap=overlap, filter_over_polyphony=False,
                        infinite_generator=False, shuffle=False,
                        num_parallel_calls=1, **kwargs)
+
+
+def single_track_dataset(midi_filename: str,
+                         audio_filename: str,
+                         batch_size: int = 1,
+                         duration: float = 3.0,
+                         sample_rate: int = 16000,
+                         frame_rate: int = 250,
+                         max_polyphony: int = 16,
+                         infinite_generator: bool = False):
+    """Batches of one recording's segments (piano model 0): a track no
+    longer than ``duration`` is zero-padded to one segment, split without
+    overlap; a longer one is split with overlap 0.5."""
+    from ddsp_piano_torch.data import io as data_io
+    audio, conditioning, pedal, polyphony = data_io.load_data(
+        audio_filename, midi_filename, max_polyphony=max_polyphony,
+        sample_rate=sample_rate, frame_rate=frame_rate)
+    track = {'audio': audio, 'conditioning': conditioning, 'pedal': pedal,
+             'polyphony': polyphony.astype(np.int32),
+             'piano_model': np.zeros(1, np.int32),
+             'filename': os.path.basename(audio_filename)}
+    if len(conditioning) / float(frame_rate) <= duration:
+        n_frames = int(duration * frame_rate)
+        track = dict(track,
+                     audio=data_io.ensure_sequence_length(
+                         audio, int(duration * sample_rate)),
+                     conditioning=data_io.ensure_sequence_length(
+                         conditioning, n_frames),
+                     pedal=data_io.ensure_sequence_length(pedal, n_frames),
+                     polyphony=data_io.ensure_sequence_length(
+                         polyphony.astype(np.int32), n_frames))
+        segments = segment_track(track, duration, sample_rate, frame_rate,
+                                 overlap=0.0, max_polyphony=max_polyphony)
+    else:
+        segments = segment_track(track, duration, sample_rate, frame_rate,
+                                 overlap=0.5, max_polyphony=max_polyphony)
+
+    def generate():
+        while True:
+            yield from batch_segments(segments, batch_size)
+            if not infinite_generator:
+                return
+    return generate()
 
 
 class Prefetcher:

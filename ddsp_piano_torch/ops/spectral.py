@@ -69,7 +69,8 @@ def mean_difference(target: torch.Tensor, value: torch.Tensor,
                                   "to ddsp_piano_torch yet; it has 'L1'")
     difference = target - value
     weights = 1.0 if weights is None else weights
-    distance = torch.abs(difference * weights)
+    # JAX's abs: gradient +1 at a tie (torch.abs gives 0).
+    distance = core.abs_(difference * weights)
     if per_element:
         return torch.mean(distance, dim=tuple(range(1, distance.dim())))
     return torch.mean(distance)

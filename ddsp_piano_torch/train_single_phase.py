@@ -1,9 +1,10 @@
 """Train the PyTorch DDSP-Piano model for one training phase.
 
     python -m ddsp_piano_torch.train_single_phase [-b 6] [-s STEPS]
-        [-e EPOCHS] [--lr LR] [-c maestro_v2] [-p PHASE] [-r CKPT]
-        [--auto_resume] [--val_path PATH] [--seed N] [--device cuda|cpu]
-        maestro_path exp_dir
+        [-k K] [--staging packed|packed32|dict] [-e EPOCHS] [--lr LR]
+        [-c maestro_v2] [-p PHASE] [-r CKPT] [--auto_resume]
+        [--val_path PATH] [--profile N] [--debug_nans] [--seed N]
+        [--device cuda|cpu] maestro_path exp_dir
 
 The flags mean what they mean for the JAX package's train_single_phase.py:
 epochs x steps of Adam on the multi-scale spectral loss, odd phases
@@ -13,9 +14,16 @@ guard and the last / best / crashed / stopped checkpoints under
 steps run on ``cuda`` unless --device cpu is given; --seed seeds the
 initial weights and the per-step noise draws. Losses go to the log.
 
-Options whose machinery is not ported are refused unless left at their
-default: -k/--steps_per_dispatch, --staging, --profile, --debug_nans,
---n_devices and the multi-host flags.
+-k runs K steps on one staged block (Trainer.train_steps; the NaN guard's
+crashed_iter then comes from before the block). --staging chooses how a
+batch goes to the card: 'packed' (one pinned copy of 16-bit wire lanes,
+decoded on the card bit-exactly), 'packed32' (the same with exact 32-bit
+lanes) or 'dict' (one copy a key); all three give the same numbers.
+--profile N writes a Chrome trace of N steps (after one untraced step)
+into <exp_dir>/phase_<N>/profile/trace.json. --debug_nans traps a
+non-finite value in the module (or backward function) that makes it.
+--n_devices and the multi-host flags are refused unless left at their
+default: one card.
 """
 
 from __future__ import annotations
@@ -31,9 +39,8 @@ osjoin = os.path.join
 
 # Flags of the JAX CLI that the port takes only at their default.
 UNPORTED_DEFAULTS = {
-    'steps_per_dispatch': 1, 'staging': 'packed', 'profile': 0,
-    'debug_nans': False, 'n_devices': None, 'coordinator_address': None,
-    'num_processes': None, 'process_id': None,
+    'n_devices': None, 'coordinator_address': None, 'num_processes': None,
+    'process_id': None,
 }
 
 
@@ -72,15 +79,30 @@ def process_args(argv=None):
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
                         help="Device to train on (default: %(default)s)")
     parser.add_argument('--steps_per_dispatch', '-k', type=int, default=1,
-                        help="Not ported: must stay 1.")
+                        help="Optimization steps per staged block: K > 1 "
+                             "stages K batches as one copy and runs them "
+                             "with Trainer.train_steps (the same numbers "
+                             "as K single steps; the NaN guard's "
+                             "crashed_iter coarsens to K steps). "
+                             "steps_per_epoch should be divisible by K. "
+                             "(default: %(default)s)")
     parser.add_argument('--staging', choices=('packed', 'packed32', 'dict'),
                         default='packed',
-                        help="Not ported (batches go to the card as one "
-                             "pinned buffer): must stay 'packed'.")
-    parser.add_argument('--profile', type=int, default=0,
-                        help="Not ported: must stay 0.")
+                        help="How batches go to the card: 'packed' "
+                             "(default) as one pinned copy of 16-bit wire "
+                             "lanes, each key in the narrowest encoding "
+                             "that round-trips it bit for bit, decoded on "
+                             "the card; 'packed32' with exact 32-bit lanes "
+                             "for every key; 'dict' one copy a key. All "
+                             "three give the same numbers.")
+    parser.add_argument('--profile', type=int, default=0, metavar='N',
+                        help="Write a torch.profiler Chrome trace of N "
+                             "training steps into <exp_dir>/phase_<N>/"
+                             "profile/trace.json, then train normally.")
     parser.add_argument('--debug_nans', action='store_true',
-                        help="Not ported (the loss guard is always on).")
+                        help="Trap a non-finite value in the module or "
+                             "backward function that makes it (slower; "
+                             "the per-step loss guard is always on).")
     parser.add_argument('--n_devices', type=int, default=None,
                         help="Not ported: one device.")
     parser.add_argument('--coordinator_address', type=str, default=None,
@@ -105,20 +127,26 @@ def _refuse_unported(args):
 
 
 def main(args, record_timeline: bool = False) -> dict:
-    """Train. Returns the trainer, the total loss of every step (floats)
-    and the last validation losses."""
+    """Train. Returns the trainer, the total loss of every step (floats),
+    the last validation losses and, with --profile, the trace's path."""
     from ddsp_piano_torch.configs import get_model
     from ddsp_piano_torch.data import pipeline
     from ddsp_piano_torch.device import resolve_device
+    from ddsp_piano_torch.training import debug
     from ddsp_piano_torch.training.checkpoints import (latest_checkpoint,
                                                        read_meta)
     from ddsp_piano_torch.training.trainer import NanLossError, Trainer
 
     _refuse_unported(args)
+    k_steps = max(1, args.steps_per_dispatch)
+    if k_steps > args.steps_per_epoch:
+        raise SystemExit(f"--steps_per_dispatch {k_steps} exceeds "
+                         f"--steps_per_epoch {args.steps_per_epoch}")
     device = resolve_device(args.device)
     first_phase = (args.phase % 2) == 1
     model = get_model(args.config, device=device, seed=args.seed,
                       first_phase=first_phase)
+    nan_hooks = debug.enable_debug_nans(model) if args.debug_nans else []
     trainer = Trainer(model, learning_rate=args.lr, first_phase=first_phase,
                       seed=args.seed, record_timeline=record_timeline)
 
@@ -128,7 +156,22 @@ def main(args, record_timeline: bool = False) -> dict:
                           sample_rate=model.sample_rate)
     host_iterator = pipeline.Prefetcher(pipeline.get_training_dataset(
         args.maestro_path, seed=0, **dataset_kwargs))
-    train_iterator = trainer.device_prefetch(host_iterator)
+    packed = args.staging != 'dict'
+    trainer.pack_wire = args.staging != 'packed32'
+    if k_steps == 1:
+        train_iterator = trainer.device_prefetch(host_iterator,
+                                                 packed=packed)
+        step_fn = trainer.train_step
+    else:
+        train_iterator = trainer.block_prefetch(host_iterator, k_steps,
+                                                packed=packed)
+        step_fn = trainer.train_steps
+        if args.steps_per_epoch % k_steps:
+            log.warning(
+                "steps_per_epoch=%d is not divisible by "
+                "steps_per_dispatch=%d; running %d steps per epoch.",
+                args.steps_per_epoch, k_steps,
+                (args.steps_per_epoch // k_steps) * k_steps)
 
     exp_dir = osjoin(args.exp_dir, f'phase_{args.phase}')
     restore_from = args.restore
@@ -157,6 +200,7 @@ def main(args, record_timeline: bool = False) -> dict:
                      "nothing to do.", args.phase, start_epoch, args.epochs,
                      trainer.step)
             host_iterator.close()
+            debug.disable_debug_nans(nan_hooks)
             return result
     phase_meta = lambda: {'phase_start_step': int(phase_start_step),
                           'lowest_val_loss': float(lowest_val_loss)}
@@ -165,14 +209,26 @@ def main(args, record_timeline: bool = False) -> dict:
 
     loss_keys = model.loss_keys()
     try:
+        if args.profile > 0:
+            # The steady-state step: one untraced step (block) first, then
+            # ceil(N / K) dispatches under the trace.
+            n_profile = -(-args.profile // k_steps)
+            step_fn(next(train_iterator))
+            with debug.profile_trace(osjoin(exp_dir, 'profile'),
+                                     device) as path:
+                for _ in range(n_profile):
+                    step_fn(next(train_iterator))
+            result['profile'] = path
+            log.info("Profiler trace (%d steps) written to %s",
+                     n_profile * k_steps, path)
         for epoch in range(start_epoch, args.epochs):
             epoch_losses = []
-            for _ in range(args.steps_per_epoch):
-                epoch_losses.append(trainer.train_step(next(train_iterator)))
+            for _ in range(args.steps_per_epoch // k_steps):
+                losses = step_fn(next(train_iterator))
+                epoch_losses.append(torch.stack(
+                    [losses[k].reshape(-1) for k in loss_keys], dim=-1))
             # One wait per epoch for the losses of all its steps.
-            totals = torch.stack([
-                torch.stack([losses[k] for k in loss_keys])
-                for losses in epoch_losses]).cpu()
+            totals = torch.cat(epoch_losses).cpu()
             result['step_losses'] += totals[:, -1].tolist()
             means = dict(zip(loss_keys, totals.mean(dim=0).tolist()))
             log.info("Epoch %d training loss: %.4f (%s)", epoch,
@@ -223,6 +279,7 @@ def main(args, record_timeline: bool = False) -> dict:
             log.error("%s", e)
     finally:
         host_iterator.close()
+        debug.disable_debug_nans(nan_hooks)
     return result
 
 

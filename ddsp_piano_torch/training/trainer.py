@@ -1,7 +1,7 @@
 """Trainer: one optimization step of a PianoModel on the card.
 
-Counterpart of ddsp_piano_tpu/training/trainer.py (the single-step path,
-:300-324 and :405-458):
+Counterpart of ddsp_piano_tpu/training/trainer.py (:160-260 and
+:300-458):
 
 - the step is autograd of ``total_loss``, then Adam over the trainable
   parameters only (PianoModel.set_trainable: frozen parameters get no
@@ -15,19 +15,27 @@ Counterpart of ddsp_piano_tpu/training/trainer.py (the single-step path,
   with the norm over the trainable parameters only (not clip_grad_norm_,
   which adds 1e-6 to the norm);
 - the noise synth draws from an explicit per-step torch.Generator;
-- host batches go to the device as one pinned buffer and one non-blocking
-  copy each, staged one batch ahead (:meth:`Trainer.device_prefetch`);
+- host batches go to the device staged one batch (or one K-step block)
+  ahead (:meth:`Trainer.device_prefetch`, :meth:`Trainer.block_prefetch`):
+  packed (training/staging.py BatchPacker: one pinned copy of 16-bit
+  lanes a batch, decoded on the device bit-exactly) or as a dict (one
+  pinned copy a key);
+- :meth:`Trainer.train_steps` runs K steps on one staged ``(K, b, width)``
+  block, each with the noise draw of its own step, so that its losses and
+  parameters equal those of K calls of :meth:`Trainer.train_step`;
 - the NaN guard is checked with a delay: the host never waits for the
   step it has just queued. Parameters update in place here, so a bounded
   ring of device snapshots (parameters and Adam moments, a few MB for v2)
-  keeps the state from before each unchecked step, and NanLossError
-  carries the one from before the first non-finite step;
+  keeps the state from before each unchecked step (each unchecked block
+  for train_steps), and NanLossError carries the one from before the
+  first non-finite step (block);
 - checkpoints are the port's own format: torch.save of the model's and
   the optimizer's state dicts, the step and a meta dict.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import os
 from typing import Any, Dict, Iterable, Iterator, Optional
@@ -38,17 +46,19 @@ import torch
 from ddsp_piano_torch.training.checkpoints import (CKPT_NAME,
                                                    import_tf_weights,
                                                    load_ckpt)
+from ddsp_piano_torch.training.staging import BatchPacker
 
 log = logging.getLogger(__name__)
 
 _STAGED_DTYPES = {np.dtype(np.float32): torch.float32,
-                  np.dtype(np.int32): torch.int32}
+                  np.dtype(np.int32): torch.int32,
+                  np.dtype(np.int16): torch.int16}
 
 
 class NanLossError(RuntimeError):
     """A training loss became non-finite. ``state`` is the training state
     (the checkpoint dict of Trainer.state_dict) from just before the first
-    non-finite step."""
+    non-finite step (block, for Trainer.train_steps)."""
 
     def __init__(self, message: str, state=None):
         super().__init__(message)
@@ -56,52 +66,48 @@ class NanLossError(RuntimeError):
 
 
 class BatchStager:
-    """Host batch dict -> device tensors with one non-blocking copy.
+    """Host arrays -> device tensors, one pinned buffer and one
+    non-blocking copy each.
 
-    The batch's arrays (float32 or int32) are packed, key by key, into one
-    pinned byte buffer, copied once, and viewed back on the device with
-    their own dtypes and shapes. The layout is taken from each batch
-    itself, so a batch of other shapes is staged correctly too. Two pinned
-    buffers alternate; before one is refilled, the copy that last read it
-    is waited for.
+    Called with a dict of float32, int32 or int16 arrays (a batch's keys;
+    'filename' is dropped), it returns the dict of device tensors. Each key
+    has two pinned buffers that alternate; before one is refilled, the copy
+    that last read it is waited for.
     """
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self._buffers = [None, None]
-        self._events = [None, None]
-        self._turn = 0
+        self._buffers = {}
+        self._events = {}
+        self._turn = {}
+
+    def _one(self, key: str, a: np.ndarray) -> torch.Tensor:
+        if self.device.type != 'cuda':
+            return torch.from_numpy(a).to(self.device)
+        i = self._turn.get(key, 0)
+        self._turn[key] = i ^ 1
+        slot = (key, i)
+        buffer = self._buffers.get(slot)
+        if buffer is None or buffer.numel() < a.nbytes:
+            buffer = self._buffers[slot] = torch.empty(
+                a.nbytes, dtype=torch.uint8, pin_memory=True)
+        elif slot in self._events:
+            self._events[slot].synchronize()
+        buffer.numpy()[:a.nbytes] = a.reshape(-1).view(np.uint8)
+        dev = buffer[:a.nbytes].to(self.device, non_blocking=True)
+        self._events[slot] = torch.cuda.Event()
+        self._events[slot].record()
+        return dev.view(_STAGED_DTYPES[a.dtype]).reshape(a.shape)
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        keys = sorted(k for k in batch if k != 'filename')
-        arrays = [np.ascontiguousarray(batch[k]) for k in keys]
-        for k, a in zip(keys, arrays):
+        arrays = {k: np.ascontiguousarray(batch[k]) for k in sorted(batch)
+                  if k != 'filename'}
+        for k, a in arrays.items():
             if a.dtype not in _STAGED_DTYPES:
                 raise TypeError(f"batch[{k!r}] has dtype {a.dtype}; the "
-                                "trainer stages float32 and int32 arrays")
-        if self.device.type != 'cuda':
-            return {k: torch.from_numpy(a).to(self.device)
-                    for k, a in zip(keys, arrays)}
-        total = sum(a.nbytes for a in arrays)
-        i = self._turn
-        self._turn ^= 1
-        if self._buffers[i] is None or self._buffers[i].numel() < total:
-            self._buffers[i] = torch.empty(total, dtype=torch.uint8,
-                                           pin_memory=True)
-        elif self._events[i] is not None:
-            self._events[i].synchronize()
-        host = self._buffers[i].numpy()
-        offsets, off = [], 0
-        for a in arrays:
-            host[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
-            offsets.append(off)
-            off += a.nbytes
-        dev = self._buffers[i][:total].to(self.device, non_blocking=True)
-        self._events[i] = torch.cuda.Event()
-        self._events[i].record()
-        return {k: dev[o:o + a.nbytes].view(_STAGED_DTYPES[a.dtype]
-                                            ).reshape(a.shape)
-                for k, a, o in zip(keys, arrays, offsets)}
+                                "trainer stages float32 and int32 arrays "
+                                "(int16 lanes for a packed batch)")
+        return {k: self._one(k, a) for k, a in arrays.items()}
 
 
 class Trainer:
@@ -125,9 +131,14 @@ class Trainer:
         self.optimizer = self._make_optimizer()
         self.step = 0
         self.stage = BatchStager(self.device)
-        # Delayed NaN guard: (step, losses, ring slot) per unchecked step,
-        # drained when nan_check_interval steps are pending (and by save
-        # and validation_step). The ring holds one more snapshot than that.
+        # The packed wire format, built from the first packed batch;
+        # pack_wire False forces the exact two-lane encodings (packed32).
+        self.pack_wire = True
+        self._packer = None
+        # Delayed NaN guard: (step, losses, ring slot) per unchecked step
+        # or block, drained when nan_check_interval entries are pending
+        # (and by save and validation_step). The ring holds one more
+        # snapshot than that.
         self.nan_check_interval = max(1, int(nan_check_interval))
         self._pending = []
         self._ring = [None] * (self.nan_check_interval + 1)
@@ -150,6 +161,14 @@ class Trainer:
             (self.seed << 32) + 17 * (1 << 24) + int(step))
 
     def _as_device_batch(self, batch):
+        """A host batch dict, a dict of tensors or a packed ``(b, width)``
+        lane tensor (pack_batch) -> the batch dict on the device."""
+        if isinstance(batch, torch.Tensor):
+            if self._packer is None:
+                raise ValueError("Got a packed batch but no BatchPacker - "
+                                 "stage batches with pack_batch or "
+                                 "pack_block.")
+            return self._packer.unpack(batch.to(self.device))
         if all(isinstance(v, torch.Tensor) for k, v in batch.items()
                if k != 'filename'):
             return {k: v.to(self.device) for k, v in batch.items()
@@ -200,6 +219,33 @@ class Trainer:
         self.clip_gradients()
         self.optimizer.step()
 
+    def _step(self, batch, noise: Optional[torch.Tensor] = None
+              ) -> Dict[str, torch.Tensor]:
+        """One optimization step with the noise draw of step self.step,
+        without the NaN guard."""
+        events = None
+        if self.timeline is not None and self.device.type == 'cuda':
+            events = [torch.cuda.Event(enable_timing=True)
+                      for _ in range(4)]
+            events[0].record()
+        losses = self.forward_backward(
+            batch, noise=noise, generator=self.noise_generator(self.step),
+            events=events)
+        self.apply_gradients()
+        if events is not None:
+            events[3].record()
+            self.timeline.append(events)
+        self.step += 1
+        return losses
+
+    def _guard(self, step: int, losses: Dict[str, torch.Tensor],
+               slot: int) -> None:
+        if len(self._pending) >= self.nan_check_interval:
+            # The drained entries were queued before this one, so the host
+            # waits for no step it has just queued.
+            self.check_pending()
+        self._pending.append((step, losses, slot))
+
     def train_step(self, batch, noise: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One optimization step; returns the losses as device scalars
@@ -207,37 +253,45 @@ class Trainer:
         step = self.step
         slot = step % len(self._ring)
         self._snapshot(slot)
-        events = None
-        if self.timeline is not None and self.device.type == 'cuda':
-            events = [torch.cuda.Event(enable_timing=True)
-                      for _ in range(4)]
-            events[0].record()
-        losses = self.forward_backward(batch, noise=noise,
-                                       generator=self.noise_generator(step),
-                                       events=events)
-        self.apply_gradients()
-        if events is not None:
-            events[3].record()
-            self.timeline.append(events)
-        self.step += 1
-        if len(self._pending) >= self.nan_check_interval:
-            # The drained steps were queued before this one, so the host
-            # waits for no step it has just queued.
-            self.check_pending()
-        self._pending.append((step, losses, slot))
+        losses = self._step(batch, noise=noise)
+        self._guard(step, losses, slot)
+        return losses
+
+    def train_steps(self, batches) -> Dict[str, torch.Tensor]:
+        """``K`` optimization steps on one block: a list of host batches,
+        a packed ``(K, b, width)`` lane tensor (pack_block) or a dict of
+        ``(K, ...)`` tensors (stack_batches). Step i draws its noise from
+        noise_generator(step + i), as K calls of train_step would, so the
+        losses and parameters are those of K single steps. Returns each
+        loss as a ``(K,)`` device tensor. The NaN guard takes the block as
+        one entry: a non-finite loss anywhere in it raises NanLossError
+        with the state from before the block."""
+        if isinstance(batches, (list, tuple)):
+            items = list(batches)
+        elif isinstance(batches, torch.Tensor):
+            items = list(batches.unbind(0))
+        else:
+            items = [{k: v[i] for k, v in batches.items()}
+                     for i in range(len(next(iter(batches.values()))))]
+        step = self.step
+        slot = step % len(self._ring)
+        self._snapshot(slot)
+        per_step = [self._step(item) for item in items]
+        losses = {k: torch.stack([s[k] for s in per_step])
+                  for k in per_step[0]}
+        self._guard(step, losses, slot)
         return losses
 
     def check_pending(self) -> None:
-        """Read the losses of every unchecked step (one wait for all) and
-        raise NanLossError, carrying the state from just before the first
-        non-finite step, if there is one."""
+        """Read the losses of every unchecked step or block (one wait for
+        all) and raise NanLossError, carrying the state from just before
+        the first non-finite one, if there is one."""
         if not self._pending:
             return
         pending, self._pending = self._pending, []
-        values = torch.stack([torch.stack([v.reshape(()).float()
+        finite = torch.stack([torch.stack([torch.isfinite(v).all()
                                            for v in losses.values()])
                               for _, losses, _ in pending]).cpu()
-        finite = torch.isfinite(values)
         for row, (step, losses, slot) in enumerate(pending):
             if not bool(finite[row].all()):
                 key = list(losses)[int((~finite[row]).nonzero()[0])]
@@ -257,21 +311,61 @@ class Trainer:
         losses = {k: float(v) for k, v in outputs['losses'].items()}
         return losses, outputs['audio_synth'].cpu().numpy()
 
-    def device_prefetch(self, iterator: Iterable) -> Iterator[dict]:
-        """Yield device batches, staging batch N + 1 right after the
-        consumer has queued its step on batch N."""
+    def _packer_for(self, batch) -> BatchPacker:
+        if self._packer is None:
+            self._packer = BatchPacker(batch, wire=self.pack_wire)
+        return self._packer
+
+    def pack_batch(self, batch) -> torch.Tensor:
+        """Stage one host batch as one packed ``(b, width)`` int16 lane
+        tensor on the device: one pinned copy (train_step decodes it)."""
+        lanes = self._packer_for(batch).pack(batch).view(np.int16)
+        return self.stage({'packed': lanes})['packed']
+
+    def pack_block(self, batches) -> torch.Tensor:
+        """Stage K host batches as one packed ``(K, b, width)`` lane tensor:
+        one pinned copy a block (train_steps decodes it)."""
+        lanes = self._packer_for(batches[0]).pack_block(batches)
+        return self.stage({'packed': lanes.view(np.int16)})['packed']
+
+    def stack_batches(self, batches) -> Dict[str, torch.Tensor]:
+        """K host batches as one dict of ``(K, ...)`` device tensors: one
+        pinned copy a key."""
+        return self.stage({k: np.stack([np.asarray(b[k]) for b in batches])
+                           for k in batches[0] if k != 'filename'})
+
+    def device_prefetch(self, iterator: Iterable, packed: bool = False
+                        ) -> Iterator:
+        """Yield device batches (packed lane tensors with ``packed``, else
+        dicts), staging batch N + 1 right after the consumer has queued its
+        step on batch N."""
+        stage = self.pack_batch if packed else self.stage
         it = iter(iterator)
         try:
-            staged = self.stage(next(it))
+            staged = stage(next(it))
         except StopIteration:
             return
         while True:
             current = staged
             yield current
             try:
-                staged = self.stage(next(it))
+                staged = stage(next(it))
             except StopIteration:
                 return
+
+    def block_prefetch(self, iterator: Iterable, k: int,
+                       packed: bool = False) -> Iterator:
+        """Yield K-step blocks for train_steps, each staged as one packed
+        ``(K, b, width)`` copy (``packed``) or one copy a key, the next
+        block staged after the consumer has queued its steps on this one.
+        A trailing partial block (< k batches) is dropped."""
+        stage = self.pack_block if packed else self.stack_batches
+        it = iter(iterator)
+        while True:
+            block = list(itertools.islice(it, k))
+            if len(block) < k:
+                return
+            yield stage(block)
 
     def step_times(self):
         """[(total, forward, backward, update) ms] of every recorded step,

@@ -13,9 +13,13 @@ training losses against a fixed target.
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -37,6 +41,8 @@ from ddsp_piano_tpu.ops import core as jcore  # noqa: E402
 from ddsp_piano_tpu.ops import oscillator as josc  # noqa: E402
 from ddsp_piano_tpu.processors import reverb as jreverb  # noqa: E402
 from ddsp_piano_tpu.processors import surrogate as jsur  # noqa: E402
+from test_torch_configs_training import SMALL as GRAD_SMALL  # noqa: E402
+from test_torch_configs_training import _batch as _grad_batch  # noqa: E402
 
 NEW_CONFIGS = ('enstdkcl_8khz', 'enstdkcl_32khz', 'multi_instruments',
                'surrogate', 'maestro_v2_regularized')
@@ -564,3 +570,107 @@ def test_losses_match_jax(jax_inits, config):
                                    atol=1e-12, err_msg=key)
     if config in ('multi_instruments', 'maestro_v2_regularized'):
         assert float(want['regularization_loss']) > 0.0
+
+# -- ROADMAP C.5: enstdkcl_8khz's trainable FDN gradients in float64 --------
+#
+# At a 0.5 s segment, against jax.grad. In float32,
+# test_torch_configs_training.py measured the t60 leaf 0.64 of its peak
+# apart from jax.grad at 0.5 s (1e-4 at 2 s, the FDN IR's length, where that
+# test runs). Here both sides run in float64 as far as each
+# package goes: the port's model ``.double()``, the JAX model under
+# ``jax.enable_x64`` (in this test only) with float64 parameters and inputs.
+# Both packages keep float32 where their code casts to it: the FDN's transfer
+# function (complex64) and IR, the loss's magnitudes and the harmonic
+# numbers. The gap falls from 0.64 to 3.35e-3 of the t60 leaf's peak
+# (1.6e-4 for the tone leaf): rounding, not a fault. It cannot reach 1e-6:
+# JAX's own jitted and op-by-op gradients of this step, in the same float64
+# mode, differ by 0.396 of the t60 leaf's peak (0.0133 for the tone), so the
+# 0.5 s t60 gradient is ill-conditioned. Held: every FDN leaf within 1e-2 of
+# its peak, and the t60 and tone leaves nearer the op-by-op JAX gradient
+# than JAX's jitted one is.
+
+FDN_CONFIG = 'enstdkcl_8khz'
+FDN_SECONDS = 0.5
+FDN = 'processor_group.DelayNetwork.'
+T60, TONE = FDN + 'time_rev_0_sec', FDN + 'alpha_tone'
+# Each FDN leaf's gap, a share of its peak (measured 3.35e-3 at most, the
+# t60 leaf).
+FDN_TOL = 1e-2
+
+
+def _jax_gradients():
+    """jax.grad of the whole step in float64: op by op for the tuning and
+    the additive synth, jitted elsewhere (as test_torch_configs_training's
+    _jax_step), and all jitted; the params, batch and noise draw."""
+    from ddsp_piano_tpu.configs import get_model as jax_get_model
+
+    jmodel = jax_get_model(FDN_CONFIG, duration=FDN_SECONDS,
+                           first_phase=False, **GRAD_SMALL)
+    params = jax.jit(jmodel.init)(jax.random.PRNGKey(0))
+    jmodel.loss_objs[0].logmag_weight = 0.0
+    batch = _grad_batch(jmodel.sample_rate,
+                        int(FDN_SECONDS * jmodel.frame_rate))
+    rng = jax.random.PRNGKey(7)
+    # The noise synth's draw (float32 in the JAX package, x64 or not).
+    noise = np.array(jax.random.uniform(
+        jax.random.fold_in(rng, 1), (8, batch['audio'].shape[1]),
+        jnp.float32, -1.0, 1.0))
+    grads = {}
+    with jax.enable_x64(True):
+        p64 = jax.tree.map(lambda a: jnp.asarray(np.asarray(a), jnp.float64),
+                           params)
+        feats = {k: jnp.asarray(v, jnp.float64 if v.dtype.kind == 'f'
+                                else v.dtype) for k, v in batch.items()}
+
+        def total(p):
+            return jmodel(p, feats, training=True,
+                          rng=rng)['losses']['total_loss']
+
+        flat = lambda g: dict(flatten_tree(jax.tree.map(
+            lambda a: np.asarray(a, np.float64), g)))
+        grads['jit'] = flat(jax.jit(jax.grad(total))(p64))
+        for net in (jmodel.context_network, jmodel.monophonic_network,
+                    jmodel.reverb_model):
+            if net is not None:
+                net.apply = jax.jit(net.apply, static_argnames='training')
+        for proc in (jmodel.processor_group.noise,
+                     jmodel.processor_group.reverb):
+            proc.get_signal = jax.jit(proc.get_signal)
+        for loss in jmodel.loss_objs:
+            if hasattr(loss, '_loss'):
+                loss._loss = jax.jit(loss._loss)
+        grads['op_by_op'] = flat(jax.grad(total)(p64))
+    return grads, params, batch, noise
+
+
+def test_fdn_gradients_in_float64_match_jax():
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    want, params, batch, noise = _jax_gradients()
+    model = get_model(FDN_CONFIG, device='cpu', duration=FDN_SECONDS,
+                      first_phase=False, **GRAD_SMALL)
+    load_jax_params(model, jax.tree.map(np.asarray, params))
+    model.double()
+    model.loss_objs[0].logmag_weight = 0.0
+    trainer = Trainer(model, first_phase=None)
+    trainer.forward_backward(
+        {k: torch.from_numpy(v).double() if v.dtype.kind == 'f'
+         else torch.from_numpy(v) for k, v in batch.items()},
+        noise=torch.from_numpy(noise).double())
+    got = {n: p.grad.numpy() for n, p in trainer.named_params
+           if n.startswith(FDN)}
+    assert T60 in got and TONE in got and len(got) == 8
+    assert all(g.dtype == np.float64 for g in got.values())
+
+    def gap(a, b):
+        return np.abs(a - b).max() / np.abs(b).max()
+
+    errs = {n: gap(g, want['op_by_op'][n]) for n, g in got.items()}
+    spread = {n: gap(want['jit'][n], want['op_by_op'][n])
+              for n in (T60, TONE)}
+    print(f"\nfloat64, {FDN_CONFIG} at {FDN_SECONDS} s, FDN leaves against "
+          f"JAX op by op: {errs}; JAX jitted against op by op: {spread}")
+    assert max(errs.values()) <= FDN_TOL, errs
+    for n in (T60, TONE):
+        assert errs[n] < spread[n], (n, errs[n], spread[n])

@@ -9,9 +9,13 @@ import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 from ddsp_piano_torch import synthesize_midi_file as cli  # noqa: E402
 from ddsp_piano_torch.configs import config_rates, get_model  # noqa: E402

@@ -516,3 +516,29 @@ def test_functions_on_cuda_match_cpu(cuda_device):
             tosc.FramewiseOscControls(*c), 96, 24000),
         [c.numpy() for c in controls], [rng.randn(2, 20 * 96)],
         cuda_device, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('wire', [True, False], ids=['packed', 'packed32'])
+def test_packed_staging_decodes_bit_exactly_on_the_card(cuda_device, wire):
+    """BatchPacker's lanes decoded on the card equal the batch bit for bit
+    (the i16 scales divide, as the host check does; a division by a
+    Python scalar would multiply by its reciprocal)."""
+    from ddsp_piano_torch.data.pipeline import get_dummy_data
+    from ddsp_piano_torch.training.staging import BatchPacker
+
+    rng = np.random.RandomState(0)
+    batch = dict(get_dummy_data(2, 0.5, 24000),
+                 audio=(rng.randint(-32768, 32768, (2, 12000)) / 32768.0
+                        ).astype(np.float32),
+                 conditioning=(rng.randint(0, 128, (2, 125, 16, 2)) / 127.0
+                               ).astype(np.float32))
+    packer = BatchPacker(batch, wire=wire)
+    if wire:
+        assert packer.encodings()['audio'] == 'i16x32768'
+        assert packer.encodings()['conditioning'] == 'i16x127'
+    lanes = torch.from_numpy(packer.pack(batch).view(np.int16))
+    got = packer.unpack(lanes.to(cuda_device))
+    for k, v in batch.items():
+        assert got[k].is_cuda
+        np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)

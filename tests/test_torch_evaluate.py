@@ -12,9 +12,13 @@ import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

@@ -5,14 +5,21 @@ the JAX kernels run in Pallas interpret mode, as the JAX package's own
 tests run them. The same numpy inputs go through both. With grad enabled
 the front doors go through the port's torch.autograd.Functions, held here
 against jax.vjp of the JAX package's reference functions. The CUDA kernels
-against their plain versions on the card: tests/test_torch_cuda.py.
+against their plain versions on the card: tests/test_torch_cuda.py. At the
+end, the v2 loss's 10-step trajectories through those gradients against
+the JAX trainer's (ROADMAP C.1; tests/test_torch_staging.py holds the
+magnitude term's).
 """
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -24,6 +31,8 @@ from ddsp_piano_torch.kernels import oscillator as tosck  # noqa: E402
 from ddsp_piano_torch.ops import core as tcore  # noqa: E402
 from ddsp_piano_torch.ops import oscillator as tosc  # noqa: E402
 from ddsp_piano_tpu.kernels import gru_pallas as gp  # noqa: E402
+from test_torch_training import (check_loss_curve_distributions,  # noqa
+                                 check_ten_step_trajectory, jax_v2)
 from ddsp_piano_tpu.kernels.oscillator_pallas import (  # noqa: E402
     render_framewise_pallas_skip_vjp)
 from ddsp_piano_tpu.ops import oscillator as josc  # noqa: E402
@@ -331,3 +340,19 @@ def test_note_release_module_release_duration_gradient():
     assert want != 0.0
     # rtol 1e-5: test_ctrl_kernels.py:362-364.
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+# -- ROADMAP C.1 for the v2 loss ------------------------------------
+# The checks are test_torch_training.py's; one loss a file, so that
+# pytest-xdist's --dist loadfile runs the two losses' trajectories on two
+# workers.
+
+
+@pytest.mark.parametrize('loss', ['v2'])
+def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
+    check_ten_step_trajectory(jax_v2, loss)
+
+
+@pytest.mark.parametrize('loss', ['v2'])
+def test_loss_curve_distributions_match_jax_trainer(jax_v2, loss):
+    check_loss_curve_distributions(jax_v2, loss)

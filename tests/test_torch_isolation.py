@@ -15,9 +15,13 @@ import subprocess
 import sys
 
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,10 +38,12 @@ bad = sorted(m for m in sys.modules
                                     'tensorflow'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 41, names
+assert len(names) >= 46, names
 for name in ('models.streaming', 'processors.surrogate',
              'configs.enstdkcl_8khz', 'configs.enstdkcl_32khz',
-             'configs.multi_instruments', 'configs.surrogate'):
+             'configs.multi_instruments', 'configs.surrogate',
+             'preprocess_maestro', 'train_ddsp_piano', 'training.staging',
+             'training.debug', 'configs.gin_test'):
     assert 'ddsp_piano_torch.' + name in names, names
 """
 
@@ -73,6 +79,19 @@ def test_evaluate_cli_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         cli.main(cli.process_args([str(tmp_path), str(tmp_path / 'out')]))
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from ddsp_piano_torch import train_ddsp_piano, train_single_phase
+    from ddsp_piano_torch.configs import gin_test
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    paths = [str(tmp_path), str(tmp_path / 'exp')]
+    for cli in (train_single_phase, train_ddsp_piano):
+        with pytest.raises(RuntimeError, match='CUDA is not available'):
+            cli.main(cli.process_args(paths))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        gin_test.main(gin_test.process_args(['maestro_v2']))
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take():

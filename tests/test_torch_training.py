@@ -4,16 +4,23 @@ The spectral loss and its gradient, the optimizer (Adam, global-norm clip,
 frozen parameters) and the whole maestro_v2 training step's gradients are
 held against the JAX package on the same numpy inputs; the data pipeline,
 batch staging, NaN guard, checkpoints and the train CLI run at a small
-size. The JAX gradient of the whole step is computed once per module.
+size. The JAX gradient of the whole step is computed once per module. The
+10-step trajectories against the JAX trainer are held by the checks
+check_ten_step_trajectory and check_loss_curve_distributions here, run
+from test_torch_grad_kernels.py and test_torch_staging.py.
 """
 
 import os
 
 import numpy as np
 import pytest
+import threadpoolctl
 
 torch = pytest.importorskip('torch')
 torch.set_num_threads(1)
+# numpy's BLAS too, for the whole worker (xdist collects every file):
+# threaded OpenBLAS stalls at each call's barrier on a loaded host.
+threadpoolctl.threadpool_limits(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -63,6 +70,37 @@ def test_hann_window_and_safe_log_match():
                                rtol=1e-7)
     # Zero below eps, as a where (a clamp would pass 1 at x == eps).
     np.testing.assert_array_equal(got.grad.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize('weighted', [False, True])
+def test_mean_difference_gradient_at_ties_matches_jax(weighted):
+    """ROADMAP C.4: the L1 distance where a target bin equals a synth bin
+    (nonzero, as when a student's weights equal its teacher's). jnp.abs's
+    gradient at 0 is +1, so each tied bin passes -1/n to the synth side;
+    torch.abs would pass 0. Held bit-exact against jax.grad."""
+    rng = np.random.RandomState(4)
+    target = rng.uniform(0.1, 2.0, (2, 9, 33)).astype(np.float32)
+    value = target.copy()
+    value[:, ::2] += rng.randn(2, 5, 33).astype(np.float32)
+    weights = (rng.uniform(0.5, 1.5, (2, 9, 33)).astype(np.float32)
+               if weighted else None)
+    assert (target == value).sum() == 2 * 4 * 33
+
+    def jax_loss(v):
+        return jspectral.mean_difference(
+            jnp.asarray(target), v, 'L1',
+            None if weights is None else jnp.asarray(weights))
+
+    want = np.asarray(jax.grad(jax_loss)(jnp.asarray(value)))
+    x = _t(value).requires_grad_()
+    got = tspectral.mean_difference(
+        _t(target), x, 'L1', None if weights is None else _t(weights))
+    got.backward()
+    # The mean's summation order differs: rtol 1e-6.
+    np.testing.assert_allclose(float(got.detach()),
+                               float(jax_loss(jnp.asarray(value))), rtol=1e-6)
+    assert (want[target == value] != 0).all()
+    np.testing.assert_array_equal(x.grad.numpy(), want)
 
 
 @pytest.mark.parametrize('n_samples', [12000, 12345])
@@ -380,6 +418,12 @@ def test_phase_with_no_trainable_parameter_matches_jax(jax_v2):
                                    rtol=1e-4, err_msg=key)
 
 
+# The trajectory and loss-curve tests (ROADMAP C.1) run the checks below
+# from test_torch_grad_kernels.py (v2 loss) and test_torch_staging.py
+# (magnitudes), one loss a file, so that pytest-xdist's --dist loadfile
+# spreads their ~300 s over two workers (it hands out the files with the
+# most tests first, so each sits in a file of many); each file computes its
+# own loss's trajectories once.
 TRAJECTORY_STEPS = 10
 # The start of the control trajectory: every weight times 1 + 2^-22, a
 # rounding-level change.
@@ -465,8 +509,7 @@ def _trajectory(package, loss, k, params):
     return _TRAJECTORIES[key]
 
 
-@pytest.mark.parametrize('loss', ['v2', 'magnitudes'])
-def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
+def check_ten_step_trajectory(jax_v2, loss):
     """The port's Trainer against the JAX package's for 10 steps of the
     v2 loss (magnitudes and log magnitudes) and of its magnitude term
     alone, from the same parameters, on the same batches and the same
@@ -483,7 +526,7 @@ def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
     parameters are the same, and the whole trajectory against that
     control: the port's largest gap to JAX within four times the
     control's largest gap. The curves' distributions are held by
-    test_loss_curve_distributions_match_jax_trainer. The final
+    check_loss_curve_distributions. The final
     parameters' largest gap, a share of each leaf's peak, is printed."""
     _, params, mask = jax_v2
     want, state = _trajectory('jax', loss, 0, params)
@@ -510,15 +553,14 @@ def test_ten_step_trajectory_matches_jax_trainer(jax_v2, loss):
     assert gap.max() <= 4.0 * control_gap.max(), (gap, control_gap)
 
 
-@pytest.mark.parametrize('loss', ['v2', 'magnitudes'])
-def test_loss_curve_distributions_match_jax_trainer(jax_v2, loss):
+def check_loss_curve_distributions(jax_v2, loss):
     """ROADMAP C.1: the distributions of the 10-step loss curves, from
     TRAJECTORY_STARTS nudged starts of each package (weights x (1 + k
     2^-22), k = 0..3), on the batches and draws of
-    test_ten_step_trajectory_matches_jax_trainer, whose trajectories it
-    shares. No per-step bound holds between two single trajectories of
-    this chaotic start (JAX's own nudged curves part by up to 1.2 %); the
-    means of the two packages' curves must agree at every step within
+    check_ten_step_trajectory, whose trajectories it shares. No per-step
+    bound holds between two single trajectories of this chaotic start
+    (JAX's own nudged curves part by up to 1.2 %); the means of the two
+    packages' curves must agree at every step within
     TRAJECTORY_SE_MULTIPLE pooled standard errors. Measured: at most 3.15
     (v2 loss, step 4) and 1.26 (magnitudes, step 3). Each step's means,
     spreads and bound are printed."""
@@ -744,11 +786,11 @@ def test_train_cli_phase_2_on_cpu(tmp_path, monkeypatch):
     assert third['trainer'].step == 3
 
 
-@pytest.mark.parametrize('flag', [['-k', '4'], ['--staging', 'dict'],
-                                  ['--profile', '3'], ['--debug_nans'],
-                                  ['--n_devices', '2'],
+@pytest.mark.parametrize('flag', [['--n_devices', '2'],
                                   ['--coordinator_address', 'h:1']])
 def test_train_cli_refuses_unported_options(tmp_path, flag):
+    """One card, one host: the mesh and multi-host flags are refused (-k,
+    --staging, --profile and --debug_nans run: test_torch_train_cli.py)."""
     from ddsp_piano_torch import train_single_phase as cli
 
     with pytest.raises(SystemExit, match='not ported'):

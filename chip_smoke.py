@@ -160,13 +160,36 @@ non-zero exit code and no result line:
    against 2 steps without it (losses within rtol 1e-4, bit-equality
    reported); ``python -m ddsp_piano_torch.configs.gin_test maestro_v2``
    on the card. The phase's seconds are printed.
-19. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+19. Serving: ``models.serving.make_serving_fn`` with v2 at full width
+   over demo.mid's roll (10 s after the 0.5 s warm-up) at b = 1 and b = 8
+   (the batch of the JAX package's served number): each batch's serve
+   counted (counters set to 0 just before, read just after: K1, K2 twice,
+   K3 and the voice allocator K9 once), its audio against the forward on
+   the host allocator's conditioning with the same generator (1e-6 of
+   peak), its CUDA-event time (median of 3 after a warm-up). K9 held
+   bit-exact against its plain version on the demo roll (b = 1 and 8) and
+   a seeded over-capacity binary roll; its call, card and plain times,
+   bound (bytes or operations, counted from the roll's fast and slow
+   frames) and chain bound.
+20. The CSV CLI: ``synthesize_from_csv -d 10 --decompose`` over a two-row
+   CSV of demo.mid, v2 at full width on ``cuda``, counted (a row: K1
+   twice, the forward's and the stems', K2 twice, K3 and K9 once): eight
+   finite 10 s wav files; each launch held against its plain version.
+21. Streaming of enstdkcl_8khz, enstdkcl_32khz (each oscillator) and the
+   surrogate: ``--streaming`` on 10 s of demo.mid at 4 s chunks, counted
+   as in phases 14-15 (the Normalize sweeps, then the render), each
+   launch held against its plain version, the streamed library render
+   against the one-shot forward on one draw (0.02 of peak); streamed
+   against one-shot forward time and peak memory at 10 s, and the
+   surrogate's also tiled to ~180 s.
+22. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-20. One JSON line of kernel numbers (K1's row at the training step's
+23. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render, the CLI run and phase
-   18's run; K2-K7's also phase 18's), then the result line.
+   18's run; K2-K7's also phase 18's; K9's those of phases 19-20), then
+   the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO, the training
 run's checkpoints and the evaluation CSVs go to build/ in the checkout.
@@ -896,6 +919,9 @@ KERNEL_SOURCES = {
                          'ddsp_piano_tpu/kernels/gru_pallas.py:673'),
     'oscillator_full': ('cuda', 'ddsp_piano_torch/csrc/oscillator_full.cu',
                         'ddsp_piano_tpu/kernels/oscillator_pallas.py:217'),
+    # No Pallas site: the lax.scan over the allocator's frame step.
+    'voice_allocator': ('cuda', 'ddsp_piano_torch/csrc/voice_allocator.cu',
+                        'ddsp_piano_tpu/data/midi_encoders_jax.py:155'),
 }
 
 
@@ -1760,7 +1786,7 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 19 -----------------------------------------------------------------
+# -- phase 22 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight,
@@ -2023,20 +2049,28 @@ def render_cost(fn, n=3):
     return statistics.median(times), max(peaks), times
 
 
-def streaming_costs(model, chunk_frames):
+def streaming_costs(model, chunk_frames, tiles=(1, STREAM_LONG_TILES),
+                    seconds=None, model_for=None):
     """Forward time and peak memory, streamed (uniform chunks) against
-    one-shot, on demo.mid and on its conditioning tiled to ~180 s; the
-    noise drawn from a generator, as the CLI draws it."""
+    one-shot, on demo.mid (all of it, or ``seconds`` after the warm-up)
+    and on all of its conditioning tiled (to ~180 s at 8 tiles); the noise
+    drawn from a generator, as the CLI draws it. ``model_for(seconds)`` builds the
+    model for a length (a z encoder is built for one), else ``model``."""
     from ddsp_piano_torch.models.streaming import (StreamingSynthesizer,
                                                    pad_to_chunks)
 
     costs = {}
-    for name, tiles in (('demo', 1), ('tiled', STREAM_LONG_TILES)):
-        features = pad_to_chunks(demo_features(tiles=tiles), chunk_frames)
-        seconds = features['conditioning'].shape[1] / model.frame_rate
+    for n_tiles in tiles:
+        name = 'demo' if n_tiles == 1 else 'tiled'
+        features = pad_to_chunks(
+            demo_features(seconds if n_tiles == 1 else None, tiles=n_tiles),
+            chunk_frames)
+        seconds_in = features['conditioning'].shape[1] / model.frame_rate
+        if model_for is not None:
+            model = model_for(seconds_in)
         gen = lambda: torch.Generator(device=DEV).manual_seed(SEED)
         streamer = StreamingSynthesizer(model, chunk_frames)
-        row = {'seconds': seconds}
+        row = {'seconds': seconds_in}
         for kind, fn in (
                 ('one_shot', lambda: model(features, generator=gen())[
                     'audio_synth']),
@@ -2044,7 +2078,7 @@ def streaming_costs(model, chunk_frames):
                     features, generator=gen()))):
             fn_time, peak, times = render_cost(fn)
             row[kind] = dict(forward=fn_time, peak=peak, times=times,
-                             rtf=seconds / fn_time)
+                             rtf=seconds_in / fn_time)
         costs[name] = row
         del features
         torch.cuda.empty_cache()
@@ -2096,7 +2130,7 @@ def streaming_cli(config, seconds, oscillator, expected):
     return dict(launches=launches, chunks=result['chunks'],
                 forward=forward, forwards=forwards,
                 rtf=seconds_out / forward, seconds=seconds_out,
-                model=result['model'],
+                model=result['model'], bounds=bounds_line(shapes),
                 kernel_ms=path_kernels(
                     shapes, f'{config} --streaming --oscillator {oscillator}'))
 
@@ -2164,7 +2198,7 @@ def streaming_line(what, run):
             + grouped_kernels_line(run['kernel_ms']))
 
 
-def costs_line(costs):
+def costs_line(costs, what='v2'):
     parts = []
     for name, row in costs.items():
         one, st = row['one_shot'], row['streamed']
@@ -2176,8 +2210,8 @@ def costs_line(costs):
             f"{st['peak'] / 2**20:.1f} MiB; forwards ms one-shot "
             f"{forwards_text(one['times'])}, streamed "
             f"{forwards_text(st['times'])}")
-    return ('v2 streamed against one-shot (library API, medians of 3, peak '
-            'memory above the model\'s): ' + ' | '.join(parts))
+    return (f'{what} streamed against one-shot (library API, medians of 3, '
+            'peak memory above the model\'s): ' + ' | '.join(parts))
 
 
 # -- phases 16-17 -------------------------------------------------------------
@@ -2820,6 +2854,265 @@ def cache_path_lines(c):
     ]
 
 
+# -- phases 19-21 -------------------------------------------------------------
+
+
+SERVE_BATCHES = (1, 8)         # b = 8: the batch of the JAX served number
+SERVE_TIMED = 3                # CUDA-event median of 3, after a warm-up
+# A share of peak: the served audio against the forward on the host
+# allocator's conditioning (bit-identical) with the same generator, as the
+# --ckpt render is held against an in-process render.
+SERVE_TOL = CKPT_RENDER_TOL
+SERVE_KERNELS = {'oscillator_skip': 1, 'gru_scan': 2, 'note_release': 1,
+                 'voice_allocator': 1}
+VA_VOICES = 16                 # v2's polyphony
+VA_CHURN = (4, 500)            # rows and frames of the over-capacity roll
+CSV_ROWS = (('demo.mid', 3, 'Johann Sebastian Bach'),
+            ('demo.mid', 7, 'Frederic Chopin'))
+# Per row: K1, K2, K3 and K9 launches of the CLI with --decompose (the
+# forward, then the stems' one additive call).
+CSV_KERNELS = {'oscillator_skip': 2, 'gru_scan': 2, 'note_release': 1,
+               'voice_allocator': 1}
+STREAM_CONFIGS = (('enstdkcl_8khz', 'skip'), ('enstdkcl_32khz', 'skip'),
+                  ('enstdkcl_32khz', 'full'), ('surrogate', 'skip'))
+
+
+def va_ops(n, fast):
+    """K9's operations per (frame, lane), counted from its source: the
+    comparison loop 7 n + 10 (two shuffles, two compares, two ors and a
+    select a slot; the ballots and the output's two shuffles); the slow
+    path adds the rank loop 5 n, the scatter loop 7 n and ~40 for the
+    ballots, counts and selects between them."""
+    return 7 * n + 10 if fast else 19 * n + 50
+
+
+def va_chain(n, fast):
+    """K9's dependent operations a frame: the loops' accumulators chain
+    (n each), plus the ballots, counts and selects between them."""
+    return n + 4 if fast else 3 * n + 20
+
+
+def check_voice_allocator(cases):
+    """K9 against its plain version on the card, bit for bit, at each
+    case's (pitches, velocity); the first case's call, card and plain
+    times, its bound (bytes or operations, the fast and slow frames that
+    this roll takes) and its chain bound."""
+    from ddsp_piano_torch.kernels import voice_allocator as va
+
+    fast = {}
+    with torch.inference_mode():
+        for what, (p, v) in cases.items():
+            got = va.allocate_cuda(p, v)
+            want, fast[what] = va.allocate_plain(p, v,
+                                                 return_fast=True)
+            sync()
+            if not torch.equal(got, want):
+                bad = int((got != want).any(-1).sum())
+                fail(f"voice_allocator at {what} {tuple(p.shape)}: {bad} "
+                     f"(frame, slot) entries differ from its plain version")
+        what, (p, v) = next(iter(cases.items()))
+        b, t, n = p.shape
+        frames = [(int(f), t - int(f)) for f in fast[what].tolist()]
+        ms = median_ms(lambda: va.allocate_cuda(p, v))
+        card = statistics.median(card_times(lambda: va.allocate_cuda(p, v)))
+        plain = statistics.median(event_times(
+            lambda: va.allocate_plain(p, v), n=1, warmup=0))
+    ops = n * sum(f * va_ops(n, True) + s * va_ops(n, False)
+                  for f, s in frames)
+    bound_ms, bound_by = bound(ops, 16 * b * t * n)
+    chain = max(f * va_chain(n, True) + s * va_chain(n, False)
+                for f, s in frames)
+    chain_ms = chain * CYCLES_PER_DEPENDENT_OP / (sm_clock_mhz()[0] * 1e3)
+    row = dict(name='voice_allocator', max_abs_err=0.0, ms=ms, card_ms=card,
+               plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None)
+    detail = (f"bit-exact against its plain version at "
+              + ', '.join(f"{w} {tuple(c[0].shape)}"
+                          for w, c in cases.items())
+              + f"; at {what} {tuple(p.shape)}: fast/slow frames "
+              f"{frames}; card_ms {card:.4f}; chain_bound_ms {chain_ms:.5f} "
+              f"({chain} dependent operations x "
+              f"{CYCLES_PER_DEPENDENT_OP} cycles)")
+    return row, detail
+
+
+def serving_path():
+    """Phase 19: make_serving_fn over demo.mid's roll (10 s after the
+    0.5 s warm-up) with v2 at full width, at b = 1 and 8 (the roll
+    repeated, a piano a row): K9 bit-exact against its plain version on
+    the demo roll and a seeded over-capacity binary roll; each batch's
+    warm-up serve records the K1, K2 and K3 inputs, and each of those
+    launches is held against its plain version at them; each batch's
+    counted serve (counters set to 0 just before, read just after: K1,
+    K2 twice, K3 and K9 once, no other kernel), its served audio against
+    the forward on the host allocator's conditioning with the same
+    generator, and its CUDA-event serve time."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.data.io import load_midi_as_roll
+    from ddsp_piano_torch.data.midi_encoders import MIDIRoll2Conditioning
+    from ddsp_piano_torch.data.midi_encoders_device import top_voices
+    from ddsp_piano_torch.data.rolls import churn_roll
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.models.serving import make_serving_fn
+
+    demo = load_midi_as_roll(DEMO_MIDI, duration=MAIN_PATH_SECONDS,
+                             warm_up_duration=0.5)
+    frames = demo['roll'].shape[1]
+    model = get_model('maestro_v2', inference=True, device=DEV, seed=SEED,
+                      duration=frames / 250)
+    serve = make_serving_fn(model, seed=SEED)
+    host, _ = MIDIRoll2Conditioning(model.n_synths)(demo['roll'][0].copy())
+    host = host.astype(np.float32)
+    churn = np.stack([churn_roll(s, VA_VOICES, VA_CHURN[1])
+                      for s in range(VA_CHURN[0])])
+    cases = {}
+    runs = {}
+    for b in SERVE_BATCHES:
+        roll = torch.from_numpy(np.repeat(demo['roll'], b, 0)).to(DEV)
+        pedal = torch.from_numpy(np.repeat(demo['pedal'], b, 0)).to(DEV)
+        piano = (PIANO_TYPE + torch.arange(b, device=DEV)[:, None]) % 10
+        cases[f'demo roll b={b}'] = top_voices(roll, VA_VOICES)
+        shapes = {}
+        with capturing(shapes):
+            serve(roll, pedal, piano)
+        sync()
+        build.reset_launches()
+        audio = serve(roll, pedal, piano)
+        sync()
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        if launches != SERVE_KERNELS:
+            fail(f"serve at b={b}: launches {launches}, expected "
+                 f"{SERVE_KERNELS}")
+        features = {'conditioning': torch.from_numpy(
+                        np.repeat(host[None], b, 0)).to(DEV),
+                    'pedal': pedal, 'piano_model': piano}
+        with torch.inference_mode():
+            want = model(features, generator=torch.Generator(
+                device=DEV).manual_seed(SEED))['audio_synth']
+        up = model.sample_rate // model.frame_rate
+        if tuple(audio.shape) != (b, frames * up) or not bool(
+                torch.isfinite(audio).all()):
+            fail(f"serve at b={b}: audio {tuple(audio.shape)}, or not finite")
+        gap = ((audio - want).abs().max() / want.abs().max()).item()
+        if not gap <= SERVE_TOL:
+            fail(f"serve at b={b}: {gap} of peak from the forward on the "
+                 f"host allocator's conditioning (tolerance {SERVE_TOL})")
+        times = event_times(lambda: serve(roll, pedal, piano),
+                            n=SERVE_TIMED, warmup=1)
+        runs[b] = dict(launches=launches, gap=gap, times=times,
+                       ms=statistics.median(times),
+                       rtf=b * frames / 250 / (statistics.median(times)
+                                               / 1e3),
+                       kernel_ms=path_kernels(shapes, f'serve b={b}'),
+                       bounds=bounds_line(shapes))
+    cases['over-capacity binary roll'] = top_voices(
+        torch.from_numpy(churn).to(DEV), VA_VOICES)
+    row, detail = check_voice_allocator(cases)
+    return dict(runs=runs, row=row, detail=detail, seconds=frames / 250)
+
+
+def csv_path():
+    """Phase 20: ``python -m ddsp_piano_torch.synthesize_from_csv -d 10
+    --decompose`` over a two-row CSV of demo.mid with v2 at full width on
+    ``cuda``, counters set to 0 just before and read just after (a row: K1
+    twice, the forward's and the stems', K2 twice, K3 and K9 once): the
+    eight wav files finite and 10 s each; each launch held against its
+    plain version at its inputs."""
+    import csv
+
+    from ddsp_piano_torch import synthesize_from_csv as csv_cli
+    from ddsp_piano_torch.kernels import build
+
+    directory = os.path.join(OUT_DIR, 'csv')
+    os.makedirs(directory, exist_ok=True)
+    csv_file = os.path.join(directory, 'performances.csv')
+    with open(csv_file, 'w', newline='') as f:
+        writer = csv.writer(f)
+        writer.writerow(csv_cli.REQUIRED_COLUMNS)
+        writer.writerows(CSV_ROWS)
+    args = csv_cli.process_args(
+        ['-d', str(MAIN_PATH_SECONDS), '--decompose', '--device', DEV.type,
+         os.path.dirname(DEMO_MIDI), csv_file, os.path.join(directory, 'out')])
+    shapes = {}
+    sync()
+    build.reset_launches()
+    start = time.perf_counter()
+    with capturing(shapes):
+        written = csv_cli.main(args)
+    sync()
+    seconds = time.perf_counter() - start
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    want = {k: n * len(CSV_ROWS) for k, n in CSV_KERNELS.items()}
+    if launches != want:
+        fail(f"synthesize_from_csv --decompose: launches {launches}, "
+             f"expected {want}")
+    if len(written) != 4 * len(CSV_ROWS):
+        fail(f"synthesize_from_csv wrote {sorted(written)}")
+    n_samples = int(MAIN_PATH_SECONDS * 24000)
+    for path, audio in written.items():
+        if audio.shape != (n_samples,) or not np.isfinite(audio).all() or (
+                not np.abs(audio).max() > 0):
+            fail(f"{path}: {audio.shape} samples, not finite or silent")
+    rms = {os.path.basename(p): float(np.sqrt(np.mean(a.astype(
+        np.float64) ** 2))) for p, a in written.items()}
+    return dict(launches=launches, seconds=seconds, rms=rms,
+                kernel_ms=path_kernels(shapes, 'synthesize_from_csv'),
+                bounds=bounds_line(shapes))
+
+
+def stream_launches(config, oscillator):
+    """The launches of a ``--streaming`` render of n chunks (and the
+    flush): each Normalize sweep runs the control path to its slot (K2 a
+    chunk for the context slot; the surrogate's mono slot, ahead of its
+    GRU, adds K2 and K3 a chunk), then the render (K2 twice, K3 and, but
+    for the surrogate, the oscillator once a chunk)."""
+    def expected(n):
+        if config == 'surrogate':
+            return {'gru_scan': 2 * n + 2 * (n + 1),
+                    'note_release': n + (n + 1)}
+        return {f'oscillator_{oscillator}': n + 1,
+                'gru_scan': n + 2 * (n + 1), 'note_release': n + 1}
+    return expected
+
+
+def config_streaming():
+    """Phase 21: ``--streaming`` of 10 s of demo.mid at 4 s chunks for
+    enstdkcl_8khz, enstdkcl_32khz (each oscillator) and the surrogate, as
+    phases 14-15: launches exact, each launch against its plain version,
+    the streamed library render against the one-shot forward on one draw;
+    streamed against one-shot forward time and peak memory at 10 s, and
+    the surrogate's also tiled to ~180 s."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.models.streaming import pad_to_chunks
+
+    runs = {}
+    for config, oscillator in STREAM_CONFIGS:
+        start = time.perf_counter()
+        run = streaming_cli(config, MAIN_PATH_SECONDS, oscillator,
+                            stream_launches(config, oscillator))
+        model = run.pop('model')
+        chunk_frames = int(STREAM_CHUNK_SECONDS * model.frame_rate)
+        features = pad_to_chunks(demo_features(MAIN_PATH_SECONDS),
+                                 chunk_frames)
+        build_for = functools.partial(get_model, config, inference=True,
+                                      device=DEV, seed=SEED,
+                                      oscillator=oscillator)
+        # A z encoder is built for one length: the padded one.
+        run['gaps'] = stream_against_one_shot(
+            build_for(duration=features['conditioning'].shape[1]
+                      / model.frame_rate), features, chunk_frames,
+            f'{config} streaming --oscillator {oscillator}')
+        if oscillator == 'skip':
+            tiles = (1, STREAM_LONG_TILES) if config == 'surrogate' else (1,)
+            run['costs'] = streaming_costs(
+                model, chunk_frames, tiles=tiles, seconds=MAIN_PATH_SECONDS,
+                model_for=lambda s: build_for(duration=s))
+        run['phase_seconds'] = time.perf_counter() - start
+        runs[config, oscillator] = run
+    return runs
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs one NVIDIA GPU")
@@ -3025,6 +3318,47 @@ def main():
     for line in cache_path_lines(cache):
         print(line, flush=True)
 
+    t0 = time.perf_counter()
+    serving = serving_path()
+    for b, r in serving['runs'].items():
+        print(f"serving path: make_serving_fn, v2 at full width, demo.mid's "
+              f"roll ({serving['seconds']:g} s) x b={b} on cuda: serve "
+              f"{r['ms']:.2f} ms (CUDA events, median of "
+              + ' / '.join(f"{x:.2f}" for x in r['times'])
+              + f" ms after a warm-up; {r['rtf']:.1f}x realtime over the "
+              f"batch's audio); launches {r['launches']}; against the "
+              f"forward on the host allocator's conditioning {r['gap']:.3g} "
+              f"of peak (tolerance {SERVE_TOL:g}); kernels at their own "
+              "inputs, each against its plain version: "
+              + grouped_kernels_line(r['kernel_ms'])
+              + f"; bounds {r['bounds']}", flush=True)
+    row = serving['row']
+    kernels.append(row)
+    print(f"kernel voice_allocator: {serving['detail']}; max_abs_err 0; "
+          f"kernel_ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} "
+          f"library_ms none bound_ms {row['bound_ms']:.7f} "
+          f"({row['bound_by']}); phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    c = csv_path()
+    print(f"CSV path: synthesize_from_csv -d {MAIN_PATH_SECONDS:g} "
+          f"--decompose, {len(CSV_ROWS)} rows of demo.mid, v2 on cuda: "
+          f"{c['seconds']:.1f} s (data and wav writes included); launches "
+          f"{c['launches']}; rms " + ', '.join(
+              f"{k} {v:.4f}" for k, v in sorted(c['rms'].items()))
+          + "; kernels at their own inputs, each against its plain "
+          "version: " + grouped_kernels_line(c['kernel_ms'])
+          + f"; bounds {c['bounds']}", flush=True)
+
+    streams = config_streaming()
+    for (config, oscillator), r in streams.items():
+        print(streaming_line(f'{config} streaming path, --oscillator '
+                             f'{oscillator}', r)
+              + f"; bounds {r['bounds']}; phase part "
+              f"{r['phase_seconds']:.1f} s", flush=True)
+        if 'costs' in r:
+            print(costs_line(r['costs'], config), flush=True)
+
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:
         fail("the profiler recorded no device time over the training steps")
@@ -3063,7 +3397,11 @@ def main():
 
     for row in kernels:
         route, source, replaces = KERNEL_SOURCES[row['name']]
-        if row['name'] == 'oscillator_full':
+        if row['name'] == 'voice_allocator':
+            launches = (sum(r['launches'][row['name']]
+                            for r in serving['runs'].values())
+                        + c['launches'][row['name']])
+        elif row['name'] == 'oscillator_full':
             launches = runs['full']['launches'][row['name']]
         elif row['name'] == 'oscillator_skip':
             launches = (m['launches'][row['name']]

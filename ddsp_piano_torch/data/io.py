@@ -1,7 +1,9 @@
 """MIDI and audio files -> model features (numpy, host side).
 
-Copy of load_midi_as_conditioning, load_data and their helpers from
-ddsp_piano_tpu/data/io.py:18-98.
+Counterpart of ddsp_piano_tpu/data/io.py:18-98: load_data and its
+helpers copied; load_midi_as_conditioning split into load_midi_as_roll
+(the frames before voice allocation, which the CSV CLI allocates on the
+device) and the host allocation of that roll.
 """
 
 from __future__ import annotations
@@ -42,6 +44,32 @@ def midi_roll_from_sequence(note_sequence: midi.MidiSequence,
     return midi_roll, pedals
 
 
+def load_midi_as_roll(mid_path: str, frame_rate: int = 250,
+                      duration: Optional[float] = None,
+                      warm_up_duration: float = 0.0
+                      ) -> Dict[str, np.ndarray]:
+    """MIDI file -> the roll (1, n_frames, 88, 2) and pedal (1, n_frames,
+    4) of load_midi_as_conditioning before voice allocation (the same
+    frames: cropped or padded to ``duration``, warm-up silence prepended),
+    and the total duration in seconds. The warm-up's silent frames leave a
+    voice allocator as it starts, so allocating the whole roll equals
+    allocating the cropped one and prepending silence, as ddsp_piano_tpu/
+    data/io.py:45-72 does."""
+    note_sequence = load_midi_as_note_sequence(mid_path)
+    midi_roll, pedals = midi_roll_from_sequence(note_sequence, frame_rate)
+    if duration is None:
+        n_frames = int(np.ceil(note_sequence.total_time) * frame_rate)
+    else:
+        n_frames = int(duration * frame_rate)
+    total = n_frames + int(warm_up_duration * frame_rate)
+    midi_roll, pedals = (
+        ensure_sequence_length(ensure_sequence_length(x, n_frames), total,
+                               right=False) for x in (midi_roll, pedals))
+    return {'roll': midi_roll[np.newaxis].astype(np.float32),
+            'pedal': pedals[np.newaxis].astype(np.float32),
+            'duration': n_frames / frame_rate + warm_up_duration}
+
+
 def load_midi_as_conditioning(mid_path: str,
                               n_synths: int = 16,
                               frame_rate: int = 250,
@@ -50,26 +78,13 @@ def load_midi_as_conditioning(mid_path: str,
                               ) -> Dict[str, np.ndarray]:
     """MIDI file -> conditioning (1, n_frames, n_synths, 2), pedal
     (1, n_frames, 4) and the total duration in seconds (warm-up silence
-    prepended)."""
-    note_sequence = load_midi_as_note_sequence(mid_path)
-    midi_roll, pedals = midi_roll_from_sequence(note_sequence, frame_rate)
-    if duration is None:
-        target_n_frames = int(np.ceil(note_sequence.total_time) * frame_rate)
-    else:
-        target_n_frames = int(duration * frame_rate)
-    # Crop before voice allocation: the allocator is causal frame by frame.
-    midi_roll = ensure_sequence_length(midi_roll, target_n_frames)
-    conditioning, _ = roll_to_conditioning(midi_roll, n_synths)
-    conditioning = ensure_sequence_length(conditioning, target_n_frames)
-    pedals = ensure_sequence_length(pedals, target_n_frames)
-    if warm_up_duration > 0.0:
-        n_frames = target_n_frames + int(warm_up_duration * frame_rate)
-        conditioning = ensure_sequence_length(conditioning, n_frames,
-                                              right=False)
-        pedals = ensure_sequence_length(pedals, n_frames, right=False)
+    prepended): load_midi_as_roll's roll through the host allocator."""
+    inputs = load_midi_as_roll(mid_path, frame_rate=frame_rate,
+                               duration=duration,
+                               warm_up_duration=warm_up_duration)
+    conditioning, _ = roll_to_conditioning(inputs['roll'][0], n_synths)
     return {'conditioning': conditioning[np.newaxis].astype(np.float32),
-            'pedal': pedals[np.newaxis].astype(np.float32),
-            'duration': target_n_frames / frame_rate + warm_up_duration}
+            'pedal': inputs['pedal'], 'duration': inputs['duration']}
 
 
 def load_data(audio_path: str,

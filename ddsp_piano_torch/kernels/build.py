@@ -42,6 +42,7 @@ SOURCE_FLAGS = {
     'oscillator_skip_bwd': ('--fmad=false',),
     'gru_scan_bwd': (),
     'oscillator_full': ('--fmad=false',),
+    'voice_allocator': (),
 }
 
 _P = ctypes.c_void_p
@@ -79,14 +80,17 @@ SIGNATURES = {
         'osc_full_launch': (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
                             _F, _I, _I, _I, _P),
     },
+    'voice_allocator': {
+        'voice_allocator_launch': (_P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 # The kernels, by the name of their launch counter: K1-K3 (inference),
-# K4-K7 (gradients) and K8 (the all-partials oscillator).
-# note_release_bwd.cu holds two of them.
+# K4-K7 (gradients), K8 (the all-partials oscillator) and K9 (the voice
+# allocator of the serving path). note_release_bwd.cu holds two of them.
 KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
            'oscillator_skip_bwd', 'gru_scan_bwd', 'note_release_res',
-           'note_release_bwd', 'oscillator_full')
+           'note_release_bwd', 'oscillator_full', 'voice_allocator')
 
 # Launches of each kernel, counted by its wrapper where it launches the
 # kernel and nowhere else (a run shows its path went through the kernels).

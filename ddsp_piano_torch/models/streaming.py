@@ -7,19 +7,25 @@ file's. Between chunks the driver carries:
 
 - the GRU hidden states of the context and monophonic networks (K2's h0),
 - the NoteRelease state [held note, release steps] (K3's state0),
+- the surrogate synth's frames since the last onset,
 - the oscillator phase of every (voice, partial), in float64, with one
   frame of control lookahead so that chunk boundaries are sample-exact
   (K1's, or K8's, phase0 offset by it),
 - the reverb's convolution tail (ir_len - 1 samples), overlap-added into
-  the following chunks.
+  the following chunks. The reverb's IR (a learned one, the v2 FDN's from
+  its embeddings, or the ENSTDkCl models' standalone trainable FDN's) is
+  made once a render, not once a chunk.
 
 The v2 networks normalise per step (Keras LayerNormalization) and stream
-exactly. dafx22's ``Normalize`` pools its statistics over the whole
-sequence: the driver first sweeps the file once per Normalize layer,
-through the control path only, for the whole-file mean and variance,
-then renders every chunk with them fixed.
+exactly. The ``Normalize`` layers (dafx22, the ENSTDkCl models, the
+surrogate) pool their statistics over the whole sequence: with
+``exact_normalize`` (the default) the driver first sweeps the file once
+per Normalize layer, through the control path only, for the whole-file
+mean and variance, then renders every chunk with them fixed; without it
+each chunk normalises with its own statistics (faster, approximate).
 The filtered-noise synth is chunk-local (its FIR edges at chunk
-boundaries sit at the noise floor).
+boundaries sit at the noise floor), as is the surrogate synth's decay
+envelope, whose time base is the carried onset counter.
 
 Noise: each chunk draws from one explicit ``torch.Generator`` (advanced
 chunk by chunk), or the caller passes the draws: one full-length
@@ -41,8 +47,9 @@ from ddsp_piano_torch import nn
 from ddsp_piano_torch.models import sub_modules as sm
 from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
 from ddsp_piano_torch.ops import core, oscillator
-from ddsp_piano_torch.processors.inharm import MultiInharmonic
 from ddsp_piano_torch.processors.reverb import Reverb
+from ddsp_piano_torch.processors.surrogate import (SurrogateAdditive,
+                                                   render_framewise_decay)
 
 Noise = Union[None, torch.Tensor, Sequence[torch.Tensor]]
 
@@ -54,26 +61,22 @@ class StreamingSynthesizer:
     Args:
         model: the PianoModel (its device is the render's).
         chunk_frames: frames per chunk.
+        exact_normalize: whole-file statistics for the Normalize layers
+            (a control-path sweep per layer first); False normalises each
+            chunk with its own.
     """
 
-    def __init__(self, model, chunk_frames: int = 250):
+    def __init__(self, model, chunk_frames: int = 250,
+                 exact_normalize: bool = True):
         group = model.processor_group
         if not isinstance(group, VectorizedPolyphonicProcessorGroup):
             raise ValueError("Streaming requires the vectorized polyphonic "
                              "processor group.")
-        unported = self.unported_parts(model)
-        if unported:
-            raise ValueError(
-                "Streaming is not ported for this model's "
-                + ', '.join(unported) + ": the port streams neither the "
-                "surrogate synth, the pedal-only context network nor the "
-                "standalone FDN reverb yet (ddsp_piano_tpu/models/"
-                "streaming.py:83-127, :283-311, :532-560). Render it in one "
-                "pass.")
         if chunk_frames < 1:
             raise ValueError(f"chunk_frames must be >= 1, got {chunk_frames}")
         self.model = model
         self.chunk_frames = int(chunk_frames)
+        self.exact_normalize = exact_normalize
         # (ir_len, fft_len, add_dry) of the reverb operator, set by
         # _static_features.
         self._reverb_meta = None
@@ -85,7 +88,7 @@ class StreamingSynthesizer:
         (every context slot feeds the mono network)."""
         slots = []
         ctx = self.model.context_network
-        if isinstance(ctx, sm.ContextNetwork):
+        if isinstance(ctx, (sm.ContextNetwork, sm.SimpleContextNet)):
             slots += [('context', i) for i, layer in enumerate(ctx.model)
                       if isinstance(layer, nn.Normalize)]
         mono = self.model.monophonic_network
@@ -93,21 +96,6 @@ class StreamingSynthesizer:
             slots += [('mono', i) for i, layer in enumerate(mono.model)
                       if isinstance(layer, nn.Normalize)]
         return slots
-
-    @staticmethod
-    def unported_parts(model) -> List[str]:
-        """The parts of ``model`` whose streaming is not ported: the
-        pedal-only SimpleContextNet (enstdkcl_8khz), the standalone FDN
-        reverb (the ENSTDkCl models) and the surrogate synth."""
-        group = model.processor_group
-        parts = []
-        if isinstance(model.context_network, sm.SimpleContextNet):
-            parts.append('SimpleContextNet context network')
-        if not isinstance(group.additive, MultiInharmonic):
-            parts.append(f'{type(group.additive).__name__} additive synth')
-        if group.reverb is not None and not isinstance(group.reverb, Reverb):
-            parts.append(f'{type(group.reverb).__name__} reverb')
-        return parts
 
     # -- the networks, with carried state ----------------------------------
 
@@ -129,6 +117,14 @@ class StreamingSynthesizer:
             coef, bias = torch.chunk(ctx.film_input_reshape(piano_feat), 2,
                                      dim=-1)
             return ctx.output_layer(x * coef + bias), new_states, {}
+        if isinstance(ctx, sm.SimpleContextNet):
+            x, new_states, prenorm = nn.apply_stream(
+                ctx.model, features['pedal'], states, norm_stats=norm_stats,
+                stop_after=stop_after)
+            if stop_after is not None:
+                return None, new_states, prenorm
+            return (ctx.film(ctx.dense_out(x), features.get('z')),
+                    new_states, prenorm)
         x = ctx._inputs(features['conditioning'], features['pedal'],
                         features['z'])
         x, new_states, prenorm = nn.apply_stream(
@@ -217,6 +213,14 @@ class StreamingSynthesizer:
             feats['conditioning'], extended, feats['context'],
             state.get('mono_states'), norm_stats=norm_stats.get('mono'))
         feats.update(mono_outs)
+        surrogate_time = None
+        if model.surrogate_module is not None:
+            # The frames-since-onset counter, carried across chunks.
+            feats['decays'], feats['decay_time'], surrogate_time = (
+                model.surrogate_module(
+                    feats['conditioning'], extended,
+                    initial_state=state.get('surrogate_time'),
+                    return_state=True))
 
         # Synthesis over the window [previous frame, this chunk's frames];
         # the last frame is only the interpolation endpoint.
@@ -233,9 +237,12 @@ class StreamingSynthesizer:
 
         controls = group.additive.get_controls(
             *(windowed[k] for k in group.additive_controls))
-        freqs, amps = group.additive.fold_substrings(
-            controls['amplitudes'], controls['harmonic_distribution'],
-            controls['harmonic_shifts'], controls['f0_hz'])
+        surrogate = isinstance(group.additive, SurrogateAdditive)
+        fold = (group.additive.fold_controls if surrogate
+                else group.additive.fold_substrings)
+        freqs, amps = fold(controls['amplitudes'],
+                           controls['harmonic_distribution'],
+                           controls['harmonic_shifts'], controls['f0_hz'])
         initial_phase = state.get('osc_phase')
         if first:
             # Start the duplicated frame one advance early, so that frame 0
@@ -245,7 +252,14 @@ class StreamingSynthesizer:
         osc = oscillator.framewise_osc_controls(
             freqs, amps, up, sample_rate, initial_phase=initial_phase,
             lookahead=True)
-        sig_add = group.additive.render(osc)
+        if surrogate:
+            # The decay envelope is frame-local: its controls align with
+            # the rendered frames (the lookahead endpoint dropped).
+            sig_add = render_framewise_decay(
+                osc, controls['decays'][:, :-1],
+                controls['decay_time'][:, :-1], up, sample_rate)
+        else:
+            sig_add = group.additive.render(osc)
         new_phase = oscillator.framewise_final_phase(
             osc, up, sample_rate, initial_phase=initial_phase)
 
@@ -275,6 +289,8 @@ class StreamingSynthesizer:
             'prev_controls': new_prev,
             'reverb_tail': new_tail,
         }
+        if surrogate_time is not None:
+            new_state['surrogate_time'] = surrogate_time
         return (audio, mix), new_state
 
     def _reverb_chunk(self, ir_fft, mix, tail):
@@ -370,8 +386,8 @@ class StreamingSynthesizer:
 
     def _static_features(self, features) -> Dict[str, Any]:
         """The reverb IR and its spectrum: the reverb models read the piano
-        model only, so they are computed once a render, not once a
-        chunk."""
+        model only and the standalone FDN its own parameters, so they are
+        computed once a render, not once a chunk."""
         model = self.model
         static: Dict[str, Any] = {}
         if model.reverb_model is not None:
@@ -382,15 +398,23 @@ class StreamingSynthesizer:
         return static
 
     def _reverb_operator(self, static: Dict[str, Any]) -> torch.Tensor:
-        """The chunk-invariant spectrum of the reverb's masked IR. Records
-        (ir_len, fft_len, add_dry) in ``_reverb_meta``."""
+        """The chunk-invariant spectrum of the reverb's IR: a supplied IR,
+        dry tap masked, or the standalone trainable FDN's IR, synthesised
+        here once (its get_signal adds no dry path). Records (ir_len,
+        fft_len, add_dry) in ``_reverb_meta``."""
         group = self.model.processor_group
         rev = group.reverb
-        ir = Reverb.mask_dry_ir(core.f32(static[group.reverb_controls[0]]))
+        if isinstance(rev, Reverb):
+            ir = Reverb.mask_dry_ir(
+                core.f32(static[group.reverb_controls[0]]))
+            add_dry = rev.add_dry
+        else:
+            ir = core.f32(rev.trained_ir())
+            add_dry = False
         n_samples = self.chunk_frames * group.additive.upsampling
         ir_len = ir.shape[-1]
         fft_len = _fft_length(n_samples + ir_len - 1)
-        self._reverb_meta = (ir_len, fft_len, rev.add_dry)
+        self._reverb_meta = (ir_len, fft_len, add_dry)
         return torch.fft.rfft(ir, n=fft_len)
 
     # -- drivers --------------------------------------------------------------
@@ -402,7 +426,7 @@ class StreamingSynthesizer:
             raise ValueError(f"total frames {total} must be divisible by "
                              f"chunk_frames {C}")
         static = self._static_features(features)
-        if self._norm_slots:
+        if self.exact_normalize and self._norm_slots:
             static['_norm_stats'] = self._norm_stats_all(features, total // C)
         return total, static
 
@@ -505,6 +529,9 @@ class StreamingSynthesizer:
         n_substrings = (f0_module.layer.kernel.shape[-1]
                         if isinstance(f0_module, sm.Detuner) else 1)
         widths.update(inharm_coef=1, f0_hz=n_substrings)
+        if model.surrogate_module is not None:
+            widths.update(decays=widths['harmonic_distribution'],
+                          decay_time=1)
         n_partials = widths['harmonic_distribution'] * n_substrings
         state = {
             'context_states': gru_states(ctx_layers, batch),
@@ -517,6 +544,8 @@ class StreamingSynthesizer:
             'reverb_tail': None,
             'first': True,
         }
+        if model.surrogate_module is not None:
+            state['surrogate_time'] = zeros(rows, 1, 1)
         if group.reverb is not None:
             state['reverb_tail'] = zeros(batch, self._reverb_meta[0] - 1)
         return state

@@ -95,11 +95,16 @@ class SimpleContextNet(nn.DictModule):
                                   out_features)
 
     def forward(self, pedal, z=None):
-        context = self.dense_out(self.model(pedal))
-        if z is not None:
-            film_coef, film_bias = torch.chunk(z, 2, dim=-1)
-            context = context * film_coef + film_bias
-        return context
+        return self.film(self.dense_out(self.model(pedal)), z)
+
+    @staticmethod
+    def film(context, z=None):
+        """The context modulated by the instrument z, split into FiLM
+        coefficients and biases (no z: unchanged)."""
+        if z is None:
+            return context
+        film_coef, film_bias = torch.chunk(z, 2, dim=-1)
+        return context * film_coef + film_bias
 
 
 class OneHotZEncoder(nn.DictModule):

@@ -68,13 +68,10 @@ def surrogate_harmonic_synthesis(frequencies, amplitudes, decays,
     (b, t, K), decay_time (b, t, 1), harmonic_shifts and
     harmonic_distribution (b, t, K). (The JAX function's optional
     controls, which the surrogate synth always passes, are required.)"""
-    frequencies = core.f32(frequencies)
-    amplitudes = core.f32(amplitudes)
-    harmonic_frequencies = core.get_harmonic_frequencies(
-        frequencies, harmonic_distribution.shape[-1]) * (1.0 + harmonic_shifts)
-    controls = oscillator.framewise_osc_controls(
-        harmonic_frequencies, amplitudes * harmonic_distribution, upsampling,
-        sample_rate)
+    freqs, amps = SurrogateAdditive.fold_controls(
+        amplitudes, harmonic_distribution, harmonic_shifts, frequencies)
+    controls = oscillator.framewise_osc_controls(freqs, amps, upsampling,
+                                                 sample_rate)
     return render_framewise_decay(controls, decays, decay_time, upsampling,
                                   sample_rate)
 
@@ -132,6 +129,17 @@ class SurrogateAdditive(Processor):
                 'harmonic_distribution': harmonic_distribution,
                 'harmonic_shifts': harmonic_shifts,
                 'f0_hz': core.f32(f0_hz)}
+
+    @staticmethod
+    def fold_controls(amplitudes, harmonic_distribution, harmonic_shifts,
+                      f0_hz):
+        """Per-partial (frequencies, amplitudes) at frame rate, each
+        (b, t, K): the one-shot render's and the streaming driver's shared
+        representation (surrogate.py:168-175; one substring, no fold)."""
+        freqs = core.get_harmonic_frequencies(
+            core.f32(f0_hz), harmonic_distribution.shape[-1])
+        return (freqs * (1.0 + harmonic_shifts),
+                core.f32(amplitudes) * harmonic_distribution)
 
     def get_signal(self, amplitudes, decays, decay_time,
                    harmonic_distribution, harmonic_shifts, f0_hz):

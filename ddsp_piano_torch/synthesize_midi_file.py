@@ -18,8 +18,9 @@ directory holding ``.index`` files; reading it needs TensorFlow). Without
 seeds the noise synth. --oscillator full renders every partial with the all-partials
 kernel (forward only), as DDSP_PIANO_TPU_PALLAS=1 does in the JAX package;
 the default skips silent and above-Nyquist partials. --streaming renders
-chunk by chunk (models/streaming.py, the uniform-chunk driver, as the JAX
-CLI's synthesize_scanned): the file is right-padded to whole chunks of
+chunk by chunk, for every registered config (models/streaming.py, the
+uniform-chunk driver, as the JAX CLI's synthesize_scanned): the file is
+right-padded to whole chunks of
 --chunk_seconds, the card holds one chunk's controls at a time, and the
 audio is cropped to the file's samples.
 """

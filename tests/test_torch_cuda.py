@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-K1-K3 and K8 (forward) and K4-K7 (gradients), each with its launch
+K1-K3 and K8 (forward), K4-K7 (gradients) and K9 (the voice allocator),
+each with its launch
 counter (K3, K6 and K7 at every edge of their shared plan; K8 at edge
 shapes, and its cosine to 2 ulp), and
 each autograd Function on CUDA tensors against the same Function on CPU
@@ -542,3 +543,27 @@ def test_packed_staging_decodes_bit_exactly_on_the_card(cuda_device, wire):
     for k, v in batch.items():
         assert got[k].is_cuda
         np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n', [1, 4, 16, 32])
+def test_voice_allocator_kernel_matches_plain(cuda_device, n):
+    """K9 against the plain loop, bit for bit, on rolls within and over
+    capacity (b = 3), one with non-binary active values (key * active
+    collisions, the overflow clamp), at 1 to 32 voices; one launch."""
+    from ddsp_piano_torch.data.midi_encoders_device import top_voices
+    from ddsp_piano_torch.data.rolls import held_notes_roll
+    from ddsp_piano_torch.kernels import voice_allocator as tva
+
+    rolls = np.stack([held_notes_roll(s, 120, d)
+                      for s, d in ((1, 20), (2, 90), (3, 60))])
+    rolls[2, :, :, 0] *= np.random.RandomState(4).choice(
+        np.float32([0.5, 1.0, 2.0, 3.0]), size=(120, 88))
+    pitches, velocity = top_voices(
+        torch.from_numpy(rolls).to(cuda_device), n)
+    build.reset_launches()
+    got = tva.allocate(pitches, velocity)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['voice_allocator'] == 1
+    want = tva.allocate_plain(pitches, velocity)
+    assert torch.equal(got, want)

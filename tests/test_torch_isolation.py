@@ -43,7 +43,9 @@ for name in ('models.streaming', 'processors.surrogate',
              'configs.enstdkcl_8khz', 'configs.enstdkcl_32khz',
              'configs.multi_instruments', 'configs.surrogate',
              'preprocess_maestro', 'train_ddsp_piano', 'training.staging',
-             'training.debug', 'configs.gin_test'):
+             'training.debug', 'configs.gin_test', 'models.serving',
+             'data.midi_encoders_device', 'kernels.voice_allocator',
+             'synthesize_from_csv'):
     assert 'ddsp_piano_torch.' + name in names, names
 """
 
@@ -79,6 +81,15 @@ def test_evaluate_cli_raises_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     with pytest.raises(RuntimeError, match='CUDA is not available'):
         cli.main(cli.process_args([str(tmp_path), str(tmp_path / 'out')]))
+
+
+def test_csv_cli_raises_without_cuda(monkeypatch, tmp_path):
+    from ddsp_piano_torch import synthesize_from_csv as cli
+
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+        cli.main(cli.process_args([str(tmp_path), str(tmp_path / 'p.csv'),
+                                   str(tmp_path / 'out')]))
 
 
 def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -675,13 +675,13 @@ def test_streaming_refuses_what_it_cannot_render(models):
         streamer.synthesize(_torch_features(_conditioning()))
     with pytest.raises(ValueError, match='chunk_frames'):
         StreamingSynthesizer(model, chunk_frames=0)
-    additive = model.processor_group.additive
+    group = model.processor_group
     try:
-        model.processor_group.additive = torch.nn.Identity()
-        with pytest.raises(ValueError, match='surrogate'):
+        model.processor_group = torch.nn.Identity()
+        with pytest.raises(ValueError, match='vectorized polyphonic'):
             StreamingSynthesizer(model)
     finally:
-        model.processor_group.additive = additive
+        model.processor_group = group
 
 
 # -- the CLI ------------------------------------------------------------------

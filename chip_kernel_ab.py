@@ -4,8 +4,9 @@ against another checkout's, at the same recorded inputs: K1 (the skipping
 oscillator, csrc/oscillator_skip.cu), K4 (its backward,
 csrc/oscillator_skip_bwd.cu), K3 (the NoteRelease recurrence of the
 render, csrc/note_release.cu), K6 / K7 (NoteRelease on the training path
-and its reverse walk, csrc/note_release_bwd.cu) and K8 (the all-partials
-oscillator, csrc/oscillator_full.cu).
+and its reverse walk, csrc/note_release_bwd.cu), K8 (the all-partials
+oscillator, csrc/oscillator_full.cu) and K9 (the voice allocator of the
+serving path, csrc/voice_allocator.cu).
 
     python3 chip_kernel_ab.py --other build/ab/parent [--kernels K3,K8]
 
@@ -22,13 +23,18 @@ phase runs in a fresh process:
    repeated in time, its residual streams from the plain forward, seeded
    cotangents); K3 at the 10 s v2 render's input (T = 2625) and K8 at the
    dafx22 model's 3 s segment and 10 s render (the synthesize CLI with
-   ``--oscillator full`` on the card). Each input's share of live cells
-   (K1, K4, K8) or its release ties (K3, K6, K7) is printed.
+   ``--oscillator full`` on the card); K9 at demo.mid's top 16 voices
+   (10 s after the 0.5 s warm-up, chip_smoke.py phase 19) at b = 1 and 8
+   and at the seeded over-capacity roll (4, 500, 16). Each input's share
+   of live cells (K1, K4, K8), its release ties (K3, K6, K7) or the
+   frames K9's walk takes and skips (the plain version's counts) is
+   printed.
 2. Four arms, in the order other, this, this, other. Each imports
    ddsp_piano_torch from its own checkout, builds its kernels, holds each
    kernel against that checkout's plain version at every input (K1 and K4
    within chip_smoke.py's OSC_TOL and OSC_BWD_TOL, K8 within OSC_TOL and
-   within K8_K1_TOL of K1, K3, K6 and K7 bit-exact),
+   within K8_K1_TOL of K1, K3, K6, K7 and K9 bit-exact; K9's plain
+   version runs on the host),
    and times each: the wrapper call (CUDA events from before its host
    work to after its launch, as chip_smoke.py times a kernel) and the
    kernel on the card alone (chip_smoke.card_times: CUDA events between
@@ -64,7 +70,8 @@ KERNELS = {'K1': ('oscillator_skip', 'osc_skip_kernel'),
            'K4': ('oscillator_skip_bwd', 'osc_skip_bwd'),
            'K6': ('note_release_bwd', 'note_release_res_kernel'),
            'K7': ('note_release_bwd', 'note_release_bwd_kernel'),
-           'K8': ('oscillator_full', 'osc_full_kernel')}
+           'K8': ('oscillator_full', 'osc_full_kernel'),
+           'K9': ('voice_allocator', 'voice_allocator')}
 LONG_T = 2625                  # frames of the 10 s render with its warm-up
 # The SASS opcodes counted for every kernel instance.
 SASS_OPS = ('ULDC', 'LDS', 'LDG', 'STG', 'LDL', 'STL', 'LDGSTS', 'UBLKCP',
@@ -137,6 +144,37 @@ def long_note_release(x, thr, s0):
     return (x, thr, s0), (x, thr, prev, steps, g_out, g_state)
 
 
+def voice_allocator_inputs():
+    """K9's inputs, on the host: demo.mid's top 16 voices at b = 1 and 8
+    (the serve's rows, chip_smoke.py phase 19) and the over-capacity
+    churn roll."""
+    from ddsp_piano_torch.data.io import load_midi_as_roll
+    from ddsp_piano_torch.data.midi_encoders_device import top_voices
+    from ddsp_piano_torch.data.rolls import churn_roll
+
+    demo = load_midi_as_roll(cs.DEMO_MIDI, duration=cs.MAIN_PATH_SECONDS,
+                             warm_up_duration=0.5)['roll']
+    churn = np.stack([churn_roll(s, cs.VA_VOICES, cs.VA_CHURN[1])
+                      for s in range(cs.VA_CHURN[0])])
+    return [(f'demo.mid b={b}', top_voices(
+                torch.from_numpy(np.repeat(demo, b, 0)), cs.VA_VOICES))
+            for b in (1, 8)] + [
+        ('the over-capacity roll', top_voices(torch.from_numpy(churn),
+                                              cs.VA_VOICES))]
+
+
+def walk_text(p, v):
+    """The frames K9's walk takes (slow, fast) and skips, a row."""
+    from ddsp_piano_torch.kernels import voice_allocator as va
+
+    _, n_fast, n_skipped = va.allocate_plain(p, v, return_fast=True)
+    t = p.shape[1]
+    rows = [f"{t - f}/{f - k} {k}" for f, k in zip(n_fast.tolist(),
+                                                      n_skipped.tolist())]
+    return ("walked slow / fast, skipped, a row: " + ', '.join(rows[:4])
+            + (' ...' if len(rows) > 4 else ''))
+
+
 def record(kernels):
     from ddsp_piano_torch.device import set_f32_precision
 
@@ -190,6 +228,9 @@ def record(kernels):
                   ('K7', 'the training step', bwd),
                   ('K6', f'T = {LONG_T}', long_res),
                   ('K7', f'T = {LONG_T}', long_bwd)]
+    if 'K9' in kernels:
+        cases += [('K9', where, args)
+                  for where, args in voice_allocator_inputs()]
     saved, described = [], []
     for kernel, where, args in cases:
         if kernel not in kernels:
@@ -201,6 +242,9 @@ def record(kernels):
             args = (list(args[0]),) + tuple(args[1:])
             shape = tuple(args[0][0].shape)
             text = cells_text(kernel, args[0], args[-1])
+        elif kernel == 'K9':
+            shape = tuple(args[0].shape)
+            text = walk_text(*args)
         else:
             from ddsp_piano_torch.kernels import note_release as knr
 
@@ -329,6 +373,14 @@ def case_call(case):
     from ddsp_piano_torch.ops.oscillator import FramewiseOscControls
 
     kernel, args = case['kernel'], cs.to_card(case['args'])
+    if kernel == 'K9':
+        from ddsp_piano_torch.kernels import voice_allocator as va
+
+        fn = lambda: va.allocate_cuda(*args)
+        want = va.allocate_plain(*case['args'])
+        exact = torch.equal(fn().cpu().view(torch.int32),
+                            want.view(torch.int32))
+        return fn, (0.0 if exact else float('inf')), 0.0
     if kernel == 'K1':
         controls, up, sr = args
         controls = FramewiseOscControls(*controls)

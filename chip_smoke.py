@@ -167,10 +167,13 @@ non-zero exit code and no result line:
    K3 and the voice allocator K9 once), its audio against the forward on
    the host allocator's conditioning with the same generator (1e-6 of
    peak), its CUDA-event time (median of 3 after a warm-up). K9 held
-   bit-exact against its plain version on the demo roll (b = 1 and 8) and
-   a seeded over-capacity binary roll; its call, card and plain times,
-   bound (bytes or operations, counted from the roll's fast and slow
-   frames) and chain bound.
+   bit-exact against its plain version on the demo roll (b = 1 and 8), a
+   seeded over-capacity binary roll and unsorted frames with repeated
+   pitches, 0.0, -0.0 and NaN (500 frames, T = 1 and T = 33); at the demo
+   roll (b = 1 and 8) and the over-capacity roll its call and card times,
+   the frames its walk takes and skips (the plain version's counts), its
+   chain bound and its stages' bytes; its plain time and bound (bytes or
+   operations, of the frames the roll walks) at b = 1.
 20. The CSV CLI: ``synthesize_from_csv -d 10 --decompose`` over a two-row
    CSV of demo.mid, v2 at full width on ``cuda``, counted (a row: K1
    twice, the forward's and the stems', K2 twice, K3 and K9 once): eight
@@ -2271,8 +2274,8 @@ def memory_peak_mib(before):
 
 
 def launch_bound(kernel, args):
-    """(ms, what bounds it) of one K1, K8 or K2 launch at its inputs, as
-    the kernel lines reckon it; None for another kernel."""
+    """(ms, what bounds it) of one K1, K8, K2 or K3 launch at its inputs,
+    as the kernel lines reckon it; None for another kernel."""
     if kernel in ('oscillator_skip', 'oscillator_full'):
         controls, up, sr = args[:3]
         if kernel == 'oscillator_skip':
@@ -2286,11 +2289,14 @@ def launch_bound(kernel, args):
     if kernel == 'gru_scan':
         t, b, three_u = args[0].shape
         return gru_bound(t, b, three_u // 3)
+    if kernel == 'note_release':
+        t, b, _ = args[0].shape
+        return bound(NR_FLOPS_PER_STEP * t * b, 4 * (2 * t * b + 1 + 4 * b))
     return None
 
 
 def bounds_line(capture):
-    """Each K1, K8 and K2 shape of a capture with its bound."""
+    """Each K1, K8, K2 and K3 shape of a capture with its bound."""
     seen = {}
     for kernel, calls in sorted(capture.items()):
         for args in calls:
@@ -2867,6 +2873,10 @@ SERVE_KERNELS = {'oscillator_skip': 1, 'gru_scan': 2, 'note_release': 1,
                  'voice_allocator': 1}
 VA_VOICES = 16                 # v2's polyphony
 VA_CHURN = (4, 500)            # rows and frames of the over-capacity roll
+# Unsorted frames with repeated pitches, 0.0, -0.0 and NaN (3 rows each):
+# case -> (seed, frames).
+VA_ODD = {'odd roll': (0, 500), 'odd roll T=1': (1, 1),
+          'odd roll T=33': (2, 33)}
 CSV_ROWS = (('demo.mid', 3, 'Johann Sebastian Bach'),
             ('demo.mid', 7, 'Frederic Chopin'))
 # Per row: K1, K2, K3 and K9 launches of the CLI with --decompose (the
@@ -2877,62 +2887,122 @@ STREAM_CONFIGS = (('enstdkcl_8khz', 'skip'), ('enstdkcl_32khz', 'skip'),
                   ('enstdkcl_32khz', 'full'), ('surrogate', 'skip'))
 
 
-def va_ops(n, fast):
-    """K9's operations per (frame, lane), counted from its source: the
-    comparison loop 7 n + 10 (two shuffles, two compares, two ors and a
-    select a slot; the ballots and the output's two shuffles); the slow
-    path adds the rank loop 5 n, the scatter loop 7 n and ~40 for the
-    ballots, counts and selects between them."""
-    return 7 * n + 10 if fast else 19 * n + 50
+def va_walk(n, t, n_fast, n_skipped):
+    """A row's frames in K9's walk, (slow, walked fast), from the plain
+    version's counts: every slow frame is walked, and every fast frame
+    the skip rule does not skip."""
+    return t - n_fast, n_fast - n_skipped
 
 
-def va_chain(n, fast):
-    """K9's dependent operations a frame: the loops' accumulators chain
-    (n each), plus the ballots, counts and selects between them."""
-    return n + 4 if fast else 3 * n + 20
+def va_ops(n, t, slow, fast):
+    """K9's operations over one row, counted from its source: classify 2 n
+    a frame (compares and ands); the walk per (walked frame, lane) 7 n +
+    10 on the fast path (the comparison loop: two shuffles, two compares,
+    two ors and a select a slot; the ballots) and 13 n + 120 on the slow
+    one (besides those, ~110 for the ballots, counts, the nth_bit searches
+    and selects of the closed-form scatter, and 6 n for the mirror test);
+    the fill ~20 a (frame, slot) (the index arithmetic, the mask test,
+    __clz, the gathers)."""
+    return 2 * n * t + n * (fast * (7 * n + 10) + slow * (13 * n + 120)) \
+        + 20 * n * t
+
+
+def va_stage_bytes(n, t, slow, fast):
+    """K9's traffic over one row by stage (classify, walk, fill): the
+    classify reads the pitches and writes a 4-byte word per 32 frames;
+    the walk reads the words and the pitches of the frames it loads (at
+    most the walked ones), writes each walked frame's int8 permutation and
+    each word's anchor; the fill reads pitches, velocities, words, anchors
+    and the walked permutations, and writes (pitch, velocity) a (frame,
+    slot)."""
+    words = -(-t // 32)
+    walked = slow + fast
+    return (4 * t * n + 4 * words,
+            4 * words + 4 * walked * n + walked * n + 4 * words,
+            8 * t * n + 8 * words + walked * n + 8 * t * n)
+
+
+def va_chain(n, slow, fast):
+    """K9's dependent operations over one row's walk: n + 4 a walked fast
+    frame (the comparison loop's accumulators chain, the fast test), n +
+    44 a slow one (~40 more for the ballots, counts, nth_bit searches and
+    selects between them). Not counted, so that this stays a lower bound:
+    the mirror test after a slow frame that the next frame equals (n + 4),
+    and a few operations a skipped 32-frame word."""
+    return slow * (n + 44) + fast * (n + 4)
+
+
+VA_TIMED = tuple(f'demo roll b={b}' for b in SERVE_BATCHES) + (
+    'over-capacity binary roll',)
 
 
 def check_voice_allocator(cases):
-    """K9 against its plain version on the card, bit for bit, at each
-    case's (pitches, velocity); the first case's call, card and plain
-    times, its bound (bytes or operations, the fast and slow frames that
-    this roll takes) and its chain bound."""
+    """K9 against its plain version on the card, bit for bit (NaN payloads
+    and signed zeros included), at each case's (pitches, velocity); at
+    each case of VA_TIMED the call and card times (the card time of its
+    three kernels), the frames its walk takes (slow, fast) and skips, its
+    chain bound and its stages' bytes; the plain time at the first. The
+    kernels line's row: the first case, its bound (bytes or operations, of
+    the frames this roll walks)."""
     from ddsp_piano_torch.kernels import voice_allocator as va
 
-    fast = {}
+    walks = {}
     with torch.inference_mode():
         for what, (p, v) in cases.items():
             got = va.allocate_cuda(p, v)
-            want, fast[what] = va.allocate_plain(p, v,
-                                                 return_fast=True)
+            want, n_fast, n_skipped = va.allocate_plain(p, v,
+                                                        return_fast=True)
             sync()
-            if not torch.equal(got, want):
-                bad = int((got != want).any(-1).sum())
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                bad = int((got.view(torch.int32) != want.view(torch.int32))
+                          .any(-1).sum())
                 fail(f"voice_allocator at {what} {tuple(p.shape)}: {bad} "
                      f"(frame, slot) entries differ from its plain version")
-        what, (p, v) = next(iter(cases.items()))
-        b, t, n = p.shape
-        frames = [(int(f), t - int(f)) for f in fast[what].tolist()]
-        ms = median_ms(lambda: va.allocate_cuda(p, v))
-        card = statistics.median(card_times(lambda: va.allocate_cuda(p, v)))
+            b, t, n = p.shape
+            walks[what] = [va_walk(n, t, f, k) + (k,) for f, k in zip(
+                n_fast.tolist(), n_skipped.tolist())]
+        timed = {}
+        for what in VA_TIMED:
+            p, v = cases[what]
+            timed[what] = dict(
+                ms=median_ms(lambda: va.allocate_cuda(p, v)),
+                card=statistics.median(card_times(
+                    lambda: va.allocate_cuda(p, v))))
+        p, v = cases[VA_TIMED[0]]
         plain = statistics.median(event_times(
             lambda: va.allocate_plain(p, v), n=1, warmup=0))
-    ops = n * sum(f * va_ops(n, True) + s * va_ops(n, False)
-                  for f, s in frames)
-    bound_ms, bound_by = bound(ops, 16 * b * t * n)
-    chain = max(f * va_chain(n, True) + s * va_chain(n, False)
-                for f, s in frames)
-    chain_ms = chain * CYCLES_PER_DEPENDENT_OP / (sm_clock_mhz()[0] * 1e3)
-    row = dict(name='voice_allocator', max_abs_err=0.0, ms=ms, card_ms=card,
-               plain_ms=plain, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=None)
+    clock = sm_clock_mhz()[0]
+    parts = []
+    for what in VA_TIMED:
+        b, t, n = cases[what][0].shape
+        rows = walks[what]
+        chain = max(va_chain(n, slow, fast) for slow, fast, _ in rows)
+        stages = [sum(x) for x in zip(*(va_stage_bytes(n, t, slow, fast)
+                                        for slow, fast, _ in rows))]
+        timed[what].update(
+            chain=chain,
+            chain_ms=chain * CYCLES_PER_DEPENDENT_OP / (clock * 1e3),
+            ops=sum(va_ops(n, t, slow, fast) for slow, fast, _ in rows),
+            nbytes=16 * b * t * n)
+        r = timed[what]
+        parts.append(
+            f"at {what} {(b, t, n)}: {r['ms']:.4f} ms, card {r['card']:.4f} "
+            f"ms; walked slow / fast, skipped, a row "
+            + ', '.join(f"{s}/{f} {k}" for s, f, k in rows[:4])
+            + (' ...' if len(rows) > 4 else '')
+            + f"; chain_bound_ms {r['chain_ms']:.5f} ({r['chain']} dependent "
+            f"operations x {CYCLES_PER_DEPENDENT_OP} cycles at {clock:.0f} "
+            f"MHz); stage bytes classify / walk / fill "
+            + ' / '.join(str(x) for x in stages))
+    first = timed[VA_TIMED[0]]
+    bound_ms, bound_by = bound(first['ops'], first['nbytes'])
+    row = dict(name='voice_allocator', max_abs_err=0.0, ms=first['ms'],
+               card_ms=first['card'], plain_ms=plain, bound_ms=bound_ms,
+               bound_by=bound_by, library_ms=None)
     detail = (f"bit-exact against its plain version at "
               + ', '.join(f"{w} {tuple(c[0].shape)}"
                           for w, c in cases.items())
-              + f"; at {what} {tuple(p.shape)}: fast/slow frames "
-              f"{frames}; card_ms {card:.4f}; chain_bound_ms {chain_ms:.5f} "
-              f"({chain} dependent operations x "
-              f"{CYCLES_PER_DEPENDENT_OP} cycles)")
+              + '; ' + '; '.join(parts))
     return row, detail
 
 
@@ -2940,7 +3010,8 @@ def serving_path():
     """Phase 19: make_serving_fn over demo.mid's roll (10 s after the
     0.5 s warm-up) with v2 at full width, at b = 1 and 8 (the roll
     repeated, a piano a row): K9 bit-exact against its plain version on
-    the demo roll and a seeded over-capacity binary roll; each batch's
+    the demo roll, a seeded over-capacity binary roll and the VA_ODD
+    frames, and timed at VA_TIMED (check_voice_allocator); each batch's
     warm-up serve records the K1, K2 and K3 inputs, and each of those
     launches is held against its plain version at them; each batch's
     counted serve (counters set to 0 just before, read just after: K1,
@@ -2951,7 +3022,7 @@ def serving_path():
     from ddsp_piano_torch.data.io import load_midi_as_roll
     from ddsp_piano_torch.data.midi_encoders import MIDIRoll2Conditioning
     from ddsp_piano_torch.data.midi_encoders_device import top_voices
-    from ddsp_piano_torch.data.rolls import churn_roll
+    from ddsp_piano_torch.data.rolls import churn_roll, odd_voices
     from ddsp_piano_torch.kernels import build
     from ddsp_piano_torch.models.serving import make_serving_fn
 
@@ -3007,6 +3078,9 @@ def serving_path():
                        bounds=bounds_line(shapes))
     cases['over-capacity binary roll'] = top_voices(
         torch.from_numpy(churn).to(DEV), VA_VOICES)
+    for what, (seed, frames_odd) in VA_ODD.items():
+        cases[what] = tuple(torch.from_numpy(a).to(DEV) for a in odd_voices(
+            seed, 3, frames_odd, VA_VOICES))
     row, detail = check_voice_allocator(cases)
     return dict(runs=runs, row=row, detail=detail, seconds=frames / 250)
 

@@ -4,7 +4,9 @@ Each roll is (n_frames, 88, 2) float32: the active channel (0 or 1) and
 the onset velocity. ``held_notes_roll`` scatters held notes of random
 keys, lengths and onsets; ``churn_roll`` keeps more keys active than
 there are voices and changes them every frame, so the allocator's
-overflow band is taken throughout.
+overflow band is taken throughout. ``odd_voices`` skips the roll and the
+sort: it gives the allocator unsorted frames with repeated pitches, 0.0,
+-0.0 and NaN, held over runs of frames.
 """
 
 from __future__ import annotations
@@ -46,3 +48,28 @@ def churn_roll(seed: int, n_synths: int, n_frames: int) -> np.ndarray:
                     roll[t, k, 1] = rng.rand()
         roll[t, sorted(active), 0] = 1.0
     return roll
+
+
+def odd_voices(seed: int, n_rows: int, n_frames: int, n_voices: int):
+    """(pitches, velocity), each (n_rows, n_frames, n_voices) float32:
+    frames that repeat the one before with probability 0.7 and otherwise
+    change 1 to 3 entries, drawn from six pitches (so repeated ones), 0.0,
+    -0.0 and, rarely, NaN. The allocator then meets duplicate pitches, the
+    overflow clamp, signed zeros and NaN (equal to nothing), and a frame
+    equal to its predecessor after a slow frame whose table need not
+    mirror it."""
+    rng = np.random.RandomState(seed)
+    values = np.float32([60, 62, 64, 65, 67, 69, 0.0, -0.0, np.nan])
+    weights = np.array([0.1] * 6 + [0.25, 0.12, 0.03])
+    pitches = np.empty((n_rows, n_frames, n_voices), np.float32)
+    for r in range(n_rows):
+        frame = rng.choice(values, n_voices, p=weights)
+        for t in range(n_frames):
+            if t and rng.rand() >= 0.7:
+                frame = frame.copy()
+                k = rng.randint(1, 4)
+                frame[rng.randint(0, n_voices, k)] = rng.choice(
+                    values, k, p=weights)
+            pitches[r, t] = frame
+    velocity = rng.rand(n_rows, n_frames, n_voices).astype(np.float32)
+    return pitches, velocity

@@ -81,7 +81,7 @@ SIGNATURES = {
                             _F, _I, _I, _I, _P),
     },
     'voice_allocator': {
-        'voice_allocator_launch': (_P, _P, _P, _I, _I, _I, _P),
+        'voice_allocator_launch': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
 }
 

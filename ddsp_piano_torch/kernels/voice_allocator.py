@@ -5,7 +5,7 @@ Counterpart of the ``lax.scan`` over ``_frame_step`` in
 ddsp_piano_tpu/data/midi_encoders_jax.py (:45-131, :155-158). There is no
 Pallas kernel at that site: on the TPU the scan is one XLA loop. Eagerly,
 the plain version issues some 40-50 small operators a frame, so on the
-card the scan is one launch of K9.
+card the scan is one call of K9.
 
 Per batch row, the state is the pitch held by each slot (``assigned``),
 the round-robin ``cursor`` (-1 when the table is full), the last frame's
@@ -16,6 +16,20 @@ and their velocities, and writes them permuted into the slots:
 small integers in float32, or whatever key * active products a
 non-binary roll gives), so the kernel and the plain version agree bit for
 bit on every input.
+
+K9 walks only some frames. A frame whose pitches equal the previous
+frame's entry by entry, when the table mirrors the previous frame (every
+entry's pitch is some slot's note and every slot's note some entry's
+pitch, as after any fast frame), takes the fast path too and changes
+nothing, so the kernel skips it: it classifies
+the frames in parallel (a bitmask of frames equal to their predecessor),
+walks the rest a warp a row with the next walked frames' pitches already
+in shared memory, and fills every frame in parallel with the permutation
+of the last walked frame at or before it. On demo.mid's 10 s (2625 frames
+at 16 voices) it walks a few dozen frames. Its bound is that walk's chain
+of dependent operations (csrc/voice_allocator.cu); ``allocate_plain(...,
+return_fast=True)`` counts the frames a roll takes on the fast path and
+those the walk skips.
 """
 
 from __future__ import annotations
@@ -51,6 +65,15 @@ def _last_true(mask: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.where(mask, idx, -1).amax(dim)
 
 
+def mirrors(assigned: torch.Tensor, pitches: torch.Tensor) -> torch.Tensor:
+    """(b,) whether each row's table (b, n) mirrors its frame's pitches
+    (b, n): every entry's pitch is some slot's note and every slot's note
+    some entry's pitch (float ==): _frame_step's fast test, once a frame
+    was seen."""
+    eq = pitches[:, :, None] == assigned[:, None, :]
+    return eq.any(2).all(1) & eq.any(1).all(1)
+
+
 def _frame_step(state, pitches, velocity):
     """One frame of midi_encoders_jax._frame_step for b rows at once:
     state (assigned (b, n) f32, cursor (b,) i64, reorder (b, n) i64,
@@ -62,11 +85,10 @@ def _frame_step(state, pitches, velocity):
     idx = torch.arange(n, device=pitches.device)
 
     # Fast path: the same note set as the table -> the same permutation.
-    eq = pitches[:, :, None] == assigned[:, None, :]           # (b, c, s)
-    fast = eq.any(2).all(1) & eq.any(1).all(1) & started
+    fast = mirrors(assigned, pitches) & started
 
     # Release: slots whose note is gone.
-    keep = eq.any(1)                                            # (b, s)
+    keep = (pitches[:, :, None] == assigned[:, None, :]).any(1)  # (b, s)
     released = (assigned != 0) & ~keep
     assigned_rel = torch.where(keep, assigned, 0.0)
     cursor_rel = torch.where((cursor < 0) & released.any(1),
@@ -126,7 +148,10 @@ def allocate_plain(pitches: torch.Tensor, velocity: torch.Tensor,
     """(b, T, n) ascending top-n pitches and their velocities ->
     (b, T, n, 2) conditioning, a loop over frames from a fresh state;
     with ``return_fast``, also each row's count of frames on the fast
-    path (b,) (the work a launch of K9 does depends on it)."""
+    path (b,) and of the frames K9's walk skips (b,): those whose
+    pitches equal the previous frame's entry by entry, when the table
+    mirrors the previous frame (the work a call of K9 does depends on
+    both)."""
     b, t, n = pitches.shape
     dev = pitches.device
     state = (torch.zeros(b, n, device=dev),
@@ -135,14 +160,19 @@ def allocate_plain(pitches: torch.Tensor, velocity: torch.Tensor,
              torch.zeros(b, dtype=torch.bool, device=dev))
     out = pitches.new_empty(b, t, n, 2)
     n_fast = torch.zeros(b, dtype=torch.long, device=dev)
+    n_skipped = torch.zeros(b, dtype=torch.long, device=dev)
+    mirror = torch.zeros(b, dtype=torch.bool, device=dev)
     for i in range(t):
+        if return_fast and i:
+            n_skipped += mirror & (pitches[:, i] == pitches[:, i - 1]).all(1)
         state, (p, v), fast = _frame_step(state, pitches[:, i],
                                           velocity[:, i])
         out[:, i, :, 0] = p
         out[:, i, :, 1] = v
         if return_fast:
             n_fast += fast
-    return (out, n_fast) if return_fast else out
+            mirror = mirrors(state[0], pitches[:, i])
+    return (out, n_fast, n_skipped) if return_fast else out
 
 
 def _check_inputs(pitches: torch.Tensor, velocity: torch.Tensor):
@@ -161,15 +191,23 @@ def _check_inputs(pitches: torch.Tensor, velocity: torch.Tensor):
 
 def allocate_cuda(pitches: torch.Tensor,
                   velocity: torch.Tensor) -> torch.Tensor:
-    """K9 on CUDA tensors; raises on anything it does not take."""
+    """K9 on CUDA tensors (its three kernels, one count); raises on
+    anything it does not take."""
     pitches, velocity = _check_inputs(pitches, velocity)
     b, t, n = pitches.shape
-    out = torch.empty(b, t, n, 2, dtype=torch.float32,
-                      device=pitches.device)
+    dev = pitches.device
+    out = torch.empty(b, t, n, 2, dtype=torch.float32, device=dev)
     if b and t:
+        # Scratch: the classify stage's bitmask (a 32-bit word per 32
+        # frames) and each word's anchor, the walked frames' permutations.
+        words = -(-t // 32)
+        same = torch.empty(b, words, dtype=torch.int32, device=dev)
+        anchor = torch.empty(b, words, dtype=torch.int32, device=dev)
+        perm = torch.empty(b, t, n, dtype=torch.int8, device=dev)
         code = build.library('voice_allocator').voice_allocator_launch(
-            pitches.data_ptr(), velocity.data_ptr(), out.data_ptr(), b, t,
-            n, build.stream_handle(pitches.device))
+            pitches.data_ptr(), velocity.data_ptr(), out.data_ptr(),
+            same.data_ptr(), anchor.data_ptr(), perm.data_ptr(), b, t, n,
+            build.stream_handle(dev))
         build.check(code, 'voice_allocator_launch')
         build.LAUNCHES['voice_allocator'] += 1
     return out

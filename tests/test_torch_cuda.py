@@ -545,25 +545,44 @@ def test_packed_staging_decodes_bit_exactly_on_the_card(cuda_device, wire):
         np.testing.assert_array_equal(got[k].cpu().numpy(), v, err_msg=k)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('n', [1, 4, 16, 32])
-def test_voice_allocator_kernel_matches_plain(cuda_device, n):
-    """K9 against the plain loop, bit for bit, on rolls within and over
-    capacity (b = 3), one with non-binary active values (key * active
-    collisions, the overflow clamp), at 1 to 32 voices; one launch."""
+def _voice_allocator_case(case, n, device):
+    """(pitches, velocity) at n voices on ``device``: 'rolls', three
+    120-frame rolls within and over capacity, one with non-binary active
+    values (key * active collisions, the overflow clamp); 'long_held',
+    two 2625-frame rolls of 20 notes (demo.mid's 10 s and its density:
+    long runs the walk skips); 'odd', unsorted frames with repeated
+    pitches, 0.0, -0.0 and NaN; 'T1' and 'T33' of those at 1 and 33
+    frames."""
     from ddsp_piano_torch.data.midi_encoders_device import top_voices
-    from ddsp_piano_torch.data.rolls import held_notes_roll
+    from ddsp_piano_torch.data.rolls import held_notes_roll, odd_voices
+
+    if case == 'rolls':
+        rolls = np.stack([held_notes_roll(s, 120, d)
+                          for s, d in ((1, 20), (2, 90), (3, 60))])
+        rolls[2, :, :, 0] *= np.random.RandomState(4).choice(
+            np.float32([0.5, 1.0, 2.0, 3.0]), size=(120, 88))
+    elif case == 'long_held':
+        rolls = np.stack([held_notes_roll(s, 2625, 20) for s in (5, 6)])
+    else:
+        frames = {'odd': 500, 'T1': 1, 'T33': 33}[case]
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in odd_voices(n, 3, frames, n))
+    return top_voices(torch.from_numpy(rolls).to(device), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['rolls', 'long_held', 'odd', 'T1', 'T33'])
+@pytest.mark.parametrize('n', [1, 4, 16, 32])
+def test_voice_allocator_kernel_matches_plain(cuda_device, n, case):
+    """K9 against the plain loop (run on the host), bit for bit (NaN
+    payloads and signed zeros included), at 1 to 32 voices on each case
+    of _voice_allocator_case; one count for its three kernels."""
     from ddsp_piano_torch.kernels import voice_allocator as tva
 
-    rolls = np.stack([held_notes_roll(s, 120, d)
-                      for s, d in ((1, 20), (2, 90), (3, 60))])
-    rolls[2, :, :, 0] *= np.random.RandomState(4).choice(
-        np.float32([0.5, 1.0, 2.0, 3.0]), size=(120, 88))
-    pitches, velocity = top_voices(
-        torch.from_numpy(rolls).to(cuda_device), n)
+    pitches, velocity = _voice_allocator_case(case, n, cuda_device)
     build.reset_launches()
     got = tva.allocate(pitches, velocity)
     torch.cuda.synchronize()
     assert build.LAUNCHES['voice_allocator'] == 1
-    want = tva.allocate_plain(pitches, velocity)
-    assert torch.equal(got, want)
+    want = tva.allocate_plain(pitches.cpu(), velocity.cpu())
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))

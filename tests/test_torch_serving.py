@@ -5,7 +5,9 @@ kernels/voice_allocator.py) bit for bit against the JAX package's
 roll_to_conditioning_jax on seeded rolls: binary within and over capacity
 at 4 and 16 voices, non-binary (the key * active collisions on which JAX
 diverges from the host allocator) and sparse (fewer active keys than
-voices: the stable sort's ties). make_serving_fn against the port's
+voices: the stable sort's ties). K9's schedule (classify, walk the
+frames the skip rule does not skip, fill) emulated in plain torch, bit
+for bit against the plain loop. make_serving_fn against the port's
 forward on the host allocator's conditioning (bit-equal) and against the
 JAX package's make_serving_fn (1.1e-4 of peak, JAX's draw injected), and
 synthesize_from_csv: its files, the missing-column error and the
@@ -36,7 +38,7 @@ from ddsp_piano_torch.data.io import load_midi_as_conditioning  # noqa: E402
 from ddsp_piano_torch.data.midi_encoders import (  # noqa: E402
     MIDIRoll2Conditioning)
 from ddsp_piano_torch.data.rolls import (  # noqa: E402
-    churn_roll, held_notes_roll)
+    churn_roll, held_notes_roll, odd_voices)
 from ddsp_piano_torch.data.midi_encoders_device import (  # noqa: E402
     roll_to_conditioning_device, top_voices)
 from ddsp_piano_torch.kernels import voice_allocator as tva  # noqa: E402
@@ -152,15 +154,139 @@ def test_allocator_front_door():
 
 def test_plain_allocator_counts_fast_frames():
     """allocate_plain(return_fast=True): each row's frames on the fast
-    path (the note set of the table, after the first frame), and the same
-    conditioning as without it."""
+    path (the note set of the table, after the first frame) and those K9's
+    walk skips (equal to the frame before, whose table mirrors it), and
+    the same conditioning as without it."""
     p = torch.zeros(2, 10, 4)
     p[:, :, 2:] = torch.tensor([60.0, 64.0])
     p[1, 5:, 1] = 55.0
     v = torch.rand(2, 10, 4, generator=torch.Generator().manual_seed(0))
-    out, fast = tva.allocate_plain(p, v, return_fast=True)
+    out, fast, skipped = tva.allocate_plain(p, v, return_fast=True)
     assert fast.tolist() == [9, 8]
+    # After the slow frames 0 and 5 the tables mirror their frames.
+    assert skipped.tolist() == [9, 8]
     torch.testing.assert_close(out, tva.allocate_plain(p, v), rtol=0, atol=0)
+
+
+# -- K9's schedule, emulated --------------------------------------------------
+
+
+def _word_bits(words):
+    """(b, W) 32-bit words (int64) -> (b, 32 W) bools, bit k of word w at
+    frame 32 w + k."""
+    return ((words[..., None] >> torch.arange(32)) & 1).bool().flatten(-2)
+
+
+def _emulate_k9(pitches, velocity, mirrors=True):
+    """csrc/voice_allocator.cu's three stages in plain torch: classify
+    (bit t of a row's words: frame t >= 1 equals frame t - 1), the walk
+    (a row at a time: when the new table mirrors frame t jump to the next
+    clear bit, else walk t + 1 with the pitches last loaded, clearing its
+    bit; each walked frame's permutation, each word's anchor), then the
+    fill (the last walked frame at or before t in t's word, else the
+    previous word's anchor). ``mirrors=False`` drops the rule's condition
+    that the table mirrors the frame before a skipped one. Returns (out,
+    the skipped frames (b, T))."""
+    b, t_max, n = pitches.shape
+    words = -(-t_max // 32)
+    same = torch.zeros(b, 32 * words, dtype=torch.bool)
+    same[:, 1:t_max] = (pitches[:, 1:] == pitches[:, :-1]).all(2)
+    mask = (same.view(b, words, 32).long() << torch.arange(32)).sum(2)
+    perm = torch.zeros(b, t_max, n, dtype=torch.long)
+    anchor = torch.full((b, words), -1)
+    skipped = torch.zeros(b, t_max, dtype=torch.bool)
+    for r in range(b):
+        clear = iter(torch.nonzero(~_word_bits(mask[r])[:t_max])
+                     .flatten().tolist())
+        head = next(clear, t_max)
+        state = (torch.zeros(1, n), torch.zeros(1, dtype=torch.long),
+                 torch.arange(n)[None], torch.zeros(1, dtype=torch.bool))
+        mirror, t, pitch = False, -1, None
+        while True:
+            jump = mirror if mirrors else t >= 0
+            t_next = head if jump else t + 1
+            if t >= 0:
+                stop = t_next // 32 if t_next < t_max else words
+                anchor[r, t // 32:stop] = t
+            skipped[r, t + 1:t_next] = True
+            if t_next >= t_max:
+                break
+            t = t_next
+            if t == head:
+                pitch = pitches[r, t][None]
+                head = next(clear, t_max)
+            else:
+                mask[r, t // 32] &= ~(1 << (t % 32))
+            state, _, _ = tva._frame_step(state, pitch, torch.zeros(1, n))
+            perm[r, t] = state[2][0]
+            mirror = bool(tva.mirrors(state[0], pitch))
+    frames = torch.arange(32 * words)
+    walked = ~_word_bits(mask)
+    last = torch.where(walked, frames, -1).view(b, words, 32).cummax(2)[0]
+    before = torch.cat([torch.full((b, 1), -1), anchor[:, :-1]], 1)
+    w = torch.where(last >= 0, last, before[:, :, None]).view(b, -1)
+    w = w[:, :t_max, None].expand(b, t_max, n)
+    order = perm.gather(1, w)
+    out = torch.stack([pitches.gather(2, order), velocity.gather(2, order)],
+                      -1)
+    return out, skipped
+
+
+def _bits(x):
+    return x.view(torch.int32)
+
+
+def _k9_case(kind):
+    if kind == 'held':
+        rolls = np.stack([held_notes_roll(s, 400) for s in range(4)])
+        return top_voices(torch.from_numpy(rolls), 16)
+    if kind == 'churn':
+        rolls = np.stack([churn_roll(s, 16, 64) for s in range(3)])
+        return top_voices(torch.from_numpy(rolls), 16)
+    seed, rows, frames, n = {'odd_4': (4, 3, 300, 4),
+                             'odd_16': (16, 3, 300, 16),
+                             'T1': (5, 3, 1, 16),
+                             'T33': (6, 3, 33, 16)}[kind]
+    return tuple(torch.from_numpy(a) for a in odd_voices(seed, rows, frames,
+                                                         n))
+
+
+@pytest.mark.parametrize('kind', ['held', 'churn', 'odd_4', 'odd_16', 'T1',
+                                  'T33'])
+def test_k9_schedule_matches_plain(kind):
+    """K9's schedule (classify, walk with the skip rule, fill), emulated,
+    bit for bit against the plain loop: held notes (400 frames, not a
+    multiple of 32), over-capacity churn, unsorted frames with repeated
+    pitches, 0.0, -0.0 and NaN at 4 and 16 voices, T = 1 and T = 33.
+    Every frame the rule skips is one _frame_step takes on the fast path,
+    and the plain version counts the skipped frames as the walk does."""
+    pitches, velocity = _k9_case(kind)
+    want, _, n_skipped = tva.allocate_plain(pitches, velocity,
+                                            return_fast=True)
+    got, skipped = _emulate_k9(pitches, velocity)
+    assert torch.equal(_bits(got), _bits(want))
+    assert skipped.sum(1).tolist() == n_skipped.tolist()
+    b, t_max, n = pitches.shape
+    state = (torch.zeros(b, n), torch.zeros(b, dtype=torch.long),
+             torch.arange(n).expand(b, n), torch.zeros(b, dtype=torch.bool))
+    for t in range(t_max):
+        state, _, fast = tva._frame_step(state, pitches[:, t],
+                                         velocity[:, t])
+        assert bool((fast | ~skipped[:, t]).all()), t
+    if kind in ('held', 'odd_4'):
+        assert skipped.sum() > b * t_max // 3
+
+
+def test_k9_schedule_needs_mirrors():
+    """Skipping every frame equal to its predecessor, without the rule's
+    condition that the table mirrors the frame before, is wrong: on the
+    unsorted roll with repeated pitches at 4 voices a table after a slow
+    frame need not mirror it (the overflow clamp), and the output
+    differs."""
+    pitches, velocity = _k9_case('odd_4')
+    got, _ = _emulate_k9(pitches, velocity, mirrors=False)
+    assert not torch.equal(_bits(got),
+                           _bits(tva.allocate_plain(pitches, velocity)))
 
 
 # -- serving ------------------------------------------------------------------

@@ -72,7 +72,7 @@ non-zero exit code and no result line:
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
-   be finite. Prints the step time and its parts; after phase 15 (a
+   be finite. Prints the step time and its parts; after phase 23 (a
    trace before a timed render slows it), a torch.profiler view of three
    more steps: the device's busy share, the operators with the most
    device and host time, and each hand-written kernel's device events
@@ -185,14 +185,37 @@ non-zero exit code and no result line:
    against the one-shot forward on one draw (0.02 of peak); streamed
    against one-shot forward time and peak memory at 10 s, and the
    surrogate's also tiled to ~180 s.
-22. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+22. The training summaries: ``train_single_phase -c maestro_v2 -b 6 -s 2
+   -e 3`` on phase 18's cache, counted (each launch held against its plain
+   version), so that epoch 3 runs the full validation; its event file
+   read back with the port's reader (``training.events``): each tag the
+   JAX CLI writes at its step, each train_loss/total_loss equal to the
+   CLI's epoch mean, the last audio summary's WAVs decoded to the first
+   validation batch's audio within 1/32767. Prints the writer's ms by
+   epoch and the file's bytes.
+23. A ``.gin`` model: gin text (i) (v2's widths: 24 kHz, 16 voices, GRU
+   64 and 192, NoteRelease; DeepInharmonicity + DictDetuner,
+   PartialMasking, BackgroundNoiseFilter, MultiInharmonic and
+   NoiseBandNetSynth through polyphonic_dag, the spectral loss with delta
+   and loudness terms, LoudnessLoss) written into a temporary directory.
+   ``synthesize_midi_file -c <i>.gin`` renders 10 s of demo.mid, counted
+   as phase 16 counts (forward, realtime factor, peak memory; each launch
+   against its plain version); the 3 s segment on the card against the
+   CPU (1.1e-4 of peak); (ii) the same model through a ProcessorGroup
+   over the sequential per-voice DAG (``use_sequential_dag``; gin maps
+   polyphonic_dag to the folded-voice group), K1 once a voice, against
+   (i); an InHarmonic + noise + Add DAG on voice 0 (InHarmonic.get_signal:
+   one K1 launch) against the folded group's voice 0; then
+   ``train_single_phase -c <i>.gin -b 6 -s 2 -e 1`` on the cache, every
+   launch held against its plain version.
+24. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-23. One JSON line of kernel numbers (K1's row at the training step's
+25. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render, the CLI run and phase
-   18's run; K2-K7's also phase 18's; K9's those of phases 19-20), then
-   the result line.
+   18's run; K2-K7's also phase 18's; K9's those of phases 19-20; each
+   kernel's also phases 22-23's), then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO, the training
 run's checkpoints and the evaluation CSVs go to build/ in the checkout.
@@ -2308,21 +2331,21 @@ def bounds_line(capture):
                      for (k, shape), b in seen.items() if b is not None)
 
 
-def config_render(config, oscillator):
+def config_render(config, oscillator, label=None):
     """``synthesize_midi_file -c config`` on 10 s of demo.mid on the card,
     after a warm-up render that records the front doors' inputs; counters
     and peak memory set to 0 just before the counted render and read just
     after. Each launch is then held against its plain version at its
-    inputs."""
+    inputs. ``label`` names the output file (default: the config)."""
     from ddsp_piano_torch import synthesize_midi_file as cli
     from ddsp_piano_torch.kernels import build
 
-    out = os.path.join(OUT_DIR, f'demo_{config}_{oscillator}.wav')
+    out = os.path.join(OUT_DIR, f'demo_{label or config}_{oscillator}.wav')
     args = cli.process_args(['-c', config, '-d', str(MAIN_PATH_SECONDS),
                              '-u', '--seed', str(SEED), '--piano_type',
                              str(PIANO_TYPE), '--oscillator', oscillator,
                              '--device', DEV.type, DEMO_MIDI, out])
-    what = f"{config} --oscillator {oscillator}"
+    what = f"{label or config} --oscillator {oscillator}"
     shapes = {}
     with capturing(shapes):
         cli.main(args)
@@ -2638,12 +2661,13 @@ def preprocess_cache():
     return size, seconds, n_tracks
 
 
-def cli_run(data, name, flags, capture=None, steps=CACHE_STEPS):
-    """``train_single_phase.main -b TRAIN_BATCH -s steps -e 1`` with
+def cli_run(data, name, flags, capture=None, steps=CACHE_STEPS, epochs=1):
+    """``train_single_phase.main -b TRAIN_BATCH -s steps -e epochs`` with
     ``flags`` on ``data`` (student seed STUDENT_SEED), counters set to 0
     just before and read just after; its CUDA-event step median and wall
-    time a step (the span of the epoch's steps on the card over their
-    count), both over the epoch's steps."""
+    time a step (the span of the last epoch's steps on the card over
+    their count), both over the last epoch's steps; the run's peak
+    memory (memory_peak_mib)."""
     from ddsp_piano_torch import train_single_phase as cli
     from ddsp_piano_torch.kernels import build
 
@@ -2651,18 +2675,21 @@ def cli_run(data, name, flags, capture=None, steps=CACHE_STEPS):
     if os.path.isdir(exp):
         shutil.rmtree(exp)
     args = cli.process_args(['-b', str(TRAIN_BATCH), '-s', str(steps),
-                             '-e', '1', '--seed', str(STUDENT_SEED),
+                             '-e', str(epochs), '--seed', str(STUDENT_SEED),
                              '--device', DEV.type] + flags + [data, exp])
     sync()
     build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     start = time.perf_counter()
     with capturing(capture, CACHE_DOORS):
         result = cli.main(args, record_timeline=True)
     sync()
     wall = time.perf_counter() - start
+    peak_mib = memory_peak_mib(before)
     launches = {k: n for k, n in build.LAUNCHES.items() if n}
     losses = result['step_losses']
-    if len(losses) != steps or not np.isfinite(losses).all():
+    if len(losses) != steps * epochs or not np.isfinite(losses).all():
         fail(f"{name}: training losses {losses}")
     if result.get('nan'):
         fail(f"{name}: {result['nan']}")
@@ -2671,7 +2698,8 @@ def cli_run(data, name, flags, capture=None, steps=CACHE_STEPS):
     step_ms = statistics.median(e[0].elapsed_time(e[3]) for e in events[1:])
     span_ms = events[0][0].elapsed_time(events[-1][3]) / steps
     return dict(result=result, launches=launches, wall=wall,
-                step_ms=step_ms, wall_step_ms=span_ms, exp=exp)
+                step_ms=step_ms, wall_step_ms=span_ms, exp=exp,
+                peak_mib=peak_mib)
 
 
 def trace_kernels(path, top=8):
@@ -3187,6 +3215,449 @@ def config_streaming():
 
 
 
+# -- phases 22-23 -------------------------------------------------------------
+
+
+SUMMARY_STEPS = 2              # -s of the summaries run
+SUMMARY_EPOCHS = 3             # -e: epoch 3 takes the full validation
+SUMMARY_CLIPS = 4              # the audio summary's clips (max_outputs)
+GIN_STEPS = 2                  # -s of the gin model's training run
+GIN_SHIFT = 1234               # the noise bands' loop shift of the segments
+
+
+def summary_tags(loss_keys, steps, epochs):
+    """The (tag, step) sequence the JAX CLI writes (train_single_phase.py:
+    248-315): train_loss at each epoch's first step; while the step after
+    the epoch is below 3 epochs, one batch's audio at that step; after
+    that val_loss, the audio, the spectrogram and the tuning curves at the
+    epoch's first step. The v2 joint tuning gives both curves."""
+    tags = []
+    for epoch in range(epochs):
+        first = epoch * steps
+        tags += [(f'train_loss/{k}', first) for k in loss_keys]
+        if first + steps < 3 * steps:
+            tags.append(('synthesized_audio', first + steps))
+            continue
+        tags += [(f'val_loss/{k}', first) for k in loss_keys]
+        tags += [('synthesized_audio', first), ('spectrogram', first),
+                 ('tuning/inharmonicity', first), ('tuning/tuning', first)]
+    return tags
+
+
+def summaries_path():
+    """Phase 22: ``train_single_phase -c maestro_v2 -b 6 -s 2 -e 3`` on the
+    cache, counted; its event file read back with the port's reader: each
+    tag the JAX CLI writes at its step, each train_loss/total_loss equal
+    to the CLI's epoch mean, the last audio summary's WAVs decoded to the
+    first validation batch's audio (re-rendered with the same generator)
+    within 1/32767. Every kernel launch of the run held against its plain
+    version at its inputs."""
+    from ddsp_piano_torch.data import pipeline
+    from ddsp_piano_torch.training import events
+
+    capture = {}
+    run = cli_run(CACHE_DIR, 'summaries', [], capture, steps=SUMMARY_STEPS,
+                  epochs=SUMMARY_EPOCHS)
+    rows = step_path_kernels(capture, 'the summaries run', timed=False)
+    del capture
+    result = run['result']
+    trainer = result['trainer']
+    path = result['events']
+    start = time.perf_counter()
+    evs = events.read_events(path)
+    read_ms = 1e3 * (time.perf_counter() - start)
+    if evs[0]['file_version'] != 'brain.Event:2':
+        fail(f"{path}: first record {evs[0]}")
+    seen = [(v['tag'], e['step']) for e in evs[1:] for v in e['values']]
+    want = summary_tags(trainer.model.loss_keys(), SUMMARY_STEPS,
+                        SUMMARY_EPOCHS)
+    if seen != want:
+        fail(f"summaries: tags {seen}, the JAX CLI's {want}")
+    values = [v for e in evs[1:] for v in e['values']]
+    totals = [events.value_array(v) for v in values
+              if v['tag'] == 'train_loss/total_loss']
+    means = [np.float32(m['total_loss']) for m in result['train_means']]
+    if totals != means:
+        fail(f"summaries: train_loss/total_loss {totals}, epoch means "
+             f"{means}")
+    clips = events.value_array([v for v in values
+                                if v['tag'] == 'synthesized_audio'][-1])
+    val_batch = next(iter(pipeline.get_validation_dataset(
+        CACHE_DIR, batch_size=TRAIN_BATCH,
+        max_polyphony=trainer.model.n_synths,
+        sample_rate=trainer.model.sample_rate)))
+    _, audio = trainer.validation_step(val_batch)
+    peak = max(float(np.abs(audio).max()), 1.0)
+    wav_err = 0.0
+    for i, (wav, _) in enumerate(clips):
+        decoded, rate = events.decode_wav(wav)
+        if rate != trainer.model.sample_rate:
+            fail(f"summaries: a WAV at {rate} Hz")
+        wav_err = max(wav_err, float(np.abs(decoded[:, 0]
+                                            - audio[i] / peak).max()))
+    if len(clips) != min(SUMMARY_CLIPS, len(audio)) or \
+            not wav_err <= 1.0 / 32767:
+        fail(f"summaries: {len(clips)} clips, decoded against the "
+             f"validation audio {wav_err} > 1/32767")
+    images = [v for v in values if v['plugin_name'] == 'images']
+    for v in images:
+        events.decode_png(events.value_array(v)[0])
+    return dict(launches=run['launches'], rows=rows,
+                summary_ms=result['summary_ms'], bytes=os.path.getsize(path),
+                n_values=len(values), n_images=len(images),
+                wav_err=wav_err, n_clips=len(clips), read_ms=read_ms,
+                step_ms=run['step_ms'])
+
+
+def gin_text_v2():
+    """Gin text (i): a v2-width polyphonic model (24 kHz, 16 voices; the
+    FiLM context with GRU 64, the mono network with GRU 192, NoteRelease)
+    with DeepInharmonicity + DictDetuner for the tuning, PartialMasking,
+    BackgroundNoiseFilter, MultiInharmonic and NoiseBandNetSynth through
+    polyphonic_dag, the v2 FDN reverb, the spectral loss with delta-time
+    and loudness terms, and the loudness loss. Written here, not copied
+    from the reference's configs."""
+    return """# A v2-width polyphonic model reaching the gin-only modules.
+import ddsp_piano
+
+sample_rate = 24000
+frame_rate = 250
+n_synths = 16
+n_instruments = 10
+duration = 3.0
+inference = False
+
+get_model.model = @PianoModel()
+
+PianoModel.note_release = @NoteRelease()
+NoteRelease.frame_rate = %frame_rate
+
+PianoModel.context_network = @FiLMContextNetwork()
+FiLMContextNetwork:
+    n_instruments = %n_instruments
+    n_synths = %n_synths
+    layer_dim = 64
+    context_dim = 32
+
+PianoModel.background_noise_model = @BackgroundNoiseFilter()
+BackgroundNoiseFilter:
+    n_instruments = %n_instruments
+    n_filters = 64
+    duration = %duration
+    frame_rate = %frame_rate
+
+PianoModel.parallelizer = @Parallelizer()
+Parallelizer.n_synths = %n_synths
+Parallelizer.global_keys = ('conditioning', 'context', 'piano_model')
+
+PianoModel.inharm_model = @DeepInharmonicity()
+DeepInharmonicity.ch = 32
+DeepInharmonicity.n_layers = 4
+PianoModel.detuner = @DictDetuner()
+
+PianoModel.monophonic_network = @MonophonicDeepNetwork()
+MonophonicDeepNetwork:
+    rnn_channels = 192
+    ch = 64
+    layers_per_stack = 3
+    context_dim = 32
+    output_splits = (('amplitudes', 1),
+                     ('harmonic_distribution', 128),
+                     ('magnitudes', 64))
+
+PianoModel.harmonic_masking = @PartialMasking()
+PartialMasking.n_partials = 96
+
+PianoModel.reverb_model = @MultiInstrumentFeedbackDelayReverb()
+MultiInstrumentFeedbackDelayReverb.n_instruments = %n_instruments
+MultiInstrumentFeedbackDelayReverb.sample_rate = %sample_rate
+
+PianoModel.processor_group = @ProcessorGroup()
+ProcessorGroup.dag = @polyphonic_dag()
+polyphonic_dag:
+    additive = @additive/MultiInharmonic()
+    noise = @noise/NoiseBandNetSynth()
+    reverb = @reverb/Reverb()
+    additive_controls = ('amplitudes', 'harmonic_distribution',
+                         'inharm_coef', 'f0_hz')
+    noise_controls = ('magnitudes',)
+    reverb_controls = ('reverb_ir',)
+    n_synths = %n_synths
+additive/MultiInharmonic:
+    name = 'additive'
+    frame_rate = %frame_rate
+    sample_rate = %sample_rate
+noise/NoiseBandNetSynth:
+    name = 'noise'
+    n_band = 64
+    upsampling = 96
+    sample_rate = %sample_rate
+reverb/Reverb.add_dry = True
+
+PianoModel.losses = [@SpectralLoss(), @LoudnessLoss()]
+SpectralLoss:
+    loss_type = 'L1'
+    mag_weight = 1.0
+    logmag_weight = 1.0
+    delta_time_weight = 0.1
+    loudness_weight = 0.01
+    name = 'audio_stft_loss'
+LoudnessLoss:
+    target_key = 'add'
+    synth_key = 'reverb'
+    sample_rate = %sample_rate
+    name = 'loudness_loss'
+"""
+
+
+def gin_segment(path, device, use_sequential_dag=False, capture=None,
+                doors=FRONT_DOORS):
+    """The 3 s segment through the gin model on ``device`` (initial
+    weights of seed SEED; the noise bands' loop shift GIN_SHIFT): its
+    outputs on the host, and the forward's seconds."""
+    from ddsp_piano_torch.configs import get_model
+
+    model = get_model(path, inference=True, duration=SEGMENT_SECONDS,
+                      device=device, seed=SEED)
+    features, _ = segment_inputs(device,
+                                 model.sample_rate // model.frame_rate)
+    with capturing(capture, doors), torch.inference_mode():
+        outs = model(features, noise=GIN_SHIFT,
+                     use_sequential_dag=use_sequential_dag)
+    return model, features, outs
+
+
+def gin_path():
+    """Phase 23: gin text (i) written into a temporary directory and read
+    by configs.get_model. (i) renders 10 s of demo.mid through
+    ``synthesize_midi_file -c <i>.gin`` (counted; each launch held against
+    its plain version; forward median of three; peak memory); its 3 s
+    segment on the card against the CPU's; (ii) the same model through a
+    ProcessorGroup over the sequential per-voice DAG
+    (``use_sequential_dag``: gin maps ``polyphonic_dag`` to the
+    folded-voice group, so the sequential group is the model's own
+    ``as_sequential_group``), counted (K1 once a voice) and against (i);
+    voice 0 through a ProcessorGroup of InHarmonic (its get_signal: K1
+    through the framewise front door), the noise bands and Add, against
+    the folded group's voice 0; then ``train_single_phase -c <i>.gin -b 6
+    -s 2 -e 1`` on the cache, counted, every launch held against its plain
+    version; then ``evaluate_model -c <i>.gin --duration 2`` over the
+    mini-MAESTRO's test row at b = 1 and b = 4 (the noise bands' loop shift
+    from each segment's draw), the same rows, losses finite and within
+    EVAL_RTOL, the b = 4 sweep counted and its launches held against their
+    plain versions."""
+    import tempfile
+
+    from ddsp_piano_torch import evaluate_model as ecli
+    from ddsp_piano_torch import processors
+    from ddsp_piano_torch.kernels import build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'model_i.gin')
+        with open(path, 'w') as f:
+            f.write(gin_text_v2())
+        out = {'render': config_render(path, 'skip', label='gin')}
+
+        _, _, cpu = gin_segment(path, 'cpu')
+        model, features, vec = gin_segment(path, DEV)
+        errs = {stem: float((a.cpu() - b).abs().max() / b.abs().max())
+                for stem, a, b in (
+                    ('wet', vec['audio_synth'], cpu['audio_synth']),
+                    ('dry', vec['add']['signal'], cpu['add']['signal']))}
+        if not max(errs.values()) <= SLICE_TOL:
+            fail(f"gin (i): the segment on cuda against the cpu {errs}")
+        out['segment'] = errs
+
+        capture = {}
+        sync()
+        build.reset_launches()
+        _, _, seq = gin_segment(path, DEV, use_sequential_dag=True,
+                                capture=capture)
+        sync()
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        want = {'oscillator_skip': model.n_synths, 'gru_scan': 2,
+                'note_release': 1}
+        if launches != want:
+            fail(f"gin (ii): launches {launches}, expected {want}")
+        seq_err = {stem: float((a - b).abs().max() / b.abs().max())
+                   for stem, a, b in (
+                       ('wet', seq['audio_synth'], vec['audio_synth']),
+                       ('dry', seq['add']['signal'], vec['add']['signal']))}
+        if not max(seq_err.values()) <= SLICE_TOL:
+            fail(f"gin (ii): sequential against folded-voice {seq_err}")
+        out['sequential'] = dict(
+            launches=launches, err=seq_err,
+            kernel_ms=path_kernels(capture, 'gin (ii)'),
+            shapes=sorted({tuple(c[0][0].shape)
+                           for c in capture['oscillator_skip']}))
+        del capture
+
+        group = model.processor_group
+        with torch.inference_mode():
+            forwards = {}
+            for dag in (False, True):
+                times = []
+                for _ in range(3):
+                    sync()
+                    start = time.perf_counter()
+                    model(features, noise=GIN_SHIFT, use_sequential_dag=dag)
+                    sync()
+                    times.append(time.perf_counter() - start)
+                forwards['sequential' if dag else 'folded'] = \
+                    statistics.median(times)
+            out['forwards'] = forwards
+            voices = model.parallelizer.voice_views(vec)
+            keys = [f'{c}_0' for c in group.additive_controls]
+            inharmonic = processors.InHarmonic(
+                frame_rate=model.frame_rate, sample_rate=model.sample_rate)
+            dag = processors.ProcessorGroup([
+                (inharmonic, keys), (group.noise, ['magnitudes_0']),
+                (processors.Add(), ['noise/signal', 'inharmonic/signal'])])
+            capture = {}
+            doors = (('ddsp_piano_torch.kernels.oscillator',
+                      'render_framewise_skip', 'oscillator_skip'),)
+            sync()
+            build.reset_launches()
+            with capturing(capture, doors):
+                got = dag(voices, noise=[GIN_SHIFT])['signal']
+            sync()
+            dag_launches = {k: n for k, n in build.LAUNCHES.items() if n}
+            if dag_launches != {'oscillator_skip': 1}:
+                fail(f"gin InHarmonic DAG: launches {dag_launches}")
+            controls = group.additive.get_controls(*(voices[k] for k in keys))
+            want_sig = (group.additive.get_signal(**controls)
+                        + group.noise(voices['magnitudes_0'], noise=GIN_SHIFT))
+            dag_err = float((got - want_sig).abs().max()
+                            / want_sig.abs().max())
+            if not dag_err <= SLICE_TOL:
+                fail(f"gin InHarmonic + Add against voice 0: {dag_err}")
+            out['inharmonic'] = dict(
+                launches=dag_launches, err=dag_err,
+                kernel_ms=path_kernels(capture, 'gin InHarmonic DAG'))
+        del model, features, vec, voices, seq, cpu, group, dag
+
+        capture = {}
+        run = cli_run(CACHE_DIR, 'gin', ['-c', path], capture,
+                      steps=GIN_STEPS)
+        missing = [k for k in CACHE_KERNELS if run['launches'].get(k, 0) == 0]
+        if missing:
+            fail(f"the gin training run launched no {missing}: "
+                 f"{run['launches']}")
+        out['train'] = dict(launches=run['launches'],
+                            rows=step_path_kernels(capture, 'gin training',
+                                                   timed=False),
+                            step_ms=run['step_ms'],
+                            wall_step_ms=run['wall_step_ms'],
+                            losses=run['result']['step_losses'],
+                            wall=run['wall'], peak_mib=run['peak_mib'])
+
+        def sweep(batch_size):
+            return ecli.main(ecli.process_args(
+                ['-c', path, '--duration', str(EVAL_SECONDS), '-b',
+                 str(batch_size), '--device', DEV.type, MAESTRO_DIR,
+                 os.path.join(OUT_DIR, 'eval', f'gin_b{batch_size}')]))
+
+        capture = {}
+        b1 = sweep(1)
+        sync()
+        build.reset_launches()
+        with capturing(capture):
+            b4 = sweep(4)
+        sync()
+        launches = {k: n for k, n in build.LAUNCHES.items() if n}
+        missing = [k for k in RENDER_KERNELS if launches.get(k, 0) == 0]
+        if missing:
+            fail(f"the gin evaluation sweep launched no {missing}: "
+                 f"{launches}")
+        strip = lambda rows: [(r['filename'], r['piano_model'])
+                              for r in rows]
+        if (len(b1['rows']) != EVAL_SEGMENTS
+                or strip(b1['rows']) != strip(b4['rows'])):
+            fail(f"gin evaluation rows {strip(b1['rows'])} / "
+                 f"{strip(b4['rows'])}")
+        loss1 = np.array([r['loss_val'] for r in b1['rows']])
+        loss4 = np.array([r['loss_val'] for r in b4['rows']])
+        rel = float(np.max(np.abs(loss4 - loss1) / np.abs(loss1)))
+        if not (np.isfinite(loss1).all() and np.isfinite(loss4).all()
+                and rel <= EVAL_RTOL):
+            fail(f"gin evaluation losses b=1 {loss1} against b=4 {loss4}")
+        out['evaluate'] = dict(
+            launches=launches, loss=loss1, rel=rel,
+            kernel_ms=path_kernels(capture, 'the gin evaluation sweep'))
+    return out
+
+
+def slice_launches(s, g):
+    """This slice's launches by kernel: the summaries run, and the gin
+    render's counted run, the sequential DAG, the InHarmonic DAG, the gin
+    training run and the gin evaluation sweep."""
+    total = {}
+    for launches in (s['launches'], g['render']['launches'],
+                     g['sequential']['launches'],
+                     g['inharmonic']['launches'], g['train']['launches'],
+                     g['evaluate']['launches']):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def summaries_line(sm, seconds):
+    return (
+        f"summaries path: train_single_phase -c maestro_v2 -b {TRAIN_BATCH}"
+        f" -s {SUMMARY_STEPS} -e {SUMMARY_EPOCHS} on the cache, cuda: "
+        f"launches {sm['launches']}; every launch against its plain "
+        f"version: " + checked_line(sm['rows'])
+        + f"; event file {sm['bytes']} bytes, {sm['n_values']} values "
+        f"({sm['n_images']} images) read back by the port's reader in "
+        f"{sm['read_ms']:.1f} ms, each tag of the JAX CLI at its step, "
+        f"train_loss/total_loss equal to the CLI's epoch means, "
+        f"{sm['n_clips']} WAVs against the validation audio "
+        f"{sm['wav_err']:.3g} (tolerance 1/32767); the writer "
+        + ' / '.join(f"{ms:.1f}" for ms in sm['summary_ms'])
+        + f" ms by epoch; step median {sm['step_ms']:.2f} ms; phase "
+        f"{seconds:.1f} s")
+
+
+def gin_lines(g, seconds):
+    r, q, tr, ev = (g['render'], g['sequential'], g['train'],
+                    g['evaluate'])
+    return [
+        f"gin path (i): synthesize_midi_file -c <i>.gin, demo.mid "
+        f"{MAIN_PATH_SECONDS:g} s at {r['sr']} Hz on cuda, forward "
+        f"{r['forward'] * 1e3:.1f} ms ({r['rtf']:.1f}x realtime; median "
+        f"of {forwards_text(r['forwards'])} ms), peak memory "
+        f"{r['peak_mib'][0]:.1f} MiB, {r['peak_mib'][1]:.1f} above what "
+        f"was allocated before; launches {r['launches']}; kernels at "
+        f"their own inputs, each against its plain version: "
+        + grouped_kernels_line(r['kernel_ms']) + f"; bounds {r['bounds']}",
+        f"gin path: the {SEGMENT_SECONDS:g} s segment on cuda against the "
+        f"cpu, wet {g['segment']['wet']:.3g}, dry {g['segment']['dry']:.3g}"
+        f" of peak (tolerance {SLICE_TOL:g}); (ii) the sequential DAG: "
+        f"launches {q['launches']} (K1 shapes {q['shapes']}), against (i) "
+        f"wet {q['err']['wet']:.3g}, dry {q['err']['dry']:.3g}; forward "
+        f"folded {1e3 * g['forwards']['folded']:.1f} ms, sequential "
+        f"{1e3 * g['forwards']['sequential']:.1f} ms (wall, median of 3); "
+        f"kernels: " + grouped_kernels_line(q['kernel_ms'])
+        + f"; InHarmonic + Add DAG on voice 0 against the folded group's "
+        f"{g['inharmonic']['err']:.3g} of peak, launches "
+        f"{g['inharmonic']['launches']}: "
+        + grouped_kernels_line(g['inharmonic']['kernel_ms']),
+        f"gin path: train_single_phase -c <i>.gin -b {TRAIN_BATCH} -s "
+        f"{GIN_STEPS} -e 1 on the cache, cuda: losses "
+        f"{[round(v, 4) for v in tr['losses']]}, step "
+        f"{tr['step_ms']:.2f} ms (CUDA events, the second step), wall "
+        f"{tr['wall']:.1f} s, peak memory {tr['peak_mib'][0]:.1f} MiB, "
+        f"{tr['peak_mib'][1]:.1f} above what was allocated before; launches {tr['launches']}; every launch "
+        f"against its plain version: " + checked_line(tr['rows']),
+        f"gin path: evaluate_model -c <i>.gin --duration {EVAL_SECONDS:g} "
+        f"over the test row, cuda: segment losses "
+        f"{[round(float(v), 5) for v in ev['loss']]}, b = 4 against b = 1 "
+        f"{ev['rel']:.3g} (tolerance {EVAL_RTOL:g}); b = 4 launches "
+        f"{ev['launches']}; each against its plain version: "
+        + grouped_kernels_line(ev['kernel_ms'])
+        + f"; phase {seconds:.1f} s"]
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs one NVIDIA GPU")
@@ -3433,6 +3904,15 @@ def main():
         if 'costs' in r:
             print(costs_line(r['costs'], config), flush=True)
 
+    t0 = time.perf_counter()
+    sm = summaries_path()
+    print(summaries_line(sm, time.perf_counter() - t0), flush=True)
+    t0 = time.perf_counter()
+    g = gin_path()
+    for line in gin_lines(g, time.perf_counter() - t0):
+        print(line, flush=True)
+    this_slice = slice_launches(sm, g)
+
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:
         fail("the profiler recorded no device time over the training steps")
@@ -3485,6 +3965,7 @@ def main():
                         else t['launches'])[row['name']]
         if row['name'] in CACHE_KERNELS:
             launches += cache['launches'][row['name']]
+        launches += this_slice.get(row['name'], 0)
         row.update(route=route, source=source, replaces=replaces,
                    launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',

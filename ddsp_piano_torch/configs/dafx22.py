@@ -39,10 +39,12 @@ def build(inference: bool = False,
     context_in = n_synths * 2 + 4 + z_dim           # 52
     mono_in = 1 + 2 + 32                            # 35
     processor_group = VectorizedPolyphonicProcessorGroup(
-        additive=processors.MultiInharmonic(frame_rate=frame_rate,
+        additive=processors.MultiInharmonic(name='additive',
+                                            frame_rate=frame_rate,
                                             sample_rate=sample_rate,
                                             oscillator=oscillator),
-        noise=processors.DynamicSizeFilteredNoise(frame_rate=frame_rate,
+        noise=processors.DynamicSizeFilteredNoise(name='noise',
+                                                  frame_rate=frame_rate,
                                                   sample_rate=sample_rate),
         reverb=processors.Reverb(),
         additive_controls=('amplitudes', 'harmonic_distribution',

@@ -36,10 +36,12 @@ def build(inference: bool = False,
     del inference, duration, first_phase
     processor_group = VectorizedPolyphonicProcessorGroup(
         additive=processors.MultiInharmonic(
+            name='additive',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh, normalize_after_nyquist_cut=False,
             oscillator=oscillator),
         noise=processors.DynamicSizeFilteredNoise(
+            name='noise',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh),
         reverb=processors.FeedbackDelayNetwork(

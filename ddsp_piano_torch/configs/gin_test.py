@@ -4,8 +4,8 @@ forward on a dummy batch and one training step.
     python -m ddsp_piano_torch.configs.gin_test <config> [--duration 1.0]
         [--batch_size 2] [--device cuda|cpu]
 
-Counterpart of ddsp_piano_tpu/configs/gin_test.py, for the registered
-config names; a ``.gin`` path is refused (the port has no gin reader).
+Counterpart of ddsp_piano_tpu/configs/gin_test.py: ``<config>`` is a
+registered config name or a ``.gin`` file's path.
 """
 
 from __future__ import annotations
@@ -15,7 +15,8 @@ import argparse
 
 def process_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument('config', type=str, help='Config name.')
+    parser.add_argument('config', type=str,
+                        help='Config name or .gin file path.')
     parser.add_argument('--duration', type=float, default=1.0)
     parser.add_argument('--batch_size', type=int, default=2)
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
@@ -34,9 +35,6 @@ def main(args) -> dict:
     from ddsp_piano_torch.device import resolve_device
     from ddsp_piano_torch.training.trainer import Trainer
 
-    if args.config.endswith('.gin'):
-        raise SystemExit(f"{args.config}: .gin files are not read by "
-                         "ddsp_piano_torch; give a registered config name.")
     device = resolve_device(args.device)
     model = get_model(args.config, duration=args.duration, device=device)
 

@@ -77,10 +77,12 @@ def build(inference: bool = False,
     (K8, forward only), processors.MultiInharmonic's."""
     del inference, duration, first_phase
     processor_group = VectorizedPolyphonicProcessorGroup(
-        additive=processors.MultiInharmonic(frame_rate=frame_rate,
+        additive=processors.MultiInharmonic(name='additive',
+                                            frame_rate=frame_rate,
                                             sample_rate=sample_rate,
                                             oscillator=oscillator),
-        noise=processors.DynamicSizeFilteredNoise(frame_rate=frame_rate,
+        noise=processors.DynamicSizeFilteredNoise(name='noise',
+                                                  frame_rate=frame_rate,
                                                   sample_rate=sample_rate),
         reverb=processors.Reverb(),
         additive_controls=('amplitudes', 'harmonic_distribution',

@@ -38,10 +38,12 @@ def build(inference: bool = False,
     'skip' (K1) or 'full' (K8, forward only)."""
     processor_group = VectorizedPolyphonicProcessorGroup(
         additive=processors.MultiInharmonic(
+            name='additive',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh, normalize_after_nyquist_cut=False,
             oscillator=oscillator),
         noise=processors.DynamicSizeFilteredNoise(
+            name='noise',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh),
         reverb=processors.Reverb(add_dry=False),

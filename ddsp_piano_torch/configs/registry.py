@@ -2,7 +2,9 @@
 
 Counterpart of ddsp_piano_tpu/configs/registry.py, with its eight names:
 the 24 kHz dafx22 and the regularized v2 are registered from their base
-configs' modules. Other names raise with the list of what exists.
+configs' modules. A path ending in ``.gin`` is built by
+configs.gin_compat (registry.py:55-59). Other names raise with the list of
+what exists.
 """
 
 from __future__ import annotations
@@ -35,7 +37,12 @@ def available_configs():
 
 
 def _build(config: str, inference: bool, duration: float, **overrides):
-    """A registered model on the CPU, its weights not initialised."""
+    """A registered (or ``.gin``) model on the CPU, its weights not
+    initialised."""
+    if config.endswith('.gin'):
+        from ddsp_piano_torch.configs import gin_compat
+        return gin_compat.build_from_gin(config, inference=inference,
+                                         duration=duration, **overrides)
     name = config.replace('-', '_')
     if name not in available_configs():
         raise KeyError(f"Unknown config {config!r}; available: "
@@ -55,7 +62,8 @@ def config_rates(config: str = 'maestro_v2') -> Dict[str, int]:
 def get_model(config: str = 'maestro_v2', inference: bool = False,
               duration: float = 3.0, device: DeviceLike = None,
               seed: int = 0, **overrides):
-    """Build a registered model, give it Keras-style initial weights from
+    """Build a registered model (or a ``.gin`` file's), give it
+    Keras-style initial weights from
     ``seed`` and move it to ``device`` (default ``cuda``; raises when CUDA
     is missing, unless device='cpu'). ``overrides`` go to the config's
     builder, e.g. ``oscillator='full'`` for the all-partials oscillator."""

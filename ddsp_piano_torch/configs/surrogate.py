@@ -42,9 +42,11 @@ def build(inference: bool = False,
             "choose; only the default 'skip' is accepted.")
     processor_group = VectorizedPolyphonicProcessorGroup(
         additive=processors.SurrogateAdditive(
+            name='additive',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh, normalize_harm_distribution=False),
         noise=processors.DynamicSizeFilteredNoise(
+            name='noise',
             frame_rate=frame_rate, sample_rate=sample_rate,
             scale_fn=core.exp_tanh),
         reverb=processors.Reverb(),

@@ -1,8 +1,9 @@
 """Training losses.
 
-Counterpart of ddsp_piano_tpu/models/losses.py:13-111: Loss, SpectralLoss
-(the v2 loss), ReverbRegularizer (dafx22, multi_instruments, surrogate)
-and InharmonicityLoss (surrogate). LoudnessLoss is not ported yet.
+Counterpart of ddsp_piano_tpu/models/losses.py: Loss, SpectralLoss
+(the v2 loss), ReverbRegularizer (dafx22, multi_instruments, surrogate),
+InharmonicityLoss (surrogate) and LoudnessLoss (reached only through
+``.gin`` files).
 """
 
 from __future__ import annotations
@@ -15,13 +16,11 @@ from ddsp_piano_torch.ops import core, spectral
 
 
 class Loss:
-    """A named loss computed from the model outputs dict."""
+    """A named loss: a subclass defines ``compute(outputs) -> tensor`` of
+    the model outputs dict."""
 
     def __init__(self, name: str):
         self.name = name
-
-    def compute(self, outputs: dict) -> torch.Tensor:
-        raise NotImplementedError
 
 
 class SpectralLoss(Loss):
@@ -82,17 +81,19 @@ class SpectralLoss(Loss):
 
 
 class ReverbRegularizer(Loss):
-    """L1 penalty on the reverb IR, per batch element (the JAX package's
-    default loss_type, the only one its configs use)."""
+    """L1 (or, with any other loss_type, L2) penalty on the reverb IR, per
+    batch element."""
 
-    def __init__(self, weight: float = 0.01,
+    def __init__(self, weight: float = 0.01, loss_type: str = 'L1',
                  name: str = 'reverb_regularizer'):
         super().__init__(name=name)
         self.weight = weight
+        self.magnitude_order = (core.abs_ if loss_type == 'L1'
+                                else torch.square)
 
     def compute(self, outputs):
         ir = outputs['reverb_ir']
-        return self.weight * torch.sum(core.abs_(ir)) / ir.shape[0]
+        return self.weight * torch.sum(self.magnitude_order(ir)) / ir.shape[0]
 
 
 class InharmonicityLoss(Loss):
@@ -109,3 +110,21 @@ class InharmonicityLoss(Loss):
         inharm = outputs['inharm_coef']
         loss = torch.sum(core.maximum(-inharm, 0.0)) / inharm.shape[0]
         return self.weight * loss
+
+
+class LoudnessLoss(Loss):
+    """The loudness term alone between two processors' signals,
+    outputs[target_key]['signal'] and outputs[synth_key]['signal']."""
+
+    def __init__(self, target_key: str, synth_key: str,
+                 sample_rate: int = 16000, name: str = 'loudness_loss'):
+        super().__init__(name=name)
+        self.target_key = target_key
+        self.synth_key = synth_key
+        self.sample_rate = sample_rate
+
+    def compute(self, outputs):
+        return spectral.multi_scale_spectral_loss(
+            outputs[self.target_key]['signal'],
+            outputs[self.synth_key]['signal'], mag_weight=0.0,
+            loudness_weight=1.0, sample_rate=self.sample_rate)

@@ -9,7 +9,7 @@ trainability (:105-180) is a per-parameter ``requires_grad`` rule
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -19,26 +19,29 @@ from ddsp_piano_torch.models.losses import Loss
 from ddsp_piano_torch.models.sub_modules import (InharmonicityNetwork,
                                                  JointParametricInharmTuning,
                                                  OneHotZEncoder, Parallelizer)
+from ddsp_piano_torch.processors.base import ProcessorGroup
 
 # Slots whose parameters train in the second phase only (the frequency
 # modules) and in the first phase only (piano_model.py:28-33).
 _SECOND_PHASE_MODULES = ('inharm_model', 'detuner', 'surrogate_module')
 _FIRST_PHASE_MODULES = ('note_release', 'context_network',
-                        'monophonic_network', 'reverb_model')
+                        'background_noise_model', 'monophonic_network',
+                        'reverb_model')
 
 
 class PianoModel(nn.Module):
     """Polyphonic differentiable piano synthesizer."""
 
-    # The slots of the ported configurations, in the JAX package's order
-    # (piano_model.py:39-43): its background_noise_model and
-    # harmonic_masking slots are used by none of the registered configs.
-    GLOBAL_SLOTS = ('z_encoder', 'context_network', 'reverb_model')
+    # The JAX package's slots, in its order (piano_model.py:39-43).
+    GLOBAL_SLOTS = ('z_encoder', 'context_network', 'background_noise_model',
+                    'reverb_model')
     MONO_SLOTS = ('note_release', 'inharm_model', 'detuner',
-                  'monophonic_network', 'surrogate_module')
+                  'monophonic_network', 'surrogate_module',
+                  'harmonic_masking')
 
     def __init__(self, parallelizer: Parallelizer,
-                 processor_group: VectorizedPolyphonicProcessorGroup,
+                 processor_group: Union[VectorizedPolyphonicProcessorGroup,
+                                        ProcessorGroup],
                  losses: Optional[List[Loss]] = None,
                  **slots: Optional[nn.Module]):
         super().__init__()
@@ -141,19 +144,28 @@ class PianoModel(nn.Module):
     def forward(self, features: Dict[str, Any],
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                training: bool = False) -> Dict[str, Any]:
+                training: bool = False,
+                use_sequential_dag: bool = False) -> Dict[str, Any]:
         """features: conditioning (b, t, n_synths, 2), pedal (b, t, 4),
         piano_model (b, 1) int, and in training the target audio (b, n).
         Returns the outputs dict with 'audio_synth' (wet), 'add':
-        {'signal'} (the dry stem) and, in training, 'losses'."""
+        {'signal'} (the dry stem) and, in training, 'losses'.
+        ``use_sequential_dag`` renders a folded-voice group through its
+        per-voice DAG (piano_model.py:212-222); the noise draw is split by
+        voice (processors.base)."""
         features = dict(features)
         batch_size = features['conditioning'].shape[0]
         features = self._apply_slots(self.GLOBAL_SLOTS, features)
         features = self.parallelizer.parallelize(features)
         features = self._apply_slots(self.MONO_SLOTS, features)
         features = self.parallelizer.unparallelize(features, batch_size)
-        pg_out = self.processor_group(features, noise=noise,
-                                      generator=generator)
+        group = self.processor_group
+        if use_sequential_dag and isinstance(
+                group, VectorizedPolyphonicProcessorGroup):
+            group = group.as_sequential_group()
+        if isinstance(group, ProcessorGroup):
+            features = self.parallelizer.voice_views(features)
+        pg_out = group(features, noise=noise, generator=generator)
         outputs = pg_out['controls']
         outputs['audio_synth'] = pg_out['signal']
         if training:

@@ -200,6 +200,8 @@ class StreamingSynthesizer:
             feats, state.get('context_states'),
             norm_stats=norm_stats.get('context'))
         feats['context'] = context
+        if model.background_noise_model is not None:
+            feats.update(model.background_noise_model.apply_features(feats))
         feats = model.parallelizer.parallelize(feats)
         extended, nr_state = model.note_release(
             feats['conditioning'],
@@ -221,6 +223,8 @@ class StreamingSynthesizer:
                     feats['conditioning'], extended,
                     initial_state=state.get('surrogate_time'),
                     return_state=True))
+        if model.harmonic_masking is not None:
+            feats.update(model.harmonic_masking.apply_features(feats))
 
         # Synthesis over the window [previous frame, this chunk's frames];
         # the last frame is only the interpolation endpoint.

@@ -1,14 +1,18 @@
-"""Piano model sub-modules of the ported configurations.
+"""Piano model sub-modules.
 
 Counterpart of ddsp_piano_tpu/models/sub_modules.py: ContextNetwork
 (:52-87), SimpleContextNet (:90-120), FiLMContextNetwork (:123-171),
-OneHotZEncoder (:174-216), MultiInstrumentReverb (:253-292),
+OneHotZEncoder (:174-216), BackgroundNoiseFilter (:219-250),
+MultiInstrumentReverb (:253-292),
 MultiInstrumentFeedbackDelayReverb (:295-370), MonophonicNetwork
 (:378-412), MonophonicDeepNetwork (:415-462), Parallelizer (:470-523),
 InharmonicityNetwork (:538-582), ParametricTuning (:585-620),
-JointParametricInharmTuning (:623-680), Detuner (:716-741), DeepDetuner
-(:744-774), DictInharmonicityModel (:797-823), SurrogateModule
-(:826-872), F0ProcessorCell and NoteRelease (:875-933). Attribute names
+JointParametricInharmTuning (:623-680), DeepInharmonicity (:683-713),
+Detuner (:716-741), DeepDetuner (:744-774), DictDetuner (:777-794),
+DictInharmonicityModel (:797-823), SurrogateModule (:826-872),
+F0ProcessorCell and NoteRelease (:875-933) and PartialMasking (:936-954).
+BackgroundNoiseFilter, DeepInharmonicity, DictDetuner and PartialMasking
+are reached only through ``.gin`` files. Attribute names
 follow the JAX params pytree, so params.load_jax_params can fill them by
 name.
 """
@@ -140,6 +144,36 @@ class OneHotZEncoder(nn.DictModule):
                 x = x[:, None, :]
             outs.append(core.resample(x, self.n_frames))
         return tuple(outs)
+
+
+class BackgroundNoiseFilter(nn.DictModule):
+    """Constant noise-filter magnitudes per recording environment,
+    resampled (linear) to duration * frame_rate frames; ``denoise`` sets
+    them to -10."""
+
+    input_keys = ('piano_model',)
+    output_keys = ('background_mag',)
+
+    def __init__(self, n_instruments=16, n_filters=64, duration=None,
+                 frame_rate=250, denoise=False):
+        super().__init__()
+        self.duration = duration
+        self.frame_rate = frame_rate
+        self.denoise = denoise
+        self.embedding = nn.Embedding(n_instruments, n_filters)
+
+    @property
+    def n_frames(self) -> int:
+        return int(self.duration * self.frame_rate) if self.duration else 1
+
+    def forward(self, piano_model):
+        mag = self.embedding(piano_model)
+        if mag.dim() == 2:
+            mag = mag[:, None, :]
+        mag = core.resample(mag, self.n_frames)
+        if self.denoise:
+            mag = torch.full_like(mag, -10.0)
+        return mag
 
 
 class MultiInstrumentReverb(nn.DictModule):
@@ -347,8 +381,9 @@ class Parallelizer:
     Global features (batch, time, ...) are repeated for every voice and
     per-voice rank-4 features (batch, time, n_synths, c) transposed, so
     everything becomes (n_synths * batch, time, ...); mono outputs unfold
-    to stacked (n_synths, batch, ...). The per-voice '<key>_<i>' entries
-    of the JAX package feed the sequential DAG, which is not ported.
+    to stacked (n_synths, batch, ...). The sequential DAG reads per-voice
+    '<key>_<i>' views (sub_modules.py:516-523), made by voice_views only
+    for it.
     """
 
     def __init__(self, n_synths: int = 16,
@@ -382,8 +417,17 @@ class Parallelizer:
         features = dict(features)
         for k in self.mono_keys:
             x = features[k]
-            features[k] = x.reshape((self.n_synths, batch_size)
-                                    + tuple(x.shape[1:]))
+            stacked = x.reshape((self.n_synths, batch_size)
+                                + tuple(x.shape[1:]))
+            features[k] = stacked
+        return features
+
+    def voice_views(self, features: dict) -> dict:
+        """The unparallelized features plus each voice's '<key>_<i>'."""
+        features = dict(features)
+        for k in self.mono_keys:
+            for i in range(self.n_synths):
+                features[f'{k}_{i}'] = features[k][i]
         return features
 
 
@@ -483,6 +527,31 @@ class ParametricTuning(InharmonicityNetwork):
         return core.midi_to_hz(extended_pitch) * detuning, inharm_coef
 
 
+class DeepInharmonicity(nn.DictModule):
+    """B from an MLP of pitch / 128: an FcStack of n_layers - 1 blocks, a
+    dense scale (exp_sigmoid, max 1) and a dense output divided by 1000,
+    plus relu(global_inharm)."""
+
+    input_keys = ('extended_pitch', 'global_inharm?')
+    output_keys = ('inharm_coef',)
+
+    def __init__(self, ch=32, n_layers=4):
+        super().__init__()
+        self.hidden_layers = nn.FcStack(ch, 1, layers=n_layers - 1)
+        self.scale_layer = nn.Dense(
+            ch, ch, activation=lambda x: core.exp_sigmoid(x, max_value=1.0))
+        # The division rounds from float64 (B feeds the frequency path).
+        self.out_layer = nn.Dense(
+            1, ch, activation=lambda x: core.rounded(torch.div, x, 1000.0))
+
+    def forward(self, extended_pitch, global_inharm=None):
+        x = self.hidden_layers(core.f32(extended_pitch) / MIDI_NORM)
+        x = self.out_layer(self.scale_layer(x))
+        if global_inharm is not None:
+            x = x + torch.relu(global_inharm)
+        return x
+
+
 class DictInharmonicityModel(nn.DictModule):
     """B per MIDI pitch, a lookup of the pitch's integer part
     (multi_instruments), with a penalty on negative entries."""
@@ -553,6 +622,23 @@ class DeepDetuner(nn.DictModule):
                                                    global_detuning)
             extended_pitch = extended_pitch + detuning
         return core.midi_to_hz(extended_pitch)
+
+
+class DictDetuner(nn.DictModule):
+    """f0 = midi_to_hz(pitch + a learned detuning per MIDI pitch), the
+    table indexed by the pitch's integer part and zero-initialised."""
+
+    input_keys = ('extended_pitch', 'piano_model?')
+    output_keys = ('f0_hz',)
+
+    def __init__(self, n_instruments=1):
+        super().__init__()
+        self.layer = nn.Embedding(128 * n_instruments, 1,
+                                  embeddings_init='zeros')
+
+    def forward(self, extended_pitch, piano_model=None):
+        return core.midi_to_hz(core.f32(extended_pitch)
+                               + self.layer(extended_pitch[..., 0]))
 
 
 class JointParametricInharmTuning(nn.DictModule):
@@ -690,3 +776,24 @@ class NoteRelease(nn.DictModule):
         if return_state:
             return ys.transpose(0, 1), state
         return ys.transpose(0, 1)
+
+
+class PartialMasking(nn.DictModule):
+    """Set the partials from index n_partials on to -10 (silent after the
+    synth's exp_sigmoid)."""
+
+    input_keys = ('harmonic_distribution', 'n_partials?')
+    output_keys = ('harmonic_distribution',)
+
+    def __init__(self, n_partials=None):
+        super().__init__()
+        self.n_partials = n_partials
+
+    def forward(self, harmonic_distribution, n_partials=None):
+        n_partials = self.n_partials if n_partials is None else n_partials
+        if n_partials is None:
+            return harmonic_distribution
+        index = torch.arange(harmonic_distribution.shape[-1],
+                             device=harmonic_distribution.device)
+        return torch.where(index < n_partials, harmonic_distribution,
+                           torch.full_like(harmonic_distribution, -10.0))

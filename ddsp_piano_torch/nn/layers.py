@@ -31,6 +31,7 @@ def leaky_relu(x: torch.Tensor, alpha: float = 0.2) -> torch.Tensor:
 ACTIVATIONS = {
     None: lambda x: x,
     'leaky_relu': leaky_relu,
+    'relu': torch.relu,
     # Rounded once from float64: the DeepDetuner's output layer feeds the
     # frequency path.
     'tanh': functools.partial(core.rounded, torch.tanh),
@@ -38,6 +39,8 @@ ACTIVATIONS = {
 
 
 def _resolve_activation(activation):
+    if callable(activation):
+        return activation
     try:
         return ACTIVATIONS[activation]
     except KeyError:

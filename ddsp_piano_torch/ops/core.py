@@ -1,6 +1,6 @@
-"""Core signal ops: the subset of ddsp_piano_tpu/ops/core.py that the
-ported configurations' renders and the training loss call (core.py:31-136,
-162-277).
+"""Core signal ops: the counterpart of ddsp_piano_tpu/ops/core.py
+(core.py:31-136, 162-349): conversions, scalings, resampling, the chunked
+phase cumsum and the length and cross-fade helpers.
 """
 
 from __future__ import annotations
@@ -41,6 +41,27 @@ def midi_to_hz(notes) -> torch.Tensor:
     # reciprocal on the GPU, a true division on the CPU: divide in float64.
     octaves = rounded(torch.div, notes - 69.0, 12.0)
     return 440.0 * rounded(lambda x: torch.pow(2.0, x), octaves)
+
+
+def hz_to_midi(frequencies) -> torch.Tensor:
+    """Frequency in Hz to (fractional) MIDI note number; 0 Hz and below map
+    to 0 (core.py:42-46)."""
+    frequencies = f32(frequencies)
+    notes = 12.0 * (torch.log2(frequencies) - math.log2(440.0)) + 69.0
+    return torch.where(frequencies <= 0.0, torch.zeros_like(notes), notes)
+
+
+def unit_to_midi(unit, midi_min=20.0, midi_max=90.0, clip=False):
+    """[0, 1] -> [midi_min, midi_max] (core.py:49-51)."""
+    unit = f32(unit)
+    unit = torch.clamp(unit, 0.0, 1.0) if clip else unit
+    return midi_min + (midi_max - midi_min) * unit
+
+
+def midi_to_unit(midi, midi_min=20.0, midi_max=90.0, clip=False):
+    """[midi_min, midi_max] -> [0, 1] (core.py:54-56)."""
+    unit = (f32(midi) - midi_min) / (midi_max - midi_min)
+    return torch.clamp(unit, 0.0, 1.0) if clip else unit
 
 
 def exp_sigmoid(x, exponent=10.0, max_value=2.0, threshold=1e-7):
@@ -95,16 +116,16 @@ def safe_log(x, eps=1e-5) -> torch.Tensor:
     return torch.log(torch.where(x <= eps, torch.full_like(x, eps), x))
 
 
-def hann_window(window_length: int, periodic: bool = True,
-                device=None) -> torch.Tensor:
+def hann_window(window_length: int, periodic: bool = True, device=None,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """tf.signal.hann_window: the raised-cosine denominator is
     L + periodic * (1 - L % 2) - 1 (core.py:201-211). Evaluated in float64
-    and rounded once, so every device gets the same window."""
+    and rounded once to ``dtype``, so every device gets the same window."""
     if window_length == 1:
-        return torch.ones((1,), dtype=torch.float32, device=device)
+        return torch.ones((1,), dtype=dtype, device=device)
     denom = window_length + (1 - window_length % 2 if periodic else 0) - 1
     n = torch.arange(window_length, dtype=torch.float64, device=device)
-    return (0.5 - 0.5 * torch.cos(_2PI * n / denom)).float()
+    return (0.5 - 0.5 * torch.cos(_2PI * n / denom)).to(dtype)
 
 
 def remove_above_nyquist(frequency_envelopes, amplitude_envelopes,
@@ -277,3 +298,79 @@ def resample(inputs, n_timesteps: int, method: str = 'linear',
         raise ValueError(f"Unknown resample method: {method!r} "
                          "(expected 'nearest', 'linear' or 'window').")
     return _restore_rank(out, rank)
+
+
+def angular_cumsum(angular_frequency, chunk_size: int = 1000
+                   ) -> torch.Tensor:
+    """Cumulative sum over axis 1 (time) with a mod-2pi accumulation per
+    chunk of ``chunk_size`` steps, then the chunks' offsets, as
+    core.py:285-307: in float32 like the JAX function, or in float64 for a
+    float64 input (the envelope oscillator's phase)."""
+    x = angular_frequency
+    if not (isinstance(x, torch.Tensor) and x.dtype == torch.float64):
+        x = f32(x)
+    length = x.shape[1]
+    n_chunks = -(-length // chunk_size)
+    pad = n_chunks * chunk_size - length
+    if pad:
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad) + tuple(x.shape[2:]))],
+                      dim=1)
+    chunked = x.reshape((x.shape[0], n_chunks, chunk_size)
+                        + tuple(x.shape[2:]))
+    phase = _mod(torch.cumsum(chunked, dim=2), _2PI)
+    last = phase[:, :, -1]
+    offsets = _mod(torch.cumsum(last, dim=1) - last, _2PI)
+    phase = _mod(phase + offsets[:, :, None], _2PI)
+    phase = phase.reshape((x.shape[0], n_chunks * chunk_size)
+                          + tuple(x.shape[2:]))
+    return phase[:, :length]
+
+
+def _mod(x: torch.Tensor, m: float) -> torch.Tensor:
+    """jnp.mod: the remainder with the sign of the divisor."""
+    r = torch.fmod(x, m)
+    return torch.where((r != 0) & (r < 0), r + m, r)
+
+
+def pad_or_trim_to_expected_length(vector, expected_len: int,
+                                   pad_value: float = 0.0,
+                                   len_tolerance: int = 20):
+    """Crop or right-pad the last axis to ``expected_len``; a gap larger
+    than ``len_tolerance`` raises (core.py:310-326)."""
+    expected_len = int(expected_len)
+    vector_len = int(vector.shape[-1])
+    if abs(vector_len - expected_len) > len_tolerance:
+        raise ValueError(
+            f"Vector length {vector_len} differs from expected "
+            f"{expected_len} by more than tolerance {len_tolerance}.")
+    if vector_len > expected_len:
+        return vector[..., :expected_len]
+    if vector_len < expected_len:
+        vector = torch.as_tensor(vector)
+        return torch.nn.functional.pad(vector, (0, expected_len - vector_len),
+                                       value=pad_value)
+    return vector
+
+
+def make_iterable(x):
+    """A single object as a one-element tuple; None as (); lists and
+    tuples as tuples (core.py:329-335)."""
+    if x is None:
+        return ()
+    if isinstance(x, (list, tuple)):
+        return tuple(x)
+    return (x,)
+
+
+def cross_fade(a: torch.Tensor, b: torch.Tensor, n=None) -> torch.Tensor:
+    """Equal-power crossfade of the last n samples of ``a`` into the first
+    n of ``b`` (core.py:338-349); the fade curves are float32 like JAX's."""
+    if n is None:
+        n = min(a.shape[-1], b.shape[-1])
+    if n == 0:
+        return torch.cat([a, b], dim=-1)
+    t = torch.from_numpy(linspace_f32(0.0, 1.0, n)).to(a.device)
+    fade_out = torch.cos(t * (math.pi / 2.0))
+    fade_in = torch.sin(t * (math.pi / 2.0))
+    overlap = a[..., -n:] * fade_out + b[..., :n] * fade_in
+    return torch.cat([a[..., :-n], overlap, b[..., n:]], dim=-1)

@@ -2,9 +2,11 @@
 convolution.
 
 Counterpart of ddsp_piano_tpu/ops/filters.py (overlap_and_add,
-crop_and_compensate_delay, get_fft_size, fft_convolve, frequency_filter
-with the linmap path). The host constants of the linmap path are the same
-float64 numpy computations rounded to float32; its einsums are matmuls.
+crop_and_compensate_delay, get_fft_size, fft_convolve,
+apply_window_to_impulse_response, frequency_impulse_response and
+frequency_filter with its linmap, fft and conv methods). The host
+constants of the linmap path are the same float64 numpy computations
+rounded to float32; its einsums are matmuls.
 
 One difference of schedule, not of result: a single long IR (fft size
 >= 32768) is convolved with one cuFFT transform pair here, where the JAX
@@ -128,34 +130,18 @@ def fft_convolve(audio: torch.Tensor, impulse_response: torch.Tensor,
 
 @functools.lru_cache(maxsize=None)
 def np_ir_basis(n_bands: int, window_size: int) -> np.ndarray:
-    """frequency_impulse_response(eye(n_bands)) as a float32 host constant:
-    irfft of the identity -> Hann window -> causal shift, in float64."""
-    ir = np.fft.irfft(np.eye(n_bands), axis=-1)
-    ir_size = ir.shape[-1]
-    if window_size <= 0 or window_size > ir_size:
-        window_size = ir_size
-    if window_size == 1:
-        window = np.ones((1,))
-    else:
-        denom = window_size + (1 - window_size % 2) - 1
-        window = 0.5 - 0.5 * np.cos(
-            2.0 * np.pi * np.arange(window_size) / denom)
-    padding = ir_size - window_size
-    if padding > 0:
-        half_idx = (window_size + 1) // 2
-        window = np.concatenate(
-            [window[half_idx:], np.zeros((padding,)), window[:half_idx]])
-    else:
-        window = np.fft.fftshift(window)
-    ir = window * ir
-    if padding > 0:
-        first_half_start = (ir_size - (half_idx - 1)) + 1
-        second_half_end = half_idx + 1
-        ir = np.concatenate([ir[..., first_half_start:],
-                             ir[..., :second_half_end]], axis=-1)
-    else:
-        ir = np.fft.fftshift(ir, axes=-1)
-    return ir.astype(np.float32)
+    """frequency_impulse_response(eye(n_bands)) as a float32 host constant,
+    computed in float64."""
+    ir = torch.fft.irfft(torch.eye(n_bands, dtype=torch.complex128), dim=-1)
+    return _window_and_shift(ir, window_size).float().numpy()
+
+
+@functools.lru_cache(maxsize=None)
+def _ir_basis_device(n_bands: int, window_size: int, device: torch.device):
+    """np_ir_basis copied to ``device`` once, outside inference mode (as
+    _linmap_device_constants)."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np_ir_basis(n_bands, window_size)).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,22 +235,93 @@ def _frequency_filter_linmap(audio: torch.Tensor, magnitudes: torch.Tensor,
     return crop_and_compensate_delay(out, n, ir_size, padding, -1)
 
 
+def _window_and_shift(impulse_response: torch.Tensor,
+                      window_size: int) -> torch.Tensor:
+    """Hann-window a zero-phase IR and shift it causal, in its dtype."""
+    ir_size = impulse_response.shape[-1]
+    if window_size <= 0 or window_size > ir_size:
+        window_size = ir_size
+    window = core.hann_window(window_size, periodic=True,
+                              device=impulse_response.device,
+                              dtype=impulse_response.dtype)
+    padding = ir_size - window_size
+    if padding > 0:
+        half_idx = (window_size + 1) // 2
+        window = torch.cat([window[half_idx:], window.new_zeros(padding),
+                            window[:half_idx]])
+    else:
+        window = torch.fft.fftshift(window, dim=-1)
+    impulse_response = window * impulse_response
+    if padding > 0:
+        first_half_start = (ir_size - (half_idx - 1)) + 1
+        second_half_end = half_idx + 1
+        return torch.cat([impulse_response[..., first_half_start:],
+                          impulse_response[..., :second_half_end]], dim=-1)
+    return torch.fft.fftshift(impulse_response, dim=-1)
+
+
+def apply_window_to_impulse_response(impulse_response: torch.Tensor,
+                                     window_size: int = 0,
+                                     causal: bool = False) -> torch.Tensor:
+    """Hann-window a zero-phase IR and return it causal (filters.py:
+    182-211)."""
+    impulse_response = core.f32(impulse_response)
+    if causal:
+        impulse_response = torch.fft.fftshift(impulse_response, dim=-1)
+    return _window_and_shift(impulse_response, window_size)
+
+
 def frequency_impulse_response(magnitudes: torch.Tensor,
                                window_size: int = 0) -> torch.Tensor:
-    """Linear-phase FIR from band magnitudes: magnitudes @ the fixed basis
-    (irfft -> Hann window -> causal shift is linear in the magnitudes)."""
-    mags = core.f32(magnitudes)
-    basis = torch.from_numpy(np_ir_basis(mags.shape[-1], window_size))
-    return torch.matmul(mags, basis.to(mags.device))
+    """Linear-phase FIR from band magnitudes (zero phase): irfft, then the
+    Hann window and the causal shift (filters.py:214-219)."""
+    impulse_response = torch.fft.irfft(
+        core.f32(magnitudes).to(torch.complex64), dim=-1)
+    return apply_window_to_impulse_response(impulse_response,
+                                            window_size=window_size)
+
+
+def _frequency_filter_conv(audio: torch.Tensor, magnitudes: torch.Tensor,
+                           window_size: int, padding: str) -> torch.Tensor:
+    """Time-varying filtering as one convolution (filters.py:222-251): the
+    block convolution weights every input sample by its frame's
+    magnitudes, so with u_k = audio * (magnitudes[:, frame, k] held over
+    the frame) the output is sum_k u_k * basis_k, the basis IRs being
+    frequency_impulse_response of the identity (np_ir_basis)."""
+    n = audio.shape[-1]
+    n_frames, n_bands = magnitudes.shape[1:]
+    hop = n // n_frames
+    basis = _ir_basis_device(n_bands, window_size, audio.device)
+    ir_size = basis.shape[-1]
+    held = torch.repeat_interleave(core.f32(magnitudes).transpose(1, 2), hop,
+                                   dim=-1)                     # (b, K, n)
+    u = audio[:, None, :] * held
+    # conv1d correlates: flip the kernel for a convolution.
+    kernel = torch.flip(basis, dims=(-1,))[None]               # (1, K, ir)
+    out = torch.nn.functional.conv1d(u, kernel, padding=ir_size - 1)[:, 0]
+    return crop_and_compensate_delay(out, n, ir_size, padding, -1)
+
+
+METHODS = ('auto', 'fft', 'conv', 'linmap')
 
 
 def frequency_filter(audio: torch.Tensor, magnitudes: torch.Tensor,
-                     window_size: int = 0,
-                     padding: str = 'same') -> torch.Tensor:
+                     window_size: int = 0, padding: str = 'same',
+                     method: str = 'auto') -> torch.Tensor:
     """Time-varying FIR filtering from frame-rate band magnitudes
-    (batch, n_frames, n_bands); framed magnitudes take the linmap path."""
+    (batch, n_frames, n_bands), as filters.py:454-486: 'auto' and
+    'linmap' take the linmap path for framed magnitudes; 'conv' the one
+    convolution (when the audio is a whole number of frames); the rest
+    the block-FFT chain, frequency_impulse_response then fft_convolve."""
     audio = core.f32(audio)
-    if magnitudes.dim() == 3 and magnitudes.shape[1] > 1:
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    framed = magnitudes.dim() == 3 and magnitudes.shape[1] > 1
+    if (method == 'conv' and framed
+            and audio.shape[-1] % magnitudes.shape[1] == 0):
+        return _frequency_filter_conv(audio, magnitudes, window_size,
+                                      padding)
+    if method in ('auto', 'linmap') and framed:
         return _frequency_filter_linmap(audio, magnitudes, window_size,
                                         padding)
     impulse_response = frequency_impulse_response(magnitudes, window_size)

@@ -10,6 +10,11 @@ so the only serial work is a frame-rate cumsum. ``render_framewise`` is
 the plain version of the oscillator kernel (kernels/oscillator.py): the
 kernel computes the same terms and skips partials that are exactly zero.
 ``render_framewise_vjp`` is the plain version of the backward kernel.
+
+Also the envelope pipeline (``oscillator_bank_envelopes``, :57-86) and the
+``harmonic_synthesis`` front door (:506-595) of the single-f0 InHarmonic
+synth; its framewise path goes through the skipping oscillator's front
+door, and its phase sums are float64 like the framewise controls'.
 """
 
 from __future__ import annotations
@@ -246,3 +251,109 @@ def render_framewise_vjp(controls: FramewiseOscControls, g: torch.Tensor,
                                       gc * w_ahi, gs)):
             out.append(torch.sum(value, dim=2))
     return FramewiseOscControls(*(torch.cat(p, dim=1) for p in parts))
+
+
+def oscillator_bank_envelopes(frequency_envelopes, amplitude_envelopes,
+                              sample_rate: int = 16000,
+                              sum_sinusoids: bool = True,
+                              use_angular_cumsum: bool = False,
+                              initial_phase: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Cosine oscillator bank from (b, n_samples, K) sample-rate envelopes
+    (ops/oscillator.py:57-86): Nyquist mask, Hz -> rad/sample, cumulative
+    phase, cos. The phase sums in float64 (the JAX package sums in
+    float32, whose ulp is 2.4e-4 rad at one second of a 440 Hz partial at
+    16 kHz); ``use_angular_cumsum``
+    takes the chunked mod-2pi sum of :func:`core.angular_cumsum` in
+    float64 too. Returns (b, n_samples), or (b, n_samples, K) without
+    ``sum_sinusoids``."""
+    frequency_envelopes = core.f32(frequency_envelopes)
+    amplitude_envelopes = core.remove_above_nyquist(
+        frequency_envelopes, amplitude_envelopes, sample_rate)
+    omegas = frequency_envelopes * (_2PI / float(sample_rate))
+    if use_angular_cumsum:
+        phases = core.angular_cumsum(omegas.double())
+    else:
+        phases = torch.cumsum(omegas.double(), dim=1)
+    if initial_phase is not None:
+        phases = phases + initial_phase.double()
+    audio = amplitude_envelopes * torch.cos(phases).float()
+    if sum_sinusoids:
+        audio = torch.sum(audio, dim=-1)
+    return audio
+
+
+def harmonic_synthesis(frequencies, amplitudes,
+                       harmonic_shifts: Optional[torch.Tensor] = None,
+                       harmonic_distribution: Optional[torch.Tensor] = None,
+                       n_samples: int = 64000, sample_rate: int = 16000,
+                       amp_resample_method: str = 'window',
+                       sum_sinusoids: bool = True,
+                       use_angular_cumsum: bool = False,
+                       method: str = 'framewise',
+                       initial_phase: Optional[torch.Tensor] = None,
+                       return_final_phase: bool = False,
+                       lookahead: bool = False):
+    """Frame-rate harmonic controls -> audio (ops/oscillator.py:506-595).
+
+    frequencies and amplitudes (b, n_frames, 1); harmonic_shifts and
+    harmonic_distribution (b, n_frames, K). ``method='framewise'`` (when
+    n_samples is a whole number of frames, window amplitudes and summed
+    sinusoids) renders through the skipping oscillator's front door (K1 on
+    the card); otherwise, or with ``method='envelopes'``, the envelopes
+    are resampled to the audio rate and summed by
+    :func:`oscillator_bank_envelopes`. ``initial_phase`` (b, 1, K) and
+    ``return_final_phase`` carry the phase for streaming; the returned
+    phase is float64, mod 2pi."""
+    from ddsp_piano_torch.kernels.oscillator import render_framewise_skip
+
+    frequencies = core.f32(frequencies)
+    amplitudes = core.f32(amplitudes)
+    if harmonic_distribution is not None:
+        harmonic_distribution = core.f32(harmonic_distribution)
+        n_harmonics = harmonic_distribution.shape[-1]
+    elif harmonic_shifts is not None:
+        n_harmonics = harmonic_shifts.shape[-1]
+    else:
+        n_harmonics = 1
+    harmonic_frequencies = core.get_harmonic_frequencies(frequencies,
+                                                         n_harmonics)
+    if harmonic_shifts is not None:
+        harmonic_frequencies = harmonic_frequencies * (1.0 + harmonic_shifts)
+    harmonic_amplitudes = (amplitudes * harmonic_distribution
+                           if harmonic_distribution is not None
+                           else amplitudes)
+
+    n_frames = frequencies.shape[1] - (1 if lookahead else 0)
+    framewise_ok = (method == 'framewise' and n_frames > 0
+                    and n_samples % n_frames == 0
+                    and n_samples // n_frames >= 1
+                    and amp_resample_method == 'window' and sum_sinusoids)
+    if lookahead and not framewise_ok:
+        raise ValueError("lookahead streaming requires the framewise path "
+                         "(n_samples divisible by n_frames - 1, window amps)")
+    if framewise_ok:
+        up = n_samples // n_frames
+        controls = framewise_osc_controls(
+            harmonic_frequencies, harmonic_amplitudes, up, sample_rate,
+            initial_phase=initial_phase, lookahead=lookahead)
+        audio = render_framewise_skip(controls, up, sample_rate)
+        if return_final_phase:
+            return audio, framewise_final_phase(controls, up, sample_rate,
+                                                initial_phase=initial_phase)
+        return audio
+
+    frequency_envelopes = core.resample(harmonic_frequencies, n_samples)
+    amplitude_envelopes = core.resample(harmonic_amplitudes, n_samples,
+                                        method=amp_resample_method)
+    audio = oscillator_bank_envelopes(
+        frequency_envelopes, amplitude_envelopes, sample_rate=sample_rate,
+        sum_sinusoids=sum_sinusoids, use_angular_cumsum=use_angular_cumsum,
+        initial_phase=initial_phase)
+    if return_final_phase:
+        omegas = frequency_envelopes.double() * (_2PI / float(sample_rate))
+        final = torch.sum(omegas, dim=1, keepdim=True)
+        if initial_phase is not None:
+            final = final + initial_phase.double()
+        return audio, mod_2pi(final)
+    return audio

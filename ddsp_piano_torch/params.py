@@ -65,18 +65,19 @@ def _module_tree(module: nn.Module) -> Any:
 def export_jax_params(model: nn.Module) -> Dict[str, Any]:
     """The PianoModel's parameters as a JAX params tree of float32 numpy
     arrays, with the structure of the JAX ``PianoModel.init`` tree: one
-    entry per slot, and ``processor_group`` holding an empty tree for each
-    processor of the JAX group's graph (additive, noise, their ``add`` and
-    the reverb, under its name: 'reverb' or the trainable FDN's
-    'DelayNetwork'). The structure comes from the port's modules alone; no
-    JAX template is needed. ``load_jax_params`` takes it back."""
+    entry per slot, and ``processor_group`` holding a tree for each
+    distinct processor name of the group's DAG (for the folded-voice group,
+    the DAG it stands for: additive, noise, their 'add' and the reverb),
+    empty for a processor without parameters. The structure comes from the
+    port's modules alone; no JAX template is needed. ``load_jax_params``
+    takes it back."""
+    from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
+
     tree = {slot: _module_tree(module)
             for slot, module in model._module_slots()}
     group = model.processor_group
-    tree['processor_group'] = {'additive': _module_tree(group.additive),
-                               'noise': _module_tree(group.noise),
-                               'add': {}}
-    if group.reverb is not None:
-        tree['processor_group'][group.reverb_name] = _module_tree(
-            group.reverb)
+    if isinstance(group, VectorizedPolyphonicProcessorGroup):
+        group = group.as_sequential_group()
+    tree['processor_group'] = {proc.name: _module_tree(proc)
+                               for proc in group.processors}
     return tree

@@ -1,11 +1,13 @@
 """Inharmonic additive synthesizer (v2: one substring, K = 128; dafx22:
 two substrings x 96 harmonics, K = 192).
 
-Counterpart of ddsp_piano_tpu/processors/inharm.py:26-174. InHarmonic here
-carries only the control scaling (get_controls); the render is
-MultiInharmonic's, through a framewise oscillator front door: the skipping
-oscillator (kernels.oscillator.render_framewise_skip, K1 on the card) or
-the all-partials one (render_framewise_full, K8, forward only).
+Counterpart of ddsp_piano_tpu/processors/inharm.py:26-174. InHarmonic (one
+f0) renders through ops.oscillator.harmonic_synthesis; MultiInharmonic
+folds its substrings into one framewise oscillator call. Both reach a
+framewise oscillator front door: the skipping oscillator
+(kernels.oscillator.render_framewise_skip, K1 on the card) or, for
+MultiInharmonic, the all-partials one (render_framewise_full, K8, forward
+only).
 """
 
 from __future__ import annotations
@@ -27,8 +29,11 @@ class InHarmonic(Processor):
                  min_frequency: float = 20.0,
                  scale_fn: Optional[Callable] = core.exp_sigmoid,
                  normalize_after_nyquist_cut: bool = True,
-                 normalize_below_nyquist: bool = True):
-        super().__init__()
+                 normalize_below_nyquist: bool = True,
+                 inference: bool = False, name: str = 'inharmonic'):
+        super().__init__(name=name)
+        # The JAX synth's chunked mod-2pi cumsum in its envelope fallback.
+        self.inference = inference
         self.frame_rate = frame_rate
         self.sample_rate = sample_rate
         self.min_frequency = min_frequency
@@ -71,6 +76,17 @@ class InHarmonic(Processor):
                 'harmonic_shifts': harmonic_shifts,
                 'f0_hz': core.f32(f0_hz)}
 
+    def get_signal(self, amplitudes, harmonic_distribution, harmonic_shifts,
+                   f0_hz):
+        """(b, n_frames * up) audio (inharm.py:101-112)."""
+        return oscillator.harmonic_synthesis(
+            frequencies=f0_hz, amplitudes=amplitudes,
+            harmonic_shifts=harmonic_shifts,
+            harmonic_distribution=harmonic_distribution,
+            n_samples=self.upsampling * f0_hz.shape[1],
+            sample_rate=self.sample_rate,
+            use_angular_cumsum=self.inference)
+
 
 OSCILLATORS = ('skip', 'full')
 
@@ -86,8 +102,9 @@ class MultiInharmonic(InHarmonic):
     render_framewise backend 'pallas_skip' or 'pallas', which
     DDSP_PIANO_TPU_PALLAS selects there."""
 
-    def __init__(self, oscillator: str = 'skip', **kwargs):
-        super().__init__(**kwargs)
+    def __init__(self, oscillator: str = 'skip',
+                 name: str = 'multi_inharmonic', **kwargs):
+        super().__init__(name=name, **kwargs)
         if oscillator not in OSCILLATORS:
             raise ValueError(f"oscillator={oscillator!r}: expected one of "
                              f"{OSCILLATORS}")

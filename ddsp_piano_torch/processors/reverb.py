@@ -15,13 +15,24 @@ from ddsp_piano_torch.processors.base import Processor
 
 
 class Reverb(Processor):
-    """Convolution reverb with an externally supplied IR."""
+    """Convolution reverb with an externally supplied IR, or with its own
+    trainable IR of ``reverb_length`` samples (reverb.py:27-64)."""
 
-    name = 'reverb'
-
-    def __init__(self, add_dry: bool = True):
-        super().__init__()
+    def __init__(self, trainable: bool = False, reverb_length: int = 48000,
+                 add_dry: bool = True, name: str = 'reverb'):
+        super().__init__(name=name)
+        self.trainable = trainable
+        self.reverb_length = reverb_length
         self.add_dry = add_dry
+        if trainable:
+            self.ir = torch.nn.Parameter(torch.zeros(reverb_length))
+
+    def reset_parameters(self, generator: torch.Generator):
+        """The JAX init: 1e-6 times a standard normal."""
+        if self.trainable:
+            with torch.no_grad():
+                self.ir.copy_(1e-6 * torch.randn(self.ir.shape,
+                                                 generator=generator))
 
     @staticmethod
     def mask_dry_ir(ir: torch.Tensor) -> torch.Tensor:
@@ -31,7 +42,12 @@ class Reverb(Processor):
             ir = ir[:, :, 0]
         return torch.cat([ir.new_zeros((ir.shape[0], 1)), ir[:, 1:]], dim=1)
 
-    def get_controls(self, audio, ir):
+    def get_controls(self, audio, ir=None):
+        if self.trainable:
+            ir = self.ir
+        if ir is None:
+            raise ValueError("Reverb requires an 'ir' control when not "
+                             "trainable.")
         return {'audio': audio, 'ir': core.f32(ir)}
 
     def get_signal(self, audio, ir):
@@ -50,12 +66,11 @@ class FeedbackDelayNetwork(Processor):
     Its parameters sit under the group's ``DelayNetwork``, the JAX
     processor's name."""
 
-    name = 'DelayNetwork'
-
     def __init__(self, trainable: bool = False,
                  sampling_rate: float = 16000.0, delay_lines: int = 8,
-                 early_ir_length: int = 200, delay_trainable: bool = False):
-        super().__init__()
+                 early_ir_length: int = 200, delay_trainable: bool = False,
+                 name: str = 'DelayNetwork'):
+        super().__init__(name=name)
         self.trainable = trainable
         self.delay_trainable = delay_trainable and trainable
         self.sampling_rate = float(sampling_rate)

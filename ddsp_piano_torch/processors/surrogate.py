@@ -81,14 +81,13 @@ class SurrogateAdditive(Processor):
     amplitudes and harmonic distribution, stiff-string partials, decays
     clipped to [1e-5, 1] and set to 1 at or above Nyquist."""
 
-    name = 'additive'
-
     def __init__(self, frame_rate: int = 250, sample_rate: int = 16000,
                  min_frequency: float = 20.0,
                  normalize_harm_distribution: bool = True,
                  scale_fn: Optional[Callable] = core.exp_sigmoid,
-                 normalize_below_nyquist: bool = True):
-        super().__init__()
+                 normalize_below_nyquist: bool = True,
+                 name: str = 'inharmonic'):
+        super().__init__(name=name)
         self.frame_rate = frame_rate
         self.sample_rate = sample_rate
         self.min_frequency = min_frequency

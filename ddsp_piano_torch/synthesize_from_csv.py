@@ -5,7 +5,8 @@
         [--device cuda|cpu] maestro_dir csv_file out_dir
 
 Counterpart of the JAX package's synthesize_from_csv.py, with its
-arguments; --config takes the registered config names. Each CSV row
+arguments; --config takes a registered config name or a ``.gin`` file's
+path. Each CSV row
 (columns mid_file, piano_model, canonical_composer) is read from
 maestro_dir, its voices allocated on the device (K9 on the card; the
 host allocator's conditioning, bit for bit), rendered in one forward
@@ -39,7 +40,8 @@ REQUIRED_COLUMNS = ('mid_file', 'piano_model', 'canonical_composer')
 def process_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('--config', '-c', type=str, default='maestro_v2',
-                        help="Model config name. (default: %(default)s)")
+                        help="Model config name or .gin file path. "
+                             "(default: %(default)s)")
     parser.add_argument('--ckpt', type=str, default=None,
                         help="Checkpoint to load: the port's ckpt.pt (file "
                              "or directory) or a TF checkpoint (prefix or "

@@ -39,7 +39,8 @@ log = logging.getLogger(__name__)
 def process_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument('-c', '--config', type=str, default='maestro_v2',
-                        help="Model config name. (default: %(default)s)")
+                        help="Model config name or .gin file path. "
+                             "(default: %(default)s)")
     parser.add_argument('--ckpt', type=str, default=None,
                         help="Checkpoint to load: the port's ckpt.pt (file "
                              "or directory) or a TF checkpoint (prefix or "

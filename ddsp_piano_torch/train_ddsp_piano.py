@@ -14,8 +14,8 @@ Counterpart of the root train_ddsp_piano.sh, run in this process:
 Every phase runs with --auto_resume, so that running the recipe again
 resumes the interrupted phase from its own last_iter and skips the phases
 that are done. ``-s`` is each epoch's steps (15904 by default);
-``-e`` replaces every phase's epochs (for a short run); the config is
-maestro_v2 unless named.
+``-e`` replaces every phase's epochs (for a short run); the config (a
+registered name or a ``.gin`` file's path) is maestro_v2 unless named.
 """
 
 from __future__ import annotations
@@ -47,7 +47,8 @@ def process_args(argv=None):
     parser.add_argument('exp_dir', type=str,
                         help="Folder to store the three phases' results.")
     parser.add_argument('config', nargs='?', default='maestro_v2',
-                        help="Model config name. (default: %(default)s)")
+                        help="Model config name or .gin file path. "
+                             "(default: %(default)s)")
     return parser.parse_args(argv)
 
 

@@ -12,7 +12,13 @@ training the networks and even phases the frequency modules, with the NaN
 guard and the last / best / crashed / stopped checkpoints under
 ``<exp_dir>/phase_<N>/``, in the port's own format (``ckpt.pt``). The
 steps run on ``cuda`` unless --device cpu is given; --seed seeds the
-initial weights and the per-step noise draws. Losses go to the log.
+initial weights and the per-step noise draws. -c takes a config name or
+a ``.gin`` file's path. Losses go to the log, and TensorBoard summaries
+to ``<exp_dir>/phase_<N>/logs/`` (``tensorboard --logdir`` there), with
+the JAX CLI's tags at its steps: ``train_loss/<key>`` each epoch, then
+the ``synthesized_audio`` of one validation batch while the step is
+below 3 epochs, and after that ``val_loss/<key>``, ``synthesized_audio``,
+``spectrogram`` and ``tuning/<name>``.
 
 -k runs K steps on one staged block (Trainer.train_steps; the NaN guard's
 crashed_iter then comes from before the block). --staging chooses how a
@@ -31,7 +37,9 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import time
 
+import numpy as np
 import torch
 
 log = logging.getLogger(__name__)
@@ -57,7 +65,7 @@ def process_args(argv=None):
     parser.add_argument('--lr', type=float, default=0.001,
                         help="Learning rate. (default: %(default)s)")
     parser.add_argument('--config', '-c', default='maestro_v2',
-                        help="Model config name.")
+                        help="Model config name or .gin file path.")
     parser.add_argument('--phase', '-p', type=int, default=1,
                         help="Training phase strategy to apply. Even phases "
                              "fine-tune only the frequency sub-modules. "
@@ -128,11 +136,13 @@ def _refuse_unported(args):
 
 def main(args, record_timeline: bool = False) -> dict:
     """Train. Returns the trainer, the total loss of every step (floats),
-    the last validation losses and, with --profile, the trace's path."""
+    the last validation losses, the summaries' event file and the
+    milliseconds the summaries took each epoch, the epochs' mean training
+    losses and, with --profile, the trace's path."""
     from ddsp_piano_torch.configs import get_model
     from ddsp_piano_torch.data import pipeline
     from ddsp_piano_torch.device import resolve_device
-    from ddsp_piano_torch.training import debug
+    from ddsp_piano_torch.training import debug, summaries
     from ddsp_piano_torch.training.checkpoints import (latest_checkpoint,
                                                        read_meta)
     from ddsp_piano_torch.training.trainer import NanLossError, Trainer
@@ -206,6 +216,8 @@ def main(args, record_timeline: bool = False) -> dict:
                           'lowest_val_loss': float(lowest_val_loss)}
     for sub in ('logs', 'last_iter', 'best_iter'):
         os.makedirs(osjoin(exp_dir, sub), exist_ok=True)
+    writer = summaries.SummaryWriter(osjoin(exp_dir, 'logs'))
+    result.update(events=writer.path, summary_ms=[], train_means=[])
 
     loss_keys = model.loss_keys()
     try:
@@ -222,6 +234,7 @@ def main(args, record_timeline: bool = False) -> dict:
             log.info("Profiler trace (%d steps) written to %s",
                      n_profile * k_steps, path)
         for epoch in range(start_epoch, args.epochs):
+            step = trainer.step    # the epoch's first step, as in JAX
             epoch_losses = []
             for _ in range(args.steps_per_epoch // k_steps):
                 losses = step_fn(next(train_iterator))
@@ -233,6 +246,10 @@ def main(args, record_timeline: bool = False) -> dict:
             means = dict(zip(loss_keys, totals.mean(dim=0).tolist()))
             log.info("Epoch %d training loss: %.4f (%s)", epoch,
                      means['total_loss'], means)
+            result['train_means'].append(means)
+            tic = time.perf_counter()
+            writer.scalars('train_loss', means, step)
+            summary_s = time.perf_counter() - tic
             trainer.save(osjoin(exp_dir, 'last_iter'), meta=phase_meta())
             log.info("Last iteration model saved at %s",
                      osjoin(exp_dir, 'last_iter'))
@@ -244,29 +261,51 @@ def main(args, record_timeline: bool = False) -> dict:
                 # JAX trainer's summary).
                 val_batch = next(iter(val_dataset), None)
                 if val_batch is not None:
-                    result['val_losses'], _ = trainer.validation_step(
-                        val_batch)
+                    result['val_losses'], audio_synth = \
+                        trainer.validation_step(val_batch)
                     log.info("Validation loss (one batch): %.4f",
                              result['val_losses']['total_loss'])
+                    tic = time.perf_counter()
+                    writer.audio('synthesized_audio', audio_synth,
+                                 model.sample_rate, trainer.step)
+                    summary_s += time.perf_counter() - tic
+                result['summary_ms'].append(1e3 * summary_s)
                 continue
 
             epoch_val = {k: 0.0 for k in loss_keys}
             val_steps = 0
+            first_val = None
             for val_batch in val_dataset:
-                val_losses, _ = trainer.validation_step(val_batch)
+                val_losses, audio_synth = trainer.validation_step(val_batch)
                 for k in loss_keys:
                     epoch_val[k] += val_losses[k]
+                if val_steps == 0:
+                    first_val = (val_batch['audio'], audio_synth)
                 val_steps += 1
             if val_steps == 0:
+                result['summary_ms'].append(1e3 * summary_s)
                 continue
             result['val_losses'] = {k: v / val_steps
                                     for k, v in epoch_val.items()}
             log.info("Validation loss: %.4f",
                      result['val_losses']['total_loss'])
+            tic = time.perf_counter()
+            writer.scalars('val_loss', result['val_losses'], step)
+            writer.audio('synthesized_audio', first_val[1],
+                         model.sample_rate, step)
+            writer.spectrogram_summary(np.asarray(first_val[0]),
+                                       first_val[1], step,
+                                       sample_rate=model.sample_rate)
+            writer.curves(model, step)
+            summary_s += time.perf_counter() - tic
             if epoch_val['audio_stft_loss'] < lowest_val_loss:
                 lowest_val_loss = epoch_val['audio_stft_loss']
                 trainer.save(osjoin(exp_dir, 'best_iter'),
                              meta=phase_meta())
+            tic = time.perf_counter()
+            writer.flush()
+            result['summary_ms'].append(
+                1e3 * (summary_s + time.perf_counter() - tic))
     except NanLossError as e:
         trainer.save(osjoin(exp_dir, 'crashed_iter'), state=e.state)
         log.error("%s", e)
@@ -278,6 +317,7 @@ def main(args, record_timeline: bool = False) -> dict:
             trainer.save(osjoin(exp_dir, 'crashed_iter'), state=e.state)
             log.error("%s", e)
     finally:
+        writer.close()
         host_iterator.close()
         debug.disable_debug_nans(nan_hooks)
     return result

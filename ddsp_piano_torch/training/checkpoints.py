@@ -171,13 +171,20 @@ def _children(module: tnn.Module) -> List[Tuple[str, str]]:
                  'main_model', 'film_input_reshape', 'output_layer')
     elif isinstance(module, sm.OneHotZEncoder):
         attrs = ('embedding', 'inharm_embedding', 'detune_embedding')
+    elif isinstance(module, sm.BackgroundNoiseFilter):
+        attrs = ('embedding',)
+    elif isinstance(module, sm.DeepInharmonicity):
+        attrs = ('hidden_layers', 'scale_layer', 'out_layer')
+    elif isinstance(module, sm.PartialMasking):
+        attrs = ()
     elif isinstance(module, sm.MultiInstrumentReverb):
         return [('reverb_dict', 'reverb_dict/layer_with_weights-0')]
     elif isinstance(module, sm.MultiInstrumentFeedbackDelayReverb):
         attrs = module._EMBEDDINGS
     elif isinstance(module, sm.JointParametricInharmTuning):
         attrs = module.WEIGHT_NAMES
-    elif isinstance(module, (sm.Detuner, sm.DictInharmonicityModel)):
+    elif isinstance(module, (sm.Detuner, sm.DictDetuner,
+                             sm.DictInharmonicityModel)):
         attrs = ('layer',)
     elif isinstance(module, sm.DeepDetuner):
         attrs = ('hidden_layers', 'out_layer')

@@ -8,7 +8,8 @@ forward here runs without it and the loss is taken per segment.
 
 Each segment's noise draw comes from its global segment index, so a
 segment's loss, and the CSV, do not depend on how the sweep packs segments
-into batches.
+into batches. A noise synth that loops noise bands (NoiseBandNetSynth)
+takes each row's loop shift from that row's draw.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
 - Importing ddsp_piano_torch and every module under it, and chip_smoke.py,
   loads neither jax nor ddsp_piano_tpu, nor tensorflow, which the port
-  imports only to read or write a TF checkpoint (checked in a fresh
-  interpreter).
+  imports only to read or write a TF checkpoint, nor tensorboard,
+  google.protobuf or matplotlib; writing and reading a summaries event
+  file and parsing a gin text load none of them either (checked in a
+  fresh interpreter).
 - An entry point called with no device on a host without CUDA raises.
 - chip_smoke.py exits non-zero, printing no result, without a card and in
   a directory that holds nothing else of the repository.
@@ -33,19 +35,34 @@ names = [m.name for m in pkgutil.walk_packages(ddsp_piano_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import numpy as np, tempfile
+from ddsp_piano_torch.configs import gin_compat
+from ddsp_piano_torch.training import events, summaries
+with tempfile.TemporaryDirectory() as logdir:
+    writer = summaries.SummaryWriter(logdir)
+    writer.scalar('loss', 1.0, 1)
+    writer.audio('audio', np.zeros((1, 100), np.float32), 16000, 1)
+    writer.image('image', np.zeros((4, 4, 3), np.uint8), 1)
+    writer.flush()
+    assert len(events.read_events(writer.path)) == 4
+    writer.close()
+gin_compat.parse_gin_string("n = 3\nFoo.x = [%n, @bar/Baz()]")
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'ddsp_piano_tpu',
-                                    'tensorflow'))
+                                    'tensorflow', 'tensorboard',
+                                    'matplotlib')
+             or m.startswith('google.protobuf'))
 print(len(names), bad)
 assert not bad, bad
-assert len(names) >= 46, names
+assert len(names) >= 50, names
 for name in ('models.streaming', 'processors.surrogate',
              'configs.enstdkcl_8khz', 'configs.enstdkcl_32khz',
              'configs.multi_instruments', 'configs.surrogate',
              'preprocess_maestro', 'train_ddsp_piano', 'training.staging',
              'training.debug', 'configs.gin_test', 'models.serving',
              'data.midi_encoders_device', 'kernels.voice_allocator',
-             'synthesize_from_csv'):
+             'synthesize_from_csv', 'training.events', 'training.summaries',
+             'configs.gin_compat', 'models.default_model'):
     assert 'ddsp_piano_torch.' + name in names, names
 """
 

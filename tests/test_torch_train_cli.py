@@ -198,10 +198,10 @@ def test_recipe_runs_three_phases(cache, small, tmp_path):
     assert [r['step_losses'] for r in again] == [[], [], []]
 
 
-def test_gin_test_on_cpu(small, capsys):
+def test_gin_test_on_cpu(small, capsys, tmp_path):
     """python -m ddsp_piano_torch.configs.gin_test maestro_v2 --device cpu:
     the parameters by slot, a forward on get_dummy_data and one training
-    step; a .gin path is refused."""
+    step; a .gin path builds and steps too."""
     from ddsp_piano_torch.configs import gin_test
 
     result = gin_test.main(gin_test.process_args(
@@ -214,5 +214,11 @@ def test_gin_test_on_cpu(small, capsys):
     assert result['audio_shape'] == (2, 12000)
     assert np.isfinite(result['step_losses']['total_loss'])
     assert 'forward ok' in out and 'train step ok on cpu' in out
-    with pytest.raises(SystemExit, match='.gin'):
-        gin_test.main(gin_test.process_args(['x.gin', '--device', 'cpu']))
+    from test_torch_gin import write_gin
+
+    path = write_gin(tmp_path / 'model.gin')
+    result = gin_test.main(gin_test.process_args(
+        [path, '--device', 'cpu', '--duration', '0.5']))
+    assert 'background_noise_model' in result['slots']
+    assert result['audio_shape'] == (2, 8000)
+    assert np.isfinite(result['step_losses']['total_loss'])

@@ -72,7 +72,7 @@ non-zero exit code and no result line:
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
-   be finite. Prints the step time and its parts; after phase 23 (a
+   be finite. Prints the step time and its parts; after phase 24 (a
    trace before a timed render slows it), a torch.profiler view of three
    more steps: the device's busy share, the operators with the most
    device and host time, and each hand-written kernel's device events
@@ -208,14 +208,35 @@ non-zero exit code and no result line:
    one K1 launch) against the folded group's voice 0; then
    ``train_single_phase -c <i>.gin -b 6 -s 2 -e 1`` on the cache, every
    launch held against its plain version.
-24. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+24. Data parallelism on the one card (parallel/mesh.py), maestro_v2 at
+   full width, global batch 6 x 3 s from phase 18's cache, student
+   weights: (a) a process group of one rank over NCCL: 3 Trainer steps
+   through its all-reduce equal the single process's steps bit for bit
+   (losses and parameters), every launch held against its plain version;
+   (b) two ranks on the card over gloo with CUDA tensors (NCCL refuses
+   two ranks on one card), started by the port's launcher, each on 3 of
+   the 6 rows: the first step's reduced gradients (the v2 loss, and its
+   magnitude term alone) against what the reduce sums, the mean of the
+   first step on each 3-row half in one process with its rows of the same
+   draw (the magnitude term within 1e-6 of each leaf's peak), and against
+   the single process's 6-row gradient at the same weights and draw
+   (each leaf's gap printed beside the same gap of the halves' mean in
+   one process: float32 sums in another order); every cosine at least
+   0.999; the losses within rtol 1e-5 of the 6-row step's, the
+   parameters bit-equal across the ranks after 3 steps, every launch of
+   both ranks counted and held against its plain version; (c)
+   ``evaluate_model --n_devices 2`` over the two ranks (-b 4, --duration
+   2, phase 11's checkpoint) against ``--n_devices 1``: losses within
+   rtol 1e-5, the sweep's launches held too. Prints the gradient buffer's
+   bytes and the reduce's CUDA-event ms a step.
+25. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-25. One JSON line of kernel numbers (K1's row at the training step's
+26. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render, the CLI run and phase
    18's run; K2-K7's also phase 18's; K9's those of phases 19-20; each
-   kernel's also phases 22-23's), then the result line.
+   kernel's also phases 22-24's), then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO, the training
 run's checkpoints and the evaluation CSVs go to build/ in the checkout.
@@ -1812,7 +1833,7 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 22 -----------------------------------------------------------------
+# -- phase 25 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight,
@@ -3587,6 +3608,322 @@ def gin_path():
     return out
 
 
+# -- phase 24 -----------------------------------------------------------------
+
+
+PARALLEL_STEPS = 3             # steps of each data-parallel run
+PARALLEL_RANKS = 2             # gloo ranks sharing the one card
+# The reduced gradient of the magnitude term against the mean of the
+# parts' gradients in one process, a share of each leaf's peak: the same
+# rows through the same kernels, summed in the reduce's order for two
+# ranks (a + b); NCCL's ring sums three ranks' parts in another order.
+PARALLEL_PARTS_TOL = 1e-6
+PARALLEL_NCCL_PARTS_TOL = 1e-5
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_EVAL_BATCH = 4
+PARALLEL_EVAL_RTOL = 1e-5
+
+
+def cache_batches(n, batch_size=TRAIN_BATCH):
+    """The first ``n`` batches of the cache's train split, unshuffled."""
+    from ddsp_piano_torch.data import pipeline
+
+    batches = pipeline.get_dataset(CACHE_DIR, split='train',
+                                   duration=SEGMENT_SECONDS,
+                                   batch_size=batch_size, shuffle=False,
+                                   sample_rate=24000, max_polyphony=16,
+                                   num_parallel_calls=1)
+    out = [{k: v for k, v in next(batches).items() if k != 'filename'}
+           for _ in range(n)]
+    batches.close()
+    return out
+
+
+def parallel_first_step(batch, device, parts=1):
+    """The first step's losses and gradients (the v2 loss, and its
+    magnitude term alone) from the student weights, with step 0's noise
+    draw: in a process group, the rank's reduced ones. With ``parts`` > 1
+    in one process, what the reduce of that many ranks computes: the sum
+    of the first step on each equal part of the rows, with its rows of
+    the draw, divided by the parts."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.processors.noise import uniform_noise
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=device, seed=STUDENT_SEED)
+    trainer = Trainer(model, first_phase=True)
+    b, n = batch['audio'].shape
+    out = {}
+    for name, logmag_weight in (('v2', 1.0), ('magnitudes', 0.0)):
+        model.loss_objs[0].logmag_weight = logmag_weight
+        if parts == 1:
+            losses = trainer.forward_backward(
+                batch, generator=trainer.noise_generator(0))
+            out[name] = ({k: float(v) for k, v in losses.items()},
+                         {k: p.grad.detach().cpu().clone()
+                          for k, p in trainer.named_params})
+            continue
+        draw = uniform_noise((model.n_synths * b, n),
+                             trainer.noise_generator(0), device)
+        total_losses, total = None, None
+        per = b // parts
+        for i in range(parts):
+            rows = slice(i * per, (i + 1) * per)
+            losses = trainer.forward_backward(
+                {k: v[rows] for k, v in batch.items()},
+                noise=draw.view(model.n_synths, b, n)[:, rows].reshape(-1, n))
+            grads = {k: p.grad.detach().clone()
+                     for k, p in trainer.named_params}
+            if total is None:
+                total_losses, total = losses, grads
+            else:
+                total_losses = {k: total_losses[k] + v
+                                for k, v in losses.items()}
+                total = {k: total[k] + g for k, g in grads.items()}
+        out[name] = ({k: float(v / parts) for k, v in total_losses.items()},
+                     {k: (g / parts).cpu() for k, g in total.items()})
+    return out
+
+
+def gradient_stats(got, want):
+    """(worst leaf, its error as a share of its peak, the median leaf's,
+    the cosine, whether every leaf is bit-equal)."""
+    errs, cosine = gradient_gap(got, want)
+    worst = max(errs, key=errs.get)
+    return (worst, errs[worst], statistics.median(errs.values()), cosine,
+            all(torch.equal(got[k], w) for k, w in want.items()))
+
+
+def parallel_steps(batches, device, capture=None):
+    """PARALLEL_STEPS Trainer steps from the student weights (a rank's in
+    a process group), counters set to 0 just before and read just after:
+    losses, launches, parameters, step and reduce times."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model = get_model('maestro_v2', device=device, seed=STUDENT_SEED)
+    trainer = Trainer(model, first_phase=True, record_timeline=True)
+    sync()
+    build.reset_launches()
+    with capturing(capture, CACHE_DOORS):
+        losses = [float(trainer.train_step(b)['total_loss'])
+                  for b in batches]
+        trainer.check_pending()
+    sync()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    missing = [k for k in TRAIN_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"the data-parallel steps launched no {missing} kernel: "
+             f"{launches}")
+    return dict(losses=losses, launches=launches,
+                params={n: p.detach().cpu().clone()
+                        for n, p in model.named_parameters()},
+                step_ms=[t[0] for t in trainer.step_times()],
+                reduce_ms=trainer.reduce_times(),
+                reduce_bytes=trainer.reduce_bytes)
+
+
+def parallel_eval(flags, name, capture=None):
+    """``evaluate_model --ckpt <phase 11's> --duration 2 -b 4`` over the
+    test row, counted: (its rows, its launches)."""
+    from ddsp_piano_torch import evaluate_model as cli
+    from ddsp_piano_torch.kernels import build
+
+    ckpt = os.path.join(OUT_DIR, 'train_exp', 'phase_1', 'last_iter')
+    sync()
+    build.reset_launches()
+    with capturing(capture, CACHE_DOORS):
+        result = cli.main(cli.process_args(
+            ['--ckpt', ckpt, '--duration', str(EVAL_SECONDS), '-b',
+             str(PARALLEL_EVAL_BATCH), '--device', DEV.type] + flags
+            + [MAESTRO_DIR, os.path.join(OUT_DIR, 'eval', name)]))
+    sync()
+    launches = {k: n for k, n in build.LAUNCHES.items() if n}
+    missing = [k for k in RENDER_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        fail(f"the {name} evaluation launched no {missing} kernel: "
+             f"{launches}")
+    return result['rows'], launches
+
+
+def parallel_rank(batches):
+    """Phase 24 (b) and (c) in one of two gloo ranks sharing the card:
+    the first step's reduced gradients, PARALLEL_STEPS steps on the rank's
+    rows (each launch held against its plain version at its inputs) and
+    the evaluation sweep's rows (its launches held too)."""
+    from ddsp_piano_torch.device import set_f32_precision
+    from ddsp_piano_torch.parallel import mesh
+
+    set_f32_precision()
+    device = mesh.local_device(DEV)
+    rank = mesh.rank()
+    rows = [mesh.slice_local_batch(b) for b in batches]
+    first = parallel_first_step(rows[0], device)
+    capture = {}
+    steps = parallel_steps(rows, device, capture)
+    checked = step_path_kernels(capture, f'rank {rank} of the data-parallel '
+                                'steps', timed=False)
+    capture = {}
+    eval_rows, eval_launches = parallel_eval(
+        ['--n_devices', str(PARALLEL_RANKS)], 'parallel_ranks', capture)
+    checked += step_path_kernels(capture, f'rank {rank} of the evaluation',
+                                 timed=False)
+    return dict(rank=rank, first=first, steps=steps, checked=checked,
+                eval_rows=eval_rows, eval_launches=eval_launches)
+
+
+def parallel_path():
+    """Phase 24: data parallelism on the one card."""
+    import tempfile
+
+    from ddsp_piano_torch.parallel import mesh
+
+    phase_start = time.perf_counter()
+    batches = cache_batches(PARALLEL_STEPS)
+    out = {}
+    # (a) a process group of one rank over NCCL: the reduce path against
+    # the single process, bit for bit.
+    want = parallel_steps(batches, DEV)
+    capture = {}
+    card = torch.cuda.current_device() if DEV.type == 'cuda' else None
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh.init_rank(0, 1, mesh.Hosts(), DEV.type,
+                       'file://' + os.path.join(tmp, 'rendezvous'),
+                       card=card)
+        try:
+            got = parallel_steps(batches, DEV, capture)
+        finally:
+            mesh.end_rank()
+    bits = got['losses'] == want['losses'] and all(
+        torch.equal(got['params'][n], v) for n, v in want['params'].items())
+    if not bits:
+        fail(f"a one-rank NCCL group's steps differ from the single "
+             f"process's: losses {got['losses']} against {want['losses']}")
+    out['one_rank'] = dict(got, checked=step_path_kernels(
+        capture, 'the one-rank group', timed=False), single=want)
+    del capture
+
+    # (b) and (c): two gloo ranks on the card, against the single process
+    # on the global batch.
+    reference = parallel_first_step(batches[0], DEV)
+    halves = parallel_first_step(batches[0], DEV, parts=PARALLEL_RANKS)
+    # The float32 control: the halves' mean against the whole batch's
+    # gradient in one process, no process group.
+    control = {name: gradient_stats(halves[name][1], reference[name][1])
+               for name in reference}
+    eval_want, eval_launches = parallel_eval(['--n_devices', '1'],
+                                             'parallel_single')
+    start = time.perf_counter()
+    try:
+        ranks = mesh.launch(parallel_rank, PARALLEL_RANKS, (batches,),
+                            DEV.type, backend='gloo',
+                            cards=[card] * PARALLEL_RANKS)
+    except Exception as e:  # noqa: BLE001 - a rank's failure, whatever
+        fail(f"the two-rank run failed: {e}")
+    ranks_seconds = time.perf_counter() - start
+    grads = {}
+    for r in ranks:
+        for name, (losses, leaves) in r['first'].items():
+            for key, value in reference[name][0].items():
+                if not np.isclose(losses[key], value,
+                                  rtol=PARALLEL_LOSS_RTOL, atol=0):
+                    fail(f"rank {r['rank']}: first-step {name} {key} "
+                         f"{losses[key]} against {value} in one process")
+            whole = gradient_stats(leaves, reference[name][1])
+            parts = gradient_stats(leaves, halves[name][1])
+            grads.setdefault(name, []).append((whole, parts))
+            if name == 'magnitudes' and parts[1] > PARALLEL_PARTS_TOL:
+                fail(f"rank {r['rank']}: the reduced gradient of the "
+                     f"magnitude term, {parts[0]}, is {parts[1]:.3g} of its "
+                     "peak from the halves' mean in one process")
+            if min(whole[3], parts[3]) < STEP_MIN_COSINE:
+                fail(f"rank {r['rank']}: the {name} reduced gradient's "
+                     f"cosine {whole[3]} / {parts[3]} to one process's")
+        for n, v in ranks[0]['steps']['params'].items():
+            if not torch.equal(r['steps']['params'][n], v):
+                fail(f"the ranks' {n} differ after {PARALLEL_STEPS} steps")
+        got_loss = np.array([x['loss_val'] for x in r['eval_rows']])
+        want_loss = np.array([x['loss_val'] for x in eval_want])
+        if (len(got_loss) != len(want_loss)
+                or not np.allclose(got_loss, want_loss,
+                                   rtol=PARALLEL_EVAL_RTOL, atol=0)):
+            fail(f"rank {r['rank']}: evaluation losses {got_loss} against "
+                 f"{want_loss} from one rank")
+    out.update(ranks=ranks, grads=grads, control=control,
+               ranks_seconds=ranks_seconds,
+               eval_rel=float(np.max(np.abs(got_loss - want_loss)
+                                     / np.abs(want_loss))),
+               seconds=time.perf_counter() - phase_start)
+    return out
+
+
+def parallel_launches(p):
+    """Phase 24's launches by kernel: the one-rank group's steps and each
+    rank's steps and evaluation sweep."""
+    total = dict(p['one_rank']['launches'])
+    for r in p['ranks']:
+        for launches in (r['steps']['launches'], r['eval_launches']):
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
+def parallel_lines(p):
+    a = p['one_rank']
+    ms = lambda v: statistics.median(v) if v else float('nan')
+    lines = [
+        f"data-parallel (a): a one-rank NCCL group on the card, "
+        f"{PARALLEL_STEPS} steps of maestro_v2 b={TRAIN_BATCH} x "
+        f"{SEGMENT_SECONDS:g} s from the cache: losses and parameters bit "
+        f"for bit the single process's ({', '.join(f'{v:.6f}' for v in a['losses'])}); "
+        f"launches {a['launches']}; every launch against its plain version: "
+        + checked_line(a['checked'])
+        + f"; gradient buffer {a['reduce_bytes']} bytes, reduce "
+        f"{ms(a['reduce_ms']):.4f} ms a step (CUDA events, median); step "
+        f"{ms(a['step_ms'][1:]):.2f} ms against {ms(a['single']['step_ms'][1:]):.2f} "
+        "in one process"]
+    for r in p['ranks']:
+        st = r['steps']
+        lines.append(
+            f"data-parallel (b): rank {r['rank']} of {PARALLEL_RANKS} gloo "
+            f"ranks on the card, {TRAIN_BATCH // PARALLEL_RANKS} of the "
+            f"{TRAIN_BATCH} rows, {PARALLEL_STEPS} steps: launches "
+            f"{st['launches']}, evaluation launches {r['eval_launches']}; "
+            "every launch against its plain version: "
+            + checked_line(r['checked'])
+            + f"; gradient buffer {st['reduce_bytes']} bytes, reduce "
+            f"{ms(st['reduce_ms']):.3f} ms a step (CUDA events, median; "
+            f"gloo through the host); step {ms(st['step_ms'][1:]):.2f} ms")
+    stats = lambda x: (f"worst {x[0]} {x[1]:.3g} of its peak, median leaf "
+                       f"{x[2]:.3g}, cosine {x[3]:.9f}, bit-equal {x[4]}")
+    for name, v in p['grads'].items():
+        lines.append(
+            f"data-parallel (b): the first step's reduced {name} gradient, "
+            f"against the single process's {TRAIN_BATCH}-row gradient at "
+            "the same weights and draw: " + '; '.join(
+                f"rank {i} {stats(whole)}" for i, (whole, _) in enumerate(v))
+            + f"; against the mean of its two {TRAIN_BATCH // 2}-row halves "
+            "in one process (what the reduce sums): " + '; '.join(
+                f"rank {i} {stats(parts)}" for i, (_, parts) in enumerate(v))
+            + f"; the halves' mean against the {TRAIN_BATCH}-row gradient in "
+            f"one process (float32 control): {stats(p['control'][name])}")
+    lines.append(
+        f"data-parallel (b): losses within rtol {PARALLEL_LOSS_RTOL:g} of "
+        f"the single process's; the magnitude term's gradient within "
+        f"{PARALLEL_PARTS_TOL:g} of each leaf's peak of the halves' mean, "
+        f"both gradients' cosines at least {STEP_MIN_COSINE}; parameters "
+        f"bit-equal across the ranks after {PARALLEL_STEPS} steps")
+    lines.append(
+        f"data-parallel (c): evaluate_model --n_devices {PARALLEL_RANKS} -b "
+        f"{PARALLEL_EVAL_BATCH} --duration {EVAL_SECONDS:g} over gloo ranks "
+        f"on the card against --n_devices 1: losses within "
+        f"{p['eval_rel']:.3g} (rtol {PARALLEL_EVAL_RTOL:g}); the ranks' run "
+        f"{p['ranks_seconds']:.1f} s (spawn included); phase "
+        f"{p['seconds']:.1f} s")
+    return lines
+
+
 def slice_launches(s, g):
     """This slice's launches by kernel: the summaries run, and the gin
     render's counted run, the sequential DAG, the InHarmonic DAG, the gin
@@ -3912,6 +4249,12 @@ def main():
     for line in gin_lines(g, time.perf_counter() - t0):
         print(line, flush=True)
     this_slice = slice_launches(sm, g)
+
+    par = parallel_path()
+    for line in parallel_lines(par):
+        print(line, flush=True)
+    for k, n in parallel_launches(par).items():
+        this_slice[k] = this_slice.get(k, 0) + n
 
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:

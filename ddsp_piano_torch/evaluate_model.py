@@ -1,8 +1,8 @@
 """Evaluate a trained model on the MAESTRO test set.
 
     python -m ddsp_piano_torch.evaluate_model [-c maestro_v2] [--ckpt PATH]
-        [-wu S] [-w] [--duration S] [-b N] [--device cuda|cpu]
-        maestro_dir out_dir
+        [-wu S] [-w] [--duration S] [-b N] [--n_devices N]
+        [--device cuda|cpu] maestro_dir out_dir
 
 Counterpart of the JAX package's evaluate_model.py. The test split is cut
 into --duration segments; each segment's multi-scale spectral loss after a
@@ -15,8 +15,12 @@ its global segment index, so the CSV does not depend on the batch size.
 --get_wav writes each segment's audio as ``wav/<track>_<index:04d>.wav``.
 --ckpt takes what the synthesize CLI takes (the port's ckpt.pt or a TF
 checkpoint). The sweep runs on ``cuda`` unless --device cpu is given.
---n_devices is refused unless left at its default: the port runs on one
-device.
+Each batch is split over the largest number of cards up to --n_devices
+(default: every visible card; on the CPU, gloo ranks, default 1) that
+divides --batch_size, one rank a card (parallel/mesh.py): each rank draws
+its rows' noise from their global segment indices, the losses (and the
+audio, with --get_wav) are gathered in order, and rank 0 writes the CSVs
+and the WAVs, the same as one rank's.
 """
 
 from __future__ import annotations
@@ -57,7 +61,9 @@ def process_args(argv=None):
     parser.add_argument('--batch_size', '-b', type=int, default=4,
                         help="Segments per forward (default: %(default)s)")
     parser.add_argument('--n_devices', type=int, default=None,
-                        help="Not ported: the port evaluates on one device.")
+                        help="Cards to split each batch over, one rank "
+                             "each (default: all visible; on the CPU, gloo "
+                             "ranks, default 1).")
     parser.add_argument('--device', choices=('cuda', 'cpu'), default='cuda',
                         help="Device to evaluate on (default: %(default)s)")
     parser.add_argument('maestro_dir', type=str,
@@ -103,18 +109,47 @@ def write_csv(path, rows):
 
 def main(args) -> dict:
     """Run the sweep. Returns the CSV rows (dicts), the number of batches
-    and the sweep's wall seconds (data loading included)."""
+    and the sweep's wall seconds (data loading included): every rank's
+    (the same rows); when it starts the ranks itself, local rank 0's, with
+    every rank's under 'ranks'."""
+    from ddsp_piano_torch.device import resolve_device
+    from ddsp_piano_torch.parallel import mesh
+
+    device = resolve_device(args.device)
+    result = mesh.run(evaluate, (args,), args.batch_size, args.n_devices,
+                      device)
+    if isinstance(result, list):
+        return dict(result[0], ranks=result)
+    return result
+
+
+def _gather(x: torch.Tensor) -> torch.Tensor:
+    """Every rank's rows of ``x``, in rank order (x itself with one
+    rank)."""
+    import torch.distributed as dist
+
+    from ddsp_piano_torch.parallel import mesh
+
+    if mesh.world_size() == 1:
+        return x
+    parts = [torch.empty_like(x) for _ in range(mesh.world_size())]
+    dist.all_gather(parts, x.contiguous())
+    return torch.cat(parts)
+
+
+def evaluate(args) -> dict:
+    """The sweep of one process: the only one, or one rank."""
     from ddsp_piano_torch import configs
     from ddsp_piano_torch.data import audio_io, pipeline
     from ddsp_piano_torch.device import resolve_device
+    from ddsp_piano_torch.parallel import mesh
     from ddsp_piano_torch.training.checkpoints import restore_params
     from ddsp_piano_torch.training.evaluation import (FEATURES,
                                                       build_segment_eval_fn)
 
-    if args.n_devices is not None:
-        raise SystemExit("--n_devices is not ported to ddsp_piano_torch yet; "
-                         "leave it at its default (one device).")
-    device = resolve_device(args.device)
+    device = mesh.local_device(resolve_device(args.device))
+    is_lead = mesh.rank() == 0
+    rows_of_rank = mesh.local_batch_slice(args.batch_size)
     model = configs.get_model(args.config, inference=True,
                               duration=args.duration, device=device)
     restore_params(model, args.ckpt)
@@ -123,9 +158,10 @@ def main(args) -> dict:
         args.maestro_dir, duration=args.duration, batch_size=1,
         sample_rate=model.sample_rate, max_polyphony=model.n_synths)
 
-    os.makedirs(args.out_dir, exist_ok=True)
-    if args.get_wav:
-        os.makedirs(osjoin(args.out_dir, 'wav'), exist_ok=True)
+    if is_lead:
+        os.makedirs(args.out_dir, exist_ok=True)
+        if args.get_wav:
+            os.makedirs(osjoin(args.out_dir, 'wav'), exist_ok=True)
 
     # The losses stay on the device until a CSV is written: waiting for
     # each batch's would hold the host back behind the card.
@@ -144,18 +180,23 @@ def main(args) -> dict:
     for i, (batch, metas, n_valid) in enumerate(
             batched_segments(test_dataset, args.batch_size)):
         # Pad rows take the last valid segment's index (they are dropped).
+        # A rank evaluates its rows, with their global segment indices.
         seg_indices = [n_segments + min(j, n_valid - 1)
-                       for j in range(args.batch_size)]
-        tensors = {k: torch.from_numpy(batch[k]).to(device)
+                       for j in range(args.batch_size)][rows_of_rank]
+        tensors = {k: torch.from_numpy(batch[k][rows_of_rank]).to(device)
                    for k in FEATURES + ('audio',)}
         losses, audio = eval_step(tensors, seg_indices)
+        losses = _gather(losses)
         evaluations.append((losses[:n_valid], metas))
         n_segments += n_valid
         n_batches += 1
-        if i % CSV_EVERY == 0:
+        if i % CSV_EVERY == 0 and is_lead:
             write_csv(osjoin(args.out_dir, 'spectral_losses.csv'), to_rows())
             log.info("segment %d: loss %.4f", n_segments, float(losses[0]))
         if args.get_wav:
+            audio = _gather(audio)
+            if not is_lead:
+                continue
             audio = audio.cpu().numpy()
             for j, meta in enumerate(metas):
                 # Every segment of a track shares its filename; the global
@@ -166,6 +207,8 @@ def main(args) -> dict:
                                    audio[j], model.sample_rate)
     rows = to_rows()
     seconds = time.perf_counter() - start
+    if not is_lead:
+        return {'rows': rows, 'batches': n_batches, 'seconds': seconds}
     write_csv(osjoin(args.out_dir, 'spectral.csv'), rows)
     if rows:
         log.info("Evaluated %d segments; mean spectral loss %.4f",

@@ -9,6 +9,10 @@ all sources compile in parallel. Outputs go to
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
 
+Several processes of one host (the ranks of a data-parallel run) build
+once: the build holds a file lock in its directory, so the first process
+compiles and the others wait for it and then find the libraries built.
+
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 a non-zero code. Kernels launch on ``torch.cuda.current_stream()`` and
 allocate nothing: the wrappers allocate outputs with ``torch.empty``.
@@ -16,7 +20,9 @@ allocate nothing: the wrappers allocate outputs with ``torch.empty``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -129,11 +135,29 @@ def _build_dir() -> Path:
     return BUILD_ROOT / digest.hexdigest()[:16]
 
 
+@contextlib.contextmanager
+def build_lock(out_dir: Path):
+    """Hold the build directory's lock (one holder on the host at a
+    time)."""
+    with open(out_dir / '.lock', 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all() -> Dict[str, str]:
     """Compile every source that is not built yet; one nvcc per source,
-    all started together. Returns {name: ptxas report} for fresh builds."""
+    all started together, under the build directory's lock. Returns
+    {name: ptxas report} for fresh builds."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
+    with build_lock(out_dir):
+        return _build_missing(out_dir)
+
+
+def _build_missing(out_dir: Path) -> Dict[str, str]:
     nvcc = nvcc_path()
     procs = {}
     for name in SIGNATURES:

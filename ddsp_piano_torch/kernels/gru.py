@@ -153,12 +153,12 @@ def gru_scan_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
         return out
     with torch.cuda.device(x.device):
         plan = launch_plan('gru_scan', b, u)
-    if t == 0:
-        return out
-    code = build.library('gru_scan').gru_scan_launch(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
-        out.data_ptr(), t, b, u, plan['cluster'], plan['rows'],
-        build.stream_handle(x.device))
+        if t == 0:
+            return out
+        code = build.library('gru_scan').gru_scan_launch(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
+            out.data_ptr(), t, b, u, plan['cluster'], plan['rows'],
+            build.stream_handle(x.device))
     build.check(code, 'gru_scan_launch')
     build.LAUNCHES['gru_scan'] += 1
     return out
@@ -184,13 +184,14 @@ def gru_scan_bwd_cuda(x_proj: torch.Tensor, rec_kernel: torch.Tensor,
         return tuple(streams) + (dh0,)
     with torch.cuda.device(x.device):
         plan = launch_plan('gru_scan_bwd', b, u)
-    if t == 0:
-        dh0.zero_()
-        return tuple(streams) + (dh0,)
-    code = build.library('gru_scan_bwd').gru_scan_bwd_launch(
-        x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
-        hs_c.data_ptr(), g_c.data_ptr(), streams.data_ptr(), dh0.data_ptr(),
-        t, b, u, plan['cluster'], plan['rows'], build.stream_handle(x.device))
+        if t == 0:
+            dh0.zero_()
+            return tuple(streams) + (dh0,)
+        code = build.library('gru_scan_bwd').gru_scan_bwd_launch(
+            x.data_ptr(), w.data_ptr(), bias.data_ptr(), h.data_ptr(),
+            hs_c.data_ptr(), g_c.data_ptr(), streams.data_ptr(),
+            dh0.data_ptr(), t, b, u, plan['cluster'], plan['rows'],
+            build.stream_handle(x.device))
     build.check(code, 'gru_scan_bwd_launch')
     build.LAUNCHES['gru_scan_bwd'] += 1
     return tuple(streams) + (dh0,)

@@ -192,6 +192,11 @@ def launch_note_release(kernel: str, args, plan: Dict[str, int]):
     x, threshold, prev (T, B), steps (T, B), g_out (T, B), g_state (B, 2)),
     contiguous float32 CUDA tensors, under ``plan`` (B's lanes zero-padded
     to the plan's, the outputs cut back to B); returns the outputs."""
+    with torch.cuda.device(args[0].device):
+        return _launch_note_release(kernel, args, plan)
+
+
+def _launch_note_release(kernel: str, args, plan: Dict[str, int]):
     thr = args[1]
     t, b, _ = args[0].shape
     lanes = plan['padded_b']

@@ -140,12 +140,14 @@ def render_framewise_skip_cuda(controls: FramewiseOscControls,
     if SKIP_FRAMES_PER_BLOCK * int(upsampling) > 1024:
         raise ValueError(f"{what} takes up <= "
                          f"{1024 // SKIP_FRAMES_PER_BLOCK}, got {upsampling}")
-    args, out = _forward_args(what, controls, upsampling, sample_rate)
-    if out.numel() == 0:
-        return out
+    _check_controls(what, controls)
     device = controls.f_lo.device
-    code = build.library('oscillator_skip').osc_skip_launch(
-        *args, build.stream_handle(device))
+    with torch.cuda.device(device):
+        args, out = _forward_args(what, controls, upsampling, sample_rate)
+        if out.numel() == 0:
+            return out
+        code = build.library('oscillator_skip').osc_skip_launch(
+            *args, build.stream_handle(device))
     build.check(code, 'osc_skip_launch')
     build.LAUNCHES['oscillator_skip'] += 1
     return out
@@ -167,19 +169,20 @@ def render_framewise_skip_bwd_cuda(controls: FramewiseOscControls,
     if k > 1024:
         raise ValueError(f"render_framewise_skip_bwd_cuda takes K <= 1024 "
                          f"partials, got {k}")
-    table, table_host = osc_tables(up, sample_rate, device)
-    parts = [c.detach().contiguous() for c in controls]
-    g_c = g.detach().contiguous()
-    grads = torch.empty((5, b, n_frames, k), dtype=torch.float32,
-                        device=device)
-    if grads.numel() == 0:
-        return FramewiseOscControls(*grads)
-    lib = build.library('oscillator_skip_bwd')
-    code = lib.osc_skip_bwd_launch(
-        *(p.data_ptr() for p in parts), g_c.data_ptr(), table.data_ptr(),
-        table_host.data_ptr(), grads.data_ptr(), b, n_frames, k, up,
-        2.0 * math.pi / float(sample_rate), float(sample_rate) / 2.0,
-        build.stream_handle(device))
+    with torch.cuda.device(device):
+        table, table_host = osc_tables(up, sample_rate, device)
+        parts = [c.detach().contiguous() for c in controls]
+        g_c = g.detach().contiguous()
+        grads = torch.empty((5, b, n_frames, k), dtype=torch.float32,
+                            device=device)
+        if grads.numel() == 0:
+            return FramewiseOscControls(*grads)
+        lib = build.library('oscillator_skip_bwd')
+        code = lib.osc_skip_bwd_launch(
+            *(p.data_ptr() for p in parts), g_c.data_ptr(),
+            table.data_ptr(), table_host.data_ptr(), grads.data_ptr(), b,
+            n_frames, k, up, 2.0 * math.pi / float(sample_rate),
+            float(sample_rate) / 2.0, build.stream_handle(device))
     build.check(code, 'osc_skip_bwd_launch')
     build.LAUNCHES['oscillator_skip_bwd'] += 1
     return FramewiseOscControls(*grads)
@@ -260,15 +263,17 @@ def render_framewise_full_cuda(controls: FramewiseOscControls,
                                upsampling: int,
                                sample_rate: int) -> torch.Tensor:
     """K8 on CUDA tensors; raises on anything it does not take."""
-    args, out = _forward_args('the oscillator_full kernel', controls,
-                              upsampling, sample_rate)
-    plan = osc_full_plan(*controls.f_lo.shape, upsampling)
-    if out.numel() == 0:
-        return out
+    _check_controls('the oscillator_full kernel', controls)
     device = controls.f_lo.device
-    code = build.library('oscillator_full').osc_full_launch(
-        *args, plan['frames_per_block'], plan['samples_per_lane'],
-        plan['smem_bytes'], build.stream_handle(device))
+    with torch.cuda.device(device):
+        args, out = _forward_args('the oscillator_full kernel', controls,
+                                  upsampling, sample_rate)
+        plan = osc_full_plan(*controls.f_lo.shape, upsampling)
+        if out.numel() == 0:
+            return out
+        code = build.library('oscillator_full').osc_full_launch(
+            *args, plan['frames_per_block'], plan['samples_per_lane'],
+            plan['smem_bytes'], build.stream_handle(device))
     build.check(code, 'osc_full_launch')
     build.LAUNCHES['oscillator_full'] += 1
     return out

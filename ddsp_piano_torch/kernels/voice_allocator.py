@@ -204,10 +204,11 @@ def allocate_cuda(pitches: torch.Tensor,
         same = torch.empty(b, words, dtype=torch.int32, device=dev)
         anchor = torch.empty(b, words, dtype=torch.int32, device=dev)
         perm = torch.empty(b, t, n, dtype=torch.int8, device=dev)
-        code = build.library('voice_allocator').voice_allocator_launch(
-            pitches.data_ptr(), velocity.data_ptr(), out.data_ptr(),
-            same.data_ptr(), anchor.data_ptr(), perm.data_ptr(), b, t, n,
-            build.stream_handle(dev))
+        with torch.cuda.device(dev):
+            code = build.library('voice_allocator').voice_allocator_launch(
+                pitches.data_ptr(), velocity.data_ptr(), out.data_ptr(),
+                same.data_ptr(), anchor.data_ptr(), perm.data_ptr(), b, t,
+                n, build.stream_handle(dev))
         build.check(code, 'voice_allocator_launch')
         build.LAUNCHES['voice_allocator'] += 1
     return out

@@ -55,6 +55,17 @@ def _c64(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.complex64)
 
 
+def _decay(delay_sec: torch.Tensor, t60: torch.Tensor) -> torch.Tensor:
+    """10^(-3 delay / T60), evaluated in float64 and rounded once to the
+    inputs' type. The float32 power of the CPU differs in the last place
+    between its vectorized loop and the scalar tail, so a row's value
+    would depend on the batch it is in (and a rank's rows would not be the
+    global batch's); rounded once it is the same in any batch, and on any
+    device."""
+    return (10.0 ** (-3.0 * delay_sec.double() / t60.double())).to(
+        delay_sec.dtype)
+
+
 def fdn_late_ir(params: FDNParams, sample_rate: float,
                 delay_values: Optional[torch.Tensor] = None,
                 freq_points: Optional[int] = None,
@@ -86,8 +97,8 @@ def fdn_late_ir(params: FDNParams, sample_rate: float,
     alpha = params.alpha_tone.reshape(b, 1)
     delay_sec = (delay_values[None, :]
                  + torch.sum(params.delays_allpass, dim=-1)) / sample_rate
-    k = 10.0 ** (-3.0 * delay_sec / t60)                       # (b, lines)
-    kpi = 10.0 ** (-3.0 * delay_sec / (alpha * t60))
+    k = _decay(delay_sec, t60)                                 # (b, lines)
+    kpi = _decay(delay_sec, alpha * t60)
     g = _c64(2.0 * k * kpi / (k + kpi))
     p = _c64((k - kpi) / (k + kpi))
     lp = g[:, None, :] / (1.0 - p[:, None, :] * z_inv[None, :, None]

@@ -18,7 +18,22 @@ import numpy as np
 import torch
 
 from ddsp_piano_torch.ops import core, filters
+from ddsp_piano_torch.parallel import mesh
 from ddsp_piano_torch.processors.base import Processor
+
+
+def uniform_noise(shape, generator, device) -> torch.Tensor:
+    """The (rows, n_samples) uniform draw in [-1, 1) from ``generator``.
+    From a parallel.mesh.RankDraw: this rank's rows of the draw a single
+    process makes for the global batch."""
+    rank_draw = isinstance(generator, mesh.RankDraw)
+    rows = shape[0] * mesh.world_size() if rank_draw else shape[0]
+    draw = 2.0 * torch.rand(
+        (rows, shape[1]),
+        generator=generator.generator if rank_draw else generator,
+        device=device, dtype=torch.float32) - 1.0
+    return mesh.take_rows(draw, generator.global_batch) if rank_draw \
+        else draw
 
 
 class FilteredNoise(Processor):
@@ -47,9 +62,7 @@ class FilteredNoise(Processor):
                    generator: Optional[torch.Generator] = None):
         shape = (magnitudes.shape[0], self.n_samples_for(magnitudes))
         if noise is None:
-            noise = 2.0 * torch.rand(shape, generator=generator,
-                                     device=magnitudes.device,
-                                     dtype=torch.float32) - 1.0
+            noise = uniform_noise(shape, generator, magnitudes.device)
         elif tuple(noise.shape) != shape:
             raise ValueError(f"injected noise must be {shape}, got "
                              f"{tuple(noise.shape)}")
@@ -224,6 +237,8 @@ class NoiseBandNetSynth(Processor):
         row."""
         length = self.noise_bands.shape[1]
         if noise is None:
+            if isinstance(generator, mesh.RankDraw):
+                generator = generator.generator    # one shift for all rows
             return torch.randint(0, length, (), generator=generator,
                                  device=device)
         noise = torch.as_tensor(noise, device=device)

@@ -4,7 +4,8 @@
         [-k K] [--staging packed|packed32|dict] [-e EPOCHS] [--lr LR]
         [-c maestro_v2] [-p PHASE] [-r CKPT] [--auto_resume]
         [--val_path PATH] [--profile N] [--debug_nans] [--seed N]
-        [--device cuda|cpu] maestro_path exp_dir
+        [--device cuda|cpu] [--n_devices N] [--coordinator_address ADDR
+        --num_processes N --process_id I] maestro_path exp_dir
 
 The flags mean what they mean for the JAX package's train_single_phase.py:
 epochs x steps of Adam on the multi-scale spectral loss, odd phases
@@ -28,8 +29,20 @@ lanes) or 'dict' (one copy a key); all three give the same numbers.
 --profile N writes a Chrome trace of N steps (after one untraced step)
 into <exp_dir>/phase_<N>/profile/trace.json. --debug_nans traps a
 non-finite value in the module (or backward function) that makes it.
---n_devices and the multi-host flags are refused unless left at their
-default: one card.
+
+Data parallelism (parallel/mesh.py): --batch_size is the global batch,
+and the run takes the largest number of cards up to --n_devices (default:
+every visible card) that divides it, one rank (process) a card; a step
+over R ranks is the step of one card on the global batch. With one card
+(or --device cpu and no --n_devices) the run is a single process, as
+always. On the CPU --n_devices is the number of gloo ranks. Over several
+hosts, each host runs this CLI with --coordinator_address (host:port of
+process 0, or $MASTER_ADDR:$MASTER_PORT), --num_processes and
+--process_id; every card of every host takes part. Each host reads
+batch_size / num_processes rows a step from its own stream (seeded with
+its index), each rank keeps its rows, and every rank reads the same
+validation batches and keeps its rows. Rank 0 alone writes summaries and
+checkpoints and, with --profile, the trace.
 """
 
 from __future__ import annotations
@@ -44,13 +57,6 @@ import torch
 
 log = logging.getLogger(__name__)
 osjoin = os.path.join
-
-# Flags of the JAX CLI that the port takes only at their default.
-UNPORTED_DEFAULTS = {
-    'n_devices': None, 'coordinator_address': None, 'num_processes': None,
-    'process_id': None,
-}
-
 
 def process_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
@@ -112,13 +118,21 @@ def process_args(argv=None):
                              "backward function that makes it (slower; "
                              "the per-step loss guard is always on).")
     parser.add_argument('--n_devices', type=int, default=None,
-                        help="Not ported: one device.")
+                        help="Cards of the data-parallel run, one rank "
+                             "each; the largest count up to this that "
+                             "divides the batch (default: all visible "
+                             "cards; on the CPU, gloo ranks, default 1).")
     parser.add_argument('--coordinator_address', type=str, default=None,
-                        help="Not ported: one host.")
+                        help="host:port of process 0 for a multi-host run "
+                             "(or a file:// path every host sees). Also "
+                             "read from $MASTER_ADDR and $MASTER_PORT. "
+                             "--batch_size is the GLOBAL batch; each host "
+                             "loads batch_size/num_processes elements.")
     parser.add_argument('--num_processes', type=int, default=None,
-                        help="Not ported: one host.")
+                        help="Total number of hosts in the multi-host "
+                             "run.")
     parser.add_argument('--process_id', type=int, default=None,
-                        help="Not ported: one host.")
+                        help="This host's index in [0, num_processes).")
     parser.add_argument('maestro_path', type=str,
                         help="Path to the MAESTRO dataset folder (or "
                              "preprocessed cache dir).")
@@ -127,32 +141,68 @@ def process_args(argv=None):
     return parser.parse_args(argv)
 
 
-def _refuse_unported(args):
-    for name, default in UNPORTED_DEFAULTS.items():
-        if getattr(args, name) != default:
-            raise SystemExit(f"--{name} is not ported to ddsp_piano_torch "
-                             f"yet; leave it at its default ({default!r}).")
-
-
 def main(args, record_timeline: bool = False) -> dict:
     """Train. Returns the trainer, the total loss of every step (floats),
     the last validation losses, the summaries' event file and the
     milliseconds the summaries took each epoch, the epochs' mean training
-    losses and, with --profile, the trace's path."""
-    from ddsp_piano_torch.configs import get_model
-    from ddsp_piano_torch.data import pipeline
+    losses and, with --profile, the trace's path. Called in a rank of a
+    process group, it trains as that rank. When it starts the host's ranks
+    itself, it returns local rank 0's result in the form of
+    :func:`portable_result`, with every local rank's under 'ranks'."""
     from ddsp_piano_torch.device import resolve_device
-    from ddsp_piano_torch.training import debug, summaries
-    from ddsp_piano_torch.training.checkpoints import (latest_checkpoint,
-                                                       read_meta)
-    from ddsp_piano_torch.training.trainer import NanLossError, Trainer
+    from ddsp_piano_torch.parallel import mesh
 
-    _refuse_unported(args)
     k_steps = max(1, args.steps_per_dispatch)
     if k_steps > args.steps_per_epoch:
         raise SystemExit(f"--steps_per_dispatch {k_steps} exceeds "
                          f"--steps_per_epoch {args.steps_per_epoch}")
     device = resolve_device(args.device)
+    result = mesh.run(train, (args, record_timeline), args.batch_size,
+                      args.n_devices, device, args.coordinator_address,
+                      args.num_processes, args.process_id,
+                      portable=portable_result)
+    if isinstance(result, list):
+        return dict(result[0], ranks=result)
+    return result
+
+
+def portable_result(result: dict) -> dict:
+    """A rank's result as host objects: the trainer's step, parameters
+    (on the host) and, with a timeline, step and reduce times and the wall
+    time a step on the card (the span of steps 2 on over their count) in
+    place of the trainer."""
+    from ddsp_piano_torch.parallel import mesh
+
+    out = {k: v for k, v in result.items() if k != 'trainer'}
+    trainer = result['trainer']
+    out.update(rank=mesh.rank(), step=trainer.step,
+               reduce_bytes=trainer.reduce_bytes,
+               params={n: p.detach().cpu()
+                       for n, p in trainer.model.named_parameters()})
+    if trainer.timeline is not None:
+        out.update(step_times=trainer.step_times(),
+                   reduce_times=trainer.reduce_times())
+        timeline = trainer.timeline
+        if len(timeline) > 1:
+            out['wall_step_ms'] = timeline[1][0].elapsed_time(
+                timeline[-1][3]) / (len(timeline) - 1)
+    return out
+
+
+def train(args, record_timeline: bool = False) -> dict:
+    """The training run of one process: the only one, or one rank."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.data import pipeline
+    from ddsp_piano_torch.device import resolve_device
+    from ddsp_piano_torch.parallel import mesh
+    from ddsp_piano_torch.training import debug, summaries
+    from ddsp_piano_torch.training.checkpoints import (latest_checkpoint,
+                                                       read_meta)
+    from ddsp_piano_torch.training.trainer import NanLossError, Trainer
+
+    k_steps = max(1, args.steps_per_dispatch)
+    device = mesh.local_device(resolve_device(args.device))
+    is_lead = mesh.rank() == 0
     first_phase = (args.phase % 2) == 1
     model = get_model(args.config, device=device, seed=args.seed,
                       first_phase=first_phase)
@@ -161,19 +211,26 @@ def main(args, record_timeline: bool = False) -> dict:
                       seed=args.seed, record_timeline=record_timeline)
 
     val_path = args.maestro_path if args.val_path is None else args.val_path
+    # --batch_size is the global batch. Each host reads its share from its
+    # own stream and each rank keeps its rows; every rank reads the same
+    # validation batches and keeps its rows.
     dataset_kwargs = dict(batch_size=args.batch_size,
                           max_polyphony=model.n_synths,
                           sample_rate=model.sample_rate)
     host_iterator = pipeline.Prefetcher(pipeline.get_training_dataset(
-        args.maestro_path, seed=0, **dataset_kwargs))
+        args.maestro_path, **{**dataset_kwargs,
+                              'batch_size': (args.batch_size
+                                             // mesh.process_count()),
+                              'seed': mesh.process_index()}))
+    rank_batches = trainer.distribute_dataset(host_iterator)
     packed = args.staging != 'dict'
     trainer.pack_wire = args.staging != 'packed32'
     if k_steps == 1:
-        train_iterator = trainer.device_prefetch(host_iterator,
+        train_iterator = trainer.device_prefetch(rank_batches,
                                                  packed=packed)
         step_fn = trainer.train_step
     else:
-        train_iterator = trainer.block_prefetch(host_iterator, k_steps,
+        train_iterator = trainer.block_prefetch(rank_batches, k_steps,
                                                 packed=packed)
         step_fn = trainer.train_steps
         if args.steps_per_epoch % k_steps:
@@ -214,10 +271,21 @@ def main(args, record_timeline: bool = False) -> dict:
             return result
     phase_meta = lambda: {'phase_start_step': int(phase_start_step),
                           'lowest_val_loss': float(lowest_val_loss)}
-    for sub in ('logs', 'last_iter', 'best_iter'):
-        os.makedirs(osjoin(exp_dir, sub), exist_ok=True)
-    writer = summaries.SummaryWriter(osjoin(exp_dir, 'logs'))
+    # Every rank computes the same losses and summaries; rank 0 alone
+    # writes them and the checkpoints. The others flush the NaN guard
+    # where rank 0 saves.
+    if is_lead:
+        for sub in ('logs', 'last_iter', 'best_iter'):
+            os.makedirs(osjoin(exp_dir, sub), exist_ok=True)
+    writer = (summaries.SummaryWriter(osjoin(exp_dir, 'logs')) if is_lead
+              else summaries.NullWriter())
     result.update(events=writer.path, summary_ms=[], train_means=[])
+
+    def save(sub):
+        if is_lead:
+            trainer.save(osjoin(exp_dir, sub), meta=phase_meta())
+        else:
+            trainer.check_pending()
 
     loss_keys = model.loss_keys()
     try:
@@ -226,13 +294,17 @@ def main(args, record_timeline: bool = False) -> dict:
             # ceil(N / K) dispatches under the trace.
             n_profile = -(-args.profile // k_steps)
             step_fn(next(train_iterator))
-            with debug.profile_trace(osjoin(exp_dir, 'profile'),
-                                     device) as path:
+            if is_lead:
+                with debug.profile_trace(osjoin(exp_dir, 'profile'),
+                                         device) as path:
+                    for _ in range(n_profile):
+                        step_fn(next(train_iterator))
+                result['profile'] = path
+                log.info("Profiler trace (%d steps) written to %s",
+                         n_profile * k_steps, path)
+            else:
                 for _ in range(n_profile):
                     step_fn(next(train_iterator))
-            result['profile'] = path
-            log.info("Profiler trace (%d steps) written to %s",
-                     n_profile * k_steps, path)
         for epoch in range(start_epoch, args.epochs):
             step = trainer.step    # the epoch's first step, as in JAX
             epoch_losses = []
@@ -250,7 +322,7 @@ def main(args, record_timeline: bool = False) -> dict:
             tic = time.perf_counter()
             writer.scalars('train_loss', means, step)
             summary_s = time.perf_counter() - tic
-            trainer.save(osjoin(exp_dir, 'last_iter'), meta=phase_meta())
+            save('last_iter')
             log.info("Last iteration model saved at %s",
                      osjoin(exp_dir, 'last_iter'))
 
@@ -262,7 +334,8 @@ def main(args, record_timeline: bool = False) -> dict:
                 val_batch = next(iter(val_dataset), None)
                 if val_batch is not None:
                     result['val_losses'], audio_synth = \
-                        trainer.validation_step(val_batch)
+                        trainer.validation_step(
+                            trainer.distribute_batch(val_batch))
                     log.info("Validation loss (one batch): %.4f",
                              result['val_losses']['total_loss'])
                     tic = time.perf_counter()
@@ -276,7 +349,8 @@ def main(args, record_timeline: bool = False) -> dict:
             val_steps = 0
             first_val = None
             for val_batch in val_dataset:
-                val_losses, audio_synth = trainer.validation_step(val_batch)
+                val_losses, audio_synth = trainer.validation_step(
+                    trainer.distribute_batch(val_batch))
                 for k in loss_keys:
                     epoch_val[k] += val_losses[k]
                 if val_steps == 0:
@@ -300,17 +374,19 @@ def main(args, record_timeline: bool = False) -> dict:
             summary_s += time.perf_counter() - tic
             if epoch_val['audio_stft_loss'] < lowest_val_loss:
                 lowest_val_loss = epoch_val['audio_stft_loss']
-                trainer.save(osjoin(exp_dir, 'best_iter'),
-                             meta=phase_meta())
+                save('best_iter')
             tic = time.perf_counter()
             writer.flush()
             result['summary_ms'].append(
                 1e3 * (summary_s + time.perf_counter() - tic))
     except NanLossError as e:
-        trainer.save(osjoin(exp_dir, 'crashed_iter'), state=e.state)
+        if is_lead:
+            trainer.save(osjoin(exp_dir, 'crashed_iter'), state=e.state)
         log.error("%s", e)
         result['nan'] = str(e)
     except KeyboardInterrupt:
+        if not is_lead:
+            raise
         try:
             trainer.save(osjoin(exp_dir, 'stopped_iter'))
         except NanLossError as e:

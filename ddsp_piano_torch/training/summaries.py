@@ -7,9 +7,8 @@ the same tags, the same scalar values, the same audio bytes. Images are
 drawn here as numpy rasters (the JAX package draws them with
 matplotlib); the numbers behind them are the JAX package's: the log
 magnitude spectrogram of :func:`_log_magnitude_spectrogram` and the
-curves of :func:`tuning_curve_figures`. The JAX package's NullWriter, for
-the processes of a multi-host run that do not write, comes with the
-port's distribution.
+curves of :func:`tuning_curve_figures`. :class:`NullWriter` takes the
+writer's place in the ranks of a data-parallel run that do not write.
 """
 
 from __future__ import annotations
@@ -96,6 +95,16 @@ def curve_image(x: np.ndarray, y: np.ndarray, log_y: bool = False,
                     * (height - 2 * m - 1)).astype(np.int64)
     image[rows, cols] = 0
     return image
+
+
+class NullWriter:
+    """No-op writer for every rank but rank 0 in a data-parallel run
+    (every rank computes the same summaries; rank 0 writes them)."""
+
+    path = None
+
+    def __getattr__(self, name):
+        return lambda *a, **k: None
 
 
 class SummaryWriter:

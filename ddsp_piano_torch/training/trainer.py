@@ -30,7 +30,20 @@ Counterpart of ddsp_piano_tpu/training/trainer.py (:160-260 and
   for train_steps), and NanLossError carries the one from before the
   first non-finite step (block);
 - checkpoints are the port's own format: torch.save of the model's and
-  the optimizer's state dicts, the step and a meta dict.
+  the optimizer's state dicts, the step and a meta dict;
+- in a process group (parallel/mesh.py; :152-158, :262-298 and :460-488
+  there), each rank steps on its rows of the global batch. The Trainer
+  broadcasts rank 0's state when it is made and restored
+  (:meth:`Trainer.distribute_state`); after backward, one all-reduce a
+  step sums a flat float32 buffer of the trainable gradients and the
+  losses, divided by the ranks, so that every rank clips and applies the
+  gradient of the global batch's mean loss and reads the global losses
+  (the NaN guard then raises in every rank at the same step). The noise
+  draw is a rank's rows of the global batch's (parallel.mesh.RankDraw),
+  and an injected ``noise=`` is the global batch's draw, of which the
+  Trainer keeps the rank's rows. validation_step gathers the audio rows
+  to every rank. With one rank in a group, the reduce is a sum over one
+  rank divided by 1: the single-process step bit for bit.
 """
 
 from __future__ import annotations
@@ -42,7 +55,9 @@ from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ddsp_piano_torch.parallel import mesh
 from ddsp_piano_torch.training.checkpoints import (CKPT_NAME,
                                                    import_tf_weights,
                                                    load_ckpt)
@@ -143,8 +158,16 @@ class Trainer:
         self._pending = []
         self._ring = [None] * (self.nan_check_interval + 1)
         # CUDA events (start, after forward, after backward, after the
-        # update) of every step, when asked for: device-side phase times.
+        # update) of every step, when asked for: device-side phase times;
+        # in a process group also each reduce's (start, end).
         self.timeline = [] if record_timeline else None
+        self.reduce_timeline = [] if record_timeline else None
+        # In a process group: the ranks, and the bytes each step's reduce
+        # sums.
+        self.distributed = mesh.in_group()
+        self.world = mesh.world_size()
+        self.reduce_bytes = 0
+        self.distribute_state()
 
     def _make_optimizer(self) -> Optional[torch.optim.Adam]:
         """Adam over the trainable parameters; None when there is none."""
@@ -175,14 +198,31 @@ class Trainer:
                     if k != 'filename'}
         return self.stage(batch)
 
+    def _rank_noise(self, batch, noise, generator):
+        """In a process group: this rank's rows of an injected global draw
+        (a tensor of k x global batch rows, or a list of them; a scalar
+        loop shift stays), and a RankDraw around the generator."""
+        if not self.distributed:
+            return noise, generator
+        global_batch = next(iter(batch.values())).shape[0] * self.world
+        if isinstance(noise, (list, tuple)):
+            noise = [self._rank_noise(batch, n, None)[0] for n in noise]
+        elif isinstance(noise, torch.Tensor) and noise.dim() > 0:
+            noise = mesh.take_rows(noise, global_batch)
+        if generator is not None:
+            generator = mesh.RankDraw(generator, global_batch)
+        return noise, generator
+
     def forward_backward(self, batch, noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
                          events=None) -> Dict[str, torch.Tensor]:
         """Losses of one batch, with the gradient of total_loss in each
         trainable parameter's .grad (no backward when none is trainable).
         ``noise`` injects the noise synth's uniform draw (tests hand both
-        sides the same draw)."""
+        sides the same draw). In a process group, the gradients and the
+        losses are those of the global batch (one all-reduce)."""
         batch = self._as_device_batch(batch)
+        noise, generator = self._rank_noise(batch, noise, generator)
         if self.optimizer is not None:
             self.optimizer.zero_grad(set_to_none=True)
         outputs = self.model(batch, noise=noise, generator=generator,
@@ -194,7 +234,37 @@ class Trainer:
             losses['total_loss'].backward()
         if events is not None:
             events[2].record()
-        return {k: v.detach() for k, v in losses.items()}
+        losses = {k: v.detach() for k, v in losses.items()}
+        if self.distributed:
+            losses = self.all_reduce_step(losses)
+        return losses
+
+    def all_reduce_step(self, losses: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Average the trainable gradients and the losses over the ranks:
+        one float32 buffer, summed by one all-reduce and divided by the
+        ranks; each .grad becomes a view of it. Returns the averaged
+        losses."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        keys = list(losses)
+        buffer = torch.cat([g.reshape(-1) for g in grads]
+                           + [losses[k].reshape(1).float() for k in keys])
+        self.reduce_bytes = buffer.numel() * buffer.element_size()
+        events = None
+        if self.reduce_timeline is not None and self.device.type == 'cuda':
+            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            events[0].record()
+        dist.all_reduce(buffer)
+        buffer.div_(self.world)
+        if events is not None:
+            events[1].record()
+            self.reduce_timeline.append(events)
+        offset = 0
+        for p in self.params:
+            p.grad = buffer[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return {k: buffer[offset + i] for i, k in enumerate(keys)}
 
     def clip_gradients(self) -> None:
         """optax.clip_by_global_norm over the trainable parameters."""
@@ -300,16 +370,97 @@ class Trainer:
 
     def validation_step(self, batch, noise: Optional[torch.Tensor] = None):
         """(losses as floats, synthesized audio as numpy) without an
-        update; the noise draw comes from a fixed generator."""
+        update; the noise draw comes from a fixed generator. In a process
+        group ``batch`` is this rank's rows (slice_local_batch): the
+        losses are the global batch's and the audio holds every rank's
+        rows, in the global batch's order."""
         self.check_pending()
         batch = self._as_device_batch(batch)
+        noise, generator = self._rank_noise(
+            batch, noise, torch.Generator(device=self.device).manual_seed(0))
         with torch.no_grad():
-            outputs = self.model(batch, noise=noise,
-                                 generator=torch.Generator(
-                                     device=self.device).manual_seed(0),
+            outputs = self.model(batch, noise=noise, generator=generator,
                                  training=True)
-        losses = {k: float(v) for k, v in outputs['losses'].items()}
-        return losses, outputs['audio_synth'].cpu().numpy()
+        losses, audio = outputs['losses'], outputs['audio_synth']
+        if self.distributed:
+            keys = list(losses)
+            values = torch.stack([losses[k].float() for k in keys])
+            dist.all_reduce(values)
+            values.div_(self.world)
+            losses = dict(zip(keys, values.unbind(0)))
+            parts = [torch.empty_like(audio) for _ in range(self.world)]
+            dist.all_gather(parts, audio.contiguous())
+            audio = torch.cat(parts)
+        return ({k: float(v) for k, v in losses.items()},
+                audio.cpu().numpy())
+
+    # -- distribution ---------------------------------------------------------
+
+    def distribute_state(self) -> None:
+        """Broadcast rank 0's training state to every rank of the process
+        group: the model's parameters and buffers, the optimizer's moments
+        and step counts and the step (the ranks never rely on seeds alone
+        to agree). No-op outside a group."""
+        if not self.distributed:
+            return
+        for value in self.model.state_dict().values():
+            if value.device == self.device:
+                dist.broadcast(value, 0)
+            else:
+                staged = value.to(self.device)
+                dist.broadcast(staged, 0)
+                value.copy_(staged)
+        counts = []
+        if self.optimizer is not None:
+            for p in self.params:
+                state = self.optimizer.state.get(p, {})
+                for key in sorted(state):
+                    value = state[key]
+                    if not isinstance(value, torch.Tensor):
+                        continue
+                    if value.device == self.device:
+                        dist.broadcast(value, 0)
+                    else:
+                        counts.append(value)
+        scalars = torch.tensor([float(self.step)]
+                               + [float(c) for c in counts],
+                               dtype=torch.float64, device=self.device)
+        dist.broadcast(scalars, 0)
+        self.step = int(scalars[0])
+        for count, value in zip(counts, scalars[1:].tolist()):
+            count.fill_(value)
+
+    def distribute_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """This rank's rows of a batch that every rank holds in full, on
+        the device."""
+        return self._as_device_batch(mesh.slice_local_batch(batch))
+
+    def distribute_dataset(self, dataset) -> Iterator:
+        """This rank's rows of each batch of its host's stream (host
+        arrays; stage them with device_prefetch or block_prefetch)."""
+        for batch in dataset:
+            yield mesh.slice_local_batch(batch, within_host=True)
+
+    def psum(self, value):
+        """The sum of each leaf of a tree (dict, list, tuple), over its
+        elements and over the ranks (the ddsp Trainer's psum: JAX sums a
+        global array). In a multi-rank run a leaf must be a tensor: the
+        local sum of host numpy would silently drop the other ranks'
+        rows."""
+        if isinstance(value, dict):
+            return {k: self.psum(v) for k, v in value.items()}
+        if isinstance(value, (list, tuple)):
+            return type(value)(self.psum(v) for v in value)
+        if self.world > 1 and not isinstance(value, torch.Tensor):
+            raise TypeError(
+                "Trainer.psum in a multi-rank run requires tensors (a "
+                f"rank's rows); got {type(value).__name__}, whose local sum "
+                "would silently be wrong.")
+        total = torch.as_tensor(value).sum()
+        if self.distributed:
+            total = total.to(self.device)
+            dist.all_reduce(total)
+        return total
 
     def _packer_for(self, batch) -> BatchPacker:
         if self._packer is None:
@@ -376,6 +527,14 @@ class Trainer:
         return [(e[0].elapsed_time(e[3]), e[0].elapsed_time(e[1]),
                  e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3]))
                 for e in self.timeline]
+
+    def reduce_times(self):
+        """ms of every recorded step's all-reduce (a process group on a
+        card), from its CUDA events."""
+        if not self.reduce_timeline:
+            return []
+        self.reduce_timeline[-1][1].synchronize()
+        return [e[0].elapsed_time(e[1]) for e in self.reduce_timeline]
 
     # -- snapshots and checkpoints --------------------------------------------
 
@@ -461,6 +620,7 @@ class Trainer:
                 self.optimizer = self._make_optimizer()
         self.step = int(ckpt['step'])
         self._pending = []
+        self.distribute_state()
         return dict(ckpt.get('meta', {}))
 
     def restore_tf(self, ckpt_path: str) -> Dict[str, list]:
@@ -470,4 +630,5 @@ class Trainer:
         import_tf_weights' report."""
         report = import_tf_weights(self.model, ckpt_path)
         self._pending = []
+        self.distribute_state()
         return report

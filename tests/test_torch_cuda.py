@@ -586,3 +586,103 @@ def test_voice_allocator_kernel_matches_plain(cuda_device, n, case):
     assert build.LAUNCHES['voice_allocator'] == 1
     want = tva.allocate_plain(pitches.cpu(), velocity.cpu())
     assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _other_card_case(kernel, device):
+    """(wrapper call, plain call, tolerance kind) of one kernel at small
+    inputs on ``device``."""
+    if kernel in ('oscillator_skip', 'oscillator_skip_bwd'):
+        controls = _osc_controls(device)
+        g = _t(np.random.RandomState(3).randn(4, 60 * 96), device)
+        if kernel == 'oscillator_skip':
+            return (lambda: tosck.render_framewise_skip_cuda(controls, 96,
+                                                             24000),
+                    lambda: tosck.render_framewise_plain(controls, 96, 24000),
+                    'peak')
+        return (lambda: tosck.render_framewise_skip_bwd_cuda(controls, g, 96,
+                                                             24000),
+                lambda: tosck.render_framewise_vjp_plain(controls, g, 96,
+                                                         24000), 'peak')
+    if kernel == 'oscillator_full':
+        controls, sr = _full_edge_controls(64, 96, 40, device)
+        return (lambda: tosck.render_framewise_full_cuda(controls, 64, sr),
+                lambda: tosck.render_framewise_full_plain(controls, 64, sr),
+                'peak')
+    if kernel in ('gru_scan', 'gru_scan_bwd'):
+        x_proj, rec, bias, h0, g = _gru_inputs(192, 16, 60, device, 0.5)
+        if kernel == 'gru_scan':
+            return (lambda: tgru.gru_scan_cuda(x_proj, rec, bias, h0),
+                    lambda: tgru.gru_scan_plain(x_proj, rec, bias, h0),
+                    'absolute')
+        hs = tgru.gru_scan_plain(x_proj, rec, bias, h0)
+        return (lambda: tgru.gru_scan_bwd_cuda(x_proj, rec, bias, h0, hs, g),
+                lambda: tgru.gru_scan_plain_bwd(x_proj, rec, bias, h0, hs,
+                                                g), 'absolute')
+    if kernel == 'voice_allocator':
+        from ddsp_piano_torch.kernels import voice_allocator as tva
+
+        pitches, velocity = _voice_allocator_case('rolls', 16, device)
+        return (lambda: tva.allocate_cuda(pitches, velocity),
+                lambda: tva.allocate_plain(pitches.cpu(), velocity.cpu()),
+                'bits')
+    x = np.zeros((301, 16, 1), np.float32)
+    x[10:40, :, 0] = 60.0
+    x[200:210, ::2, 0] = 72.0
+    x = _t(x, device)
+    thr = torch.tensor([275.0], device=device)
+    s0 = torch.zeros(16, 2, device=device)
+    if kernel == 'note_release':
+        return (lambda: tnr.note_release_scan_cuda(x, thr, s0),
+                lambda: tnr.note_release_scan_plain(x, thr, s0), 'bits')
+    if kernel == 'note_release_res':
+        return (lambda: tnr.note_release_scan_res_cuda(x, thr, s0),
+                lambda: tnr.note_release_scan_plain_res(x, thr, s0), 'bits')
+    out, _, steps = tnr.note_release_scan_plain_res(x, thr, s0)
+    prev = torch.cat([s0[None, :, 0], out[:-1, :, 0]], dim=0)
+    rng = np.random.RandomState(4)
+    g_out, g_state = _t(rng.randn(301, 16, 1), device), _t(
+        rng.randn(16, 2), device)
+    return (lambda: tnr.note_release_scan_bwd_cuda(x, thr, prev, steps, g_out,
+                                                   g_state),
+            lambda: tnr.note_release_scan_plain_bwd(x, thr, prev, steps,
+                                                    g_out, g_state), 'bits')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('card', [1, 2, 3])
+@pytest.mark.parametrize('kernel', list(build.KERNELS))
+def test_front_door_launches_on_its_inputs_card(cuda_device, kernel, card):
+    """Each kernel's wrapper, given tensors on cuda:<card> while the
+    process's current device is cuda:0, launches on their card (a rank's
+    tensors in a data-parallel run) and equals its plain version there:
+    the tolerances of this file's tests of each kernel (1e-5 of peak for
+    the oscillators, 1e-5 for the GRU streams, bit for bit for the
+    NoteRelease kernels and the voice allocator)."""
+    if torch.cuda.device_count() <= card:
+        pytest.skip(f"needs a card cuda:{card}")
+    device = torch.device('cuda', card)
+    torch.cuda.set_device(0)
+    with torch.cuda.device(0):
+        kernel_call, plain_call, tolerance = _other_card_case(kernel, device)
+        build.reset_launches()
+        got = kernel_call()
+        torch.cuda.synchronize(device)
+        assert torch.cuda.current_device() == 0
+    assert build.LAUNCHES[kernel] == 1
+    want = plain_call()
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    worst = 0.0
+    for a, w in zip(got, want):
+        assert a.device == device
+        w = w.to(device)
+        if tolerance == 'bits':
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+            continue
+        err = (a - w).abs().max().item()
+        scale = (w.abs().max().item() if tolerance == 'peak'
+                 else max(1.0, w.abs().max().item()))
+        worst = max(worst, err / scale)
+        assert err <= 1e-5 * scale
+    print(f"\n{kernel} on cuda:{card} from cuda:0: worst error "
+          f"{worst:.3g} ({tolerance})")

@@ -185,13 +185,6 @@ def test_evaluate_cli_loads_the_checkpoint(tmp_path, tiny_eval_env):
     assert got != [float(r['loss_val']) for r in initial[:4]]
 
 
-def test_evaluate_cli_refuses_n_devices(tmp_path):
-    with pytest.raises(SystemExit, match='not ported'):
-        evaluate_model.main(evaluate_model.process_args(
-            ['--n_devices', '2', '--device', 'cpu', 'data',
-             str(tmp_path)]))
-
-
 def test_segment_losses_match_jax():
     """The port's build_segment_eval_fn against the JAX package's on the
     same weights and segments, with the JAX draws of each segment

@@ -62,7 +62,8 @@ for name in ('models.streaming', 'processors.surrogate',
              'training.debug', 'configs.gin_test', 'models.serving',
              'data.midi_encoders_device', 'kernels.voice_allocator',
              'synthesize_from_csv', 'training.events', 'training.summaries',
-             'configs.gin_compat', 'models.default_model'):
+             'configs.gin_compat', 'models.default_model',
+             'parallel.mesh'):
     assert 'ddsp_piano_torch.' + name in names, names
 """
 

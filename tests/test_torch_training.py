@@ -784,15 +784,3 @@ def test_train_cli_phase_2_on_cpu(tmp_path, monkeypatch):
                   root, exp]))
     assert third['trainer'].optimizer is not None
     assert third['trainer'].step == 3
-
-
-@pytest.mark.parametrize('flag', [['--n_devices', '2'],
-                                  ['--coordinator_address', 'h:1']])
-def test_train_cli_refuses_unported_options(tmp_path, flag):
-    """One card, one host: the mesh and multi-host flags are refused (-k,
-    --staging, --profile and --debug_nans run: test_torch_train_cli.py)."""
-    from ddsp_piano_torch import train_single_phase as cli
-
-    with pytest.raises(SystemExit, match='not ported'):
-        cli.main(cli.process_args(flag + ['--device', 'cpu', str(tmp_path),
-                                          str(tmp_path / 'exp')]))

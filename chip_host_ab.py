@@ -16,14 +16,25 @@ width, seed 0, piano 9:
 - ``render_b1``: the forward on demo.mid's conditioning (10 s, b = 1),
   as chip_smoke.py phase 4 renders it;
 - ``serve_b1``, ``serve_b8``: make_serving_fn over demo.mid's roll (10 s
-  after the 0.5 s warm-up) at b = 1 and 8, as chip_smoke.py phase 19.
+  after the 0.5 s warm-up) at b = 1 and 8, as chip_smoke.py phase 19;
+- ``midi_to_conditioning``: data.io.load_midi_as_conditioning of all of
+  demo.mid (5500 frames: the MIDI parse, the pianoroll and the host voice
+  allocator), host only;
+- ``train_raw_step``: ``train_single_phase.main -b 6 -s 8 -e 1`` (v2 at
+  full width, student seed 1) on the raw mini-MAESTRO folder of
+  chip_smoke.py phase 9, which this script writes first: the span from
+  the first step's start to the last step's end on the card's clock
+  (the trainer's CUDA-event timeline) over the 8 steps, so the data
+  thread's waits count (``span``), and the whole CLI call's wall time in
+  seconds (``cli``).
 
-Each is three warm-up calls, then the median of 25 calls of the wall time
-(host clock, the card synchronised before and after) and of the CUDA
-events around the call. The pairs alternate which checkout runs first.
-Per metric, the script prints both checkouts' medians and quartiles over
-the pairs and the pairs this checkout is faster in. An arm that fails or
-gives non-finite audio ends the run with a non-zero exit code.
+The first three are three warm-up calls, then the median of 25 calls of
+the wall time (host clock, the card synchronised before and after) and of
+the CUDA events around the call; ``midi_to_conditioning`` the same of its
+wall time alone. The pairs alternate which checkout runs first. Per
+metric, the script prints both checkouts' medians and quartiles over the
+pairs and the pairs this checkout is faster in. An arm that fails or
+gives non-finite audio or losses ends the run with a non-zero exit code.
 """
 
 import argparse
@@ -37,10 +48,15 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-METRICS = ('render_b1', 'serve_b1', 'serve_b8')
+# Each metric's clocks.
+METRICS = {'render_b1': ('wall', 'events'), 'serve_b1': ('wall', 'events'),
+           'serve_b8': ('wall', 'events'), 'midi_to_conditioning': ('wall',),
+           'train_raw_step': ('span', 'cli')}
 SECONDS = 10.0
 PIANO = 9
 REPEATS = 25
+TRAIN_STEPS = 8
+MAESTRO_DIR = os.path.join(ROOT, 'build', 'chip_smoke', 'mini_maestro')
 
 
 def timed(fn, torch):
@@ -61,6 +77,42 @@ def timed(fn, torch):
         walls.append(1e3 * (time.perf_counter() - t0))
         events.append(start.elapsed_time(end))
     return statistics.median(walls), statistics.median(events)
+
+
+def host_timed(fn):
+    """Wall ms of a host-only call, the median of REPEATS after three."""
+    for _ in range(3):
+        fn()
+    walls = []
+    for _ in range(REPEATS):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return (statistics.median(walls),)
+
+
+def train_raw_step(root, torch):
+    """(span ms a step, CLI seconds) of the train CLI on the raw
+    mini-MAESTRO folder."""
+    import tempfile
+
+    from ddsp_piano_torch import train_single_phase as cli
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, 'build')) as exp:
+        args = cli.process_args(['-b', '6', '-s', str(TRAIN_STEPS), '-e', '1',
+                                 '--seed', '1', '--device', 'cuda',
+                                 MAESTRO_DIR, exp])
+        start = time.perf_counter()
+        result = cli.main(args, record_timeline=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+    losses = np.asarray(result['step_losses'])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise SystemExit(f"{root}: training losses {losses}")
+    events = result['trainer'].timeline[-TRAIN_STEPS:]
+    events[-1][3].synchronize()
+    return (events[0][0].elapsed_time(events[-1][3]) / TRAIN_STEPS,
+            seconds)
 
 
 def arm(root):
@@ -108,6 +160,10 @@ def arm(root):
         if not bool(torch.isfinite(serve(roll, pedal, piano)).all()):
             raise SystemExit(f"{root}: the serve at b={b} is not finite")
         out[f'serve_b{b}'] = timed(lambda: serve(roll, pedal, piano), torch)
+    del model, serve
+    out['midi_to_conditioning'] = host_timed(
+        lambda: load_midi_as_conditioning(midi))
+    out['train_raw_step'] = train_raw_step(root, torch)
     return out
 
 
@@ -139,6 +195,16 @@ def main():
     if not args.other:
         parser.error("--other is required")
     other = os.path.abspath(args.other)
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from ddsp_piano_torch.device import set_f32_precision
+
+    set_f32_precision()
+    os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
+    chip_smoke.build_kernels()
+    seconds, _ = chip_smoke.teacher_data()
+    print(f"mini-MAESTRO written: demo.mid's {seconds:g} s teacher render "
+          f"in {MAESTRO_DIR}", flush=True)
     pairs = []
     for i in range(args.pairs):
         order = (other, ROOT) if i % 2 == 0 else (ROOT, other)
@@ -146,12 +212,13 @@ def main():
         print(f"pair {i + 1}: " + json.dumps(
             {'other': got[other], 'this': got[ROOT]}), flush=True)
         pairs.append((got[other], got[ROOT]))
-    for metric in METRICS:
-        for k, clock in enumerate(('wall', 'events')):
+    for metric, clocks in METRICS.items():
+        for k, clock in enumerate(clocks):
             theirs = [o[metric][k] for o, _ in pairs]
             ours = [t[metric][k] for _, t in pairs]
             wins = sum(t < o for o, t in zip(theirs, ours))
-            print(f"{metric} {clock} ms: other {quartiles(theirs)}, this "
+            unit = 's' if clock == 'cli' else 'ms'
+            print(f"{metric} {clock} {unit}: other {quartiles(theirs)}, this "
                   f"{quartiles(ours)}; this faster in {wins} of "
                   f"{len(pairs)} pairs", flush=True)
 

@@ -2,7 +2,9 @@
 """Same-call A/B of hand-written kernels on one NVIDIA GPU, this checkout
 against another checkout's, at the same recorded inputs: K1 (the skipping
 oscillator, csrc/oscillator_skip.cu), K4 (its backward,
-csrc/oscillator_skip_bwd.cu), K3 (the NoteRelease recurrence of the
+csrc/oscillator_skip_bwd.cu), K2 and K5 (the GRU recurrence and its
+backward, csrc/gru_scan.cu and csrc/gru_scan_bwd.cu, their float32
+instances), K3 (the NoteRelease recurrence of the
 render, csrc/note_release.cu), K6 / K7 (NoteRelease on the training path
 and its reverse walk, csrc/note_release_bwd.cu), K8 (the all-partials
 oscillator, csrc/oscillator_full.cu) and K9 (the voice allocator of the
@@ -25,7 +27,10 @@ phase runs in a fresh process:
    dafx22 model's 3 s segment and 10 s render (the synthesize CLI with
    ``--oscillator full`` on the card); K9 at demo.mid's top 16 voices
    (10 s after the 0.5 s warm-up, chip_smoke.py phase 19) at b = 1 and 8
-   and at the seeded over-capacity roll (4, 500, 16). Each input's share
+   and at the seeded over-capacity roll (4, 500, 16); K2 at the v2
+   segment's two GRUs, at the 10 s render's and at its mono GRU tiled to
+   the serve's 128 rows, and K2 and K5 at the training step's. Each
+   input's share
    of live cells (K1, K4, K8), its release ties (K3, K6, K7) or the
    frames K9's walk takes and skips (the plain version's counts) is
    printed.
@@ -33,8 +38,8 @@ phase runs in a fresh process:
    ddsp_piano_torch from its own checkout, builds its kernels, holds each
    kernel against that checkout's plain version at every input (K1 and K4
    within chip_smoke.py's OSC_TOL and OSC_BWD_TOL, K8 within OSC_TOL and
-   within K8_K1_TOL of K1, K3, K6, K7 and K9 bit-exact; K9's plain
-   version runs on the host),
+   within K8_K1_TOL of K1, K3, K6, K7 and K9 bit-exact, K2 within GRU_TOL
+   and K5 within GRU_BWD_TOL; K9's plain version runs on the host),
    and times each: the wrapper call (CUDA events from before its host
    work to after its launch, as chip_smoke.py times a kernel) and the
    kernel on the card alone (chip_smoke.card_times: CUDA events between
@@ -43,7 +48,9 @@ phase runs in a fresh process:
    -v), counts what each kernel's instances issue, read from their SASS
    (cuobjdump next to nvcc), whole and per loop body, and writes their
    SASS text.
-3. Per input, both checkouts' medians and the ratio this / other.
+3. Per input, both checkouts' medians and the ratio this / other, and
+   whether the four arms' outputs are bit-equal (a digest of each); K2's
+   and K5's must be.
 
 Any failure (a build, a launch, a disagreement, a host too slow to queue
 the timed launches, a SASS that cannot be read) ends the run with a
@@ -66,13 +73,17 @@ OUT = os.path.join(cs.ROOT, 'build', 'kernel_ab')
 INPUTS = os.path.join(OUT, 'inputs.pt')
 # Kernel -> (source, a piece of its kernels' symbol names).
 KERNELS = {'K1': ('oscillator_skip', 'osc_skip_kernel'),
+           'K2': ('gru_scan', 'gru_scan_kernel'),
            'K3': ('note_release', 'note_release_kernel'),
            'K4': ('oscillator_skip_bwd', 'osc_skip_bwd'),
+           'K5': ('gru_scan_bwd', 'gru_scan_bwd_kernel'),
            'K6': ('note_release_bwd', 'note_release_res_kernel'),
            'K7': ('note_release_bwd', 'note_release_bwd_kernel'),
            'K8': ('oscillator_full', 'osc_full_kernel'),
            'K9': ('voice_allocator', 'voice_allocator')}
 LONG_T = 2625                  # frames of the 10 s render with its warm-up
+# Kernels whose output must be the same bit for bit in every arm.
+BIT_EQUAL_ARMS = ('K2', 'K5')
 # The SASS opcodes counted for every kernel instance.
 SASS_OPS = ('ULDC', 'LDS', 'LDG', 'STG', 'LDL', 'STL', 'LDGSTS', 'UBLKCP',
             'SYNCS', 'FRND', 'FSEL', 'MUFU', 'BSSY', 'BRA')
@@ -182,15 +193,28 @@ def record(kernels):
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     os.makedirs(OUT, exist_ok=True)
     cases = []
-    if {'K1', 'K3', 'K4'} & kernels:
+    if {'K1', 'K2', 'K3', 'K4'} & kernels:
         capture = {}
         cs.render_segment('cpu', capture)
         (segment, up, sr), = capture['oscillator_skip']
         nr_segment, = capture['note_release']
         cases.append(('K3', 'the v2 segment', nr_segment))
-    if 'K3' in kernels:
-        nr_render, = cli_inputs([])['note_release']
+        # The float32 instance's arguments, as any checkout's wrapper
+        # takes them.
+        cases += [('K2', 'the v2 segment', args[:4])
+                  for args in capture['gru_scan']]
+    if {'K2', 'K3'} & kernels:
+        render = cli_inputs([])
+        nr_render, = render['note_release']
         cases.append(('K3', 'the v2 10 s render', nr_render))
+        cases += [('K2', 'the v2 10 s render', args[:4])
+                  for args in render['gru_scan']]
+        # The serve's mono GRU at b = 8: the render's rows tiled 8 times.
+        x_proj, rec_kernel, rec_bias, h0 = max(
+            render['gru_scan'], key=lambda a: a[0].shape[1])[:4]
+        cases.append(('K2', "the v2 10 s render's mono GRU tiled to the "
+                      "serve's b = 8", (x_proj.repeat(1, 8, 1), rec_kernel,
+                                        rec_bias, h0.repeat(8, 1))))
     if 'K8' in kernels:
         capture = {}
         cs.render_segment('cpu', capture, config='dafx22')
@@ -199,9 +223,13 @@ def record(kernels):
             'oscillator_full']
         cases += [('K8', 'the dafx22 segment', full_segment),
                   ('K8', 'the dafx22 10 s render', full_render)]
-    if {'K1', 'K4', 'K6', 'K7'} & kernels:
+    if {'K1', 'K2', 'K4', 'K5', 'K6', 'K7'} & kernels:
         cs.teacher_data()
         step, _ = cs.train_step_inputs()
+        cases += [('K2', 'the training step', args[:4])
+                  for args in step['gru_scan']]
+        cases += [('K5', 'the training step', args[:6])
+                  for args in step['gru_scan_bwd']]
     if {'K1', 'K4'} & kernels:
         (step_k1, step_up, step_sr), = step['oscillator_skip']
         (step_k4, g, _, _), = step['oscillator_skip_bwd']
@@ -245,6 +273,9 @@ def record(kernels):
         elif kernel == 'K9':
             shape = tuple(args[0].shape)
             text = walk_text(*args)
+        elif kernel in ('K2', 'K5'):
+            shape = tuple(args[0].shape)
+            text = f"u = {shape[2] // 3}, B = {shape[1]}, T = {shape[0]}"
         else:
             from ddsp_piano_torch.kernels import note_release as knr
 
@@ -368,6 +399,7 @@ def peak_share(got, want):
 def case_call(case):
     """(the kernel's wrapper call, its error against the plain version, the
     tolerance) for a recorded case, on the card."""
+    from ddsp_piano_torch.kernels import gru as kgru
     from ddsp_piano_torch.kernels import note_release as knr
     from ddsp_piano_torch.kernels import oscillator as kosc
     from ddsp_piano_torch.ops.oscillator import FramewiseOscControls
@@ -381,6 +413,16 @@ def case_call(case):
         exact = torch.equal(fn().cpu().view(torch.int32),
                             want.view(torch.int32))
         return fn, (0.0 if exact else float('inf')), 0.0
+    if kernel == 'K2':
+        fn = lambda: kgru.gru_scan_cuda(*args)
+        with torch.inference_mode():
+            err = (fn() - kgru.gru_scan_plain(*args)).abs().max().item()
+        return fn, err, cs.GRU_TOL
+    if kernel == 'K5':
+        fn = lambda: kgru.gru_scan_bwd_cuda(*args)
+        err = max(peak_share(a, w) for a, w in zip(
+            fn(), kgru.gru_scan_plain_bwd(*args)))
+        return fn, err, cs.GRU_BWD_TOL
     if kernel == 'K1':
         controls, up, sr = args
         controls = FramewiseOscControls(*controls)
@@ -439,6 +481,16 @@ def import_checkout(root):
     return root, build, build.build_all()
 
 
+def digest(out):
+    """sha256 of a kernel output's bytes (a tensor or a tuple of them)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in (out if isinstance(out, (tuple, list)) else (out,)):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def arm(root, index):
     """Check and time this process's checkout, ``root``."""
     root, build, reports = import_checkout(root)
@@ -448,10 +500,12 @@ def arm(root, index):
         if not (np.isfinite(err) and err <= tol):
             cs.fail(f"{root}: {case['name']} differs from its plain version "
                     f"by {err} > {tol}")
+        with torch.inference_mode():
+            out_digest = digest(fn())
         call = cs.event_times(fn)
         device = cs.card_times(fn)
         rows.append(dict(name=case['name'], err=err, call=spread(call),
-                         device=spread(device)))
+                         device=spread(device), digest=out_digest))
         kernels.add(case['kernel'])
         torch.cuda.empty_cache()
     sass = {k: sass_counts(build, *KERNELS[k], dump=os.path.join(
@@ -554,7 +608,12 @@ def main():
                 + ' / '.join(f"{m:.4f}" for m in med['other'])
                 + f" ms, this / other "
                 f"{statistics.mean(med['this']) / statistics.mean(med['other']):.3f}")
+        digests = {a['rows'][i]['digest'] for a in arms}
+        parts.append("outputs bit-equal in the four arms" if len(digests) == 1
+                     else f"outputs differ: {len(digests)} digests")
         print(f"A/B {case['name']}: " + '; '.join(parts), flush=True)
+        if len(digests) != 1 and case['name'].split()[0] in BIT_EQUAL_ARMS:
+            cs.fail(f"{case['name']}: the arms' outputs differ")
     with open(os.path.join(OUT, 'result.json'), 'w') as f:
         json.dump(dict(card=card, other=other, cases=cases, arms=arms), f,
                   indent=1)

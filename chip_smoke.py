@@ -21,7 +21,9 @@ non-zero exit code and no result line:
    shared memory and the co-resident clusters.
 4. The render path: ``synthesize_midi_file.main`` renders 10 s of demo.mid
    at full width on ``cuda``, with every launch counter set to 0 just
-   before and read just after; K1-K3 must have launched. Two more renders
+   before and read just after; K1-K3 must have launched. The host voice
+   allocator's C++ calls are counted the same way (none: the numpy loop
+   ran). Two more renders
    time the forward again: the line gives the median of the three. Each
    launch is then held against its plain version on the card at the
    inputs the run gave it, and timed.
@@ -72,7 +74,7 @@ non-zero exit code and no result line:
    (``-b 6 -s 8 -e 1``, phase 1, student weights seed 1) on the
    mini-MAESTRO on ``cuda``, with every launch counter set to 0 just before
    and read just after; K1, K2 and K4-K7 must have launched and the losses
-   be finite. Prints the step time and its parts; after phase 24 (a
+   be finite. Prints the step time and its parts; after phase 25 (a
    trace before a timed render slows it), a torch.profiler view of three
    more steps: the device's busy share, the operators with the most
    device and host time, and each hand-written kernel's device events
@@ -229,14 +231,34 @@ non-zero exit code and no result line:
    2, phase 11's checkpoint) against ``--n_devices 1``: losses within
    rtol 1e-5, the sweep's launches held too. Prints the gradient buffer's
    bytes and the reduce's CUDA-event ms a step.
-25. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
+25. The host allocator, the bf16 control networks and ffmpeg. (a) The
+   C++ voice allocator (ddsp_piano_torch/native, built with the host's
+   C++ compiler) bit for bit against the numpy loop on demo.mid's roll at
+   16 voices and two over-capacity rolls at 4, each one's ms a frame
+   (median of 5); the mini-MAESTRO's train and validation splits
+   preprocessed into a cache with 8 workers under each allocator (patched
+   into data.io in this process): seconds, C++ calls, the two caches
+   bit-equal. (b) Under ``nn.layers.enable_bf16_control()``: the v2 3 s
+   segment and one training step on the card, K2's and K5's bf16
+   instances held against their bf16 plain versions at those inputs (step
+   by step within 1e-5, over the 750 steps within 2e-3, beside the plain
+   version's own drift from the CPU at the segment's rows) and timed with
+   their bounds; the 10 s render of demo.mid, counted (K2's
+   bf16 instance twice), its forward against the float32 one's (CUDA
+   events, median of 3 each) and its distance from the float32 render;
+   3 training steps from the cache, counted (K5's bf16 instance must
+   launch), with finite losses; the switch off again. (c) Whether
+   ``ffmpeg`` is on PATH.
+26. One training step's gradients (batch 1, 1 s) on ``cuda`` against the
    same step on the CPU plain path (same weights, batch and noise); then
    the step on ``cuda`` with the GRU kernels' plain versions in their
    place, against both, to tell the kernels' share of the gap.
-26. One JSON line of kernel numbers (K1's row at the training step's
+27. One JSON line of kernel numbers (K1's row at the training step's
    inputs, its launches those of the v2 render, the CLI run and phase
    18's run; K2-K7's also phase 18's; K9's those of phases 19-20; each
-   kernel's also phases 22-24's), then the result line.
+   kernel's also phases 22-25's; K2's and K5's rows also their bf16
+   instance's launches, error, call and card times and bound, from phase
+   25), then the result line.
 
 Build outputs, the rendered wav files, the mini-MAESTRO, the training
 run's checkpoints and the evaluation CSVs go to build/ in the checkout.
@@ -841,24 +863,25 @@ def check_gru(calls):
 
     rows = []
     for args in calls:
-        x_proj, rec_kernel, rec_bias, h0 = to_card(args)
+        args = to_card(args)
+        x_proj, rec_kernel, rec_bias, h0 = args[:4]
         t, b, three_u = x_proj.shape
         u = three_u // 3
         library = _library_gru(x_proj, rec_kernel, rec_bias, h0)
         with torch.inference_mode():
-            got = kgru.gru_scan_cuda(x_proj, rec_kernel, rec_bias, h0)
-            want = kgru.gru_scan_plain(x_proj, rec_kernel, rec_bias, h0)
+            got = kgru.gru_scan_cuda(*args)
+            want = kgru.gru_scan_plain(*args)
             sync()
             err = (got - want).abs().max().item()
             if not (np.isfinite(err) and err <= GRU_TOL):
                 fail(f"GRU kernel (u={u}, B={b}) differs from its plain "
                      f"version: {err} > {GRU_TOL}")
             lib_err = (library() - want).abs().max().item()
-            fn = lambda: kgru.gru_scan_cuda(x_proj, rec_kernel, rec_bias, h0)
+            fn = lambda: kgru.gru_scan_cuda(*args)
             ms = median_ms(fn)
             card_ms = statistics.median(card_times(fn))
-            plain_ms = median_ms(lambda: kgru.gru_scan_plain(
-                x_proj, rec_kernel, rec_bias, h0), n=20, warmup=1)
+            plain_ms = median_ms(lambda: kgru.gru_scan_plain(*args), n=20,
+                                 warmup=1)
             library_ms = median_ms(library)
         rows.append(dict(u=u, b=b, t=t, err=err, lib_err=lib_err, ms=ms,
                          card_ms=card_ms, plain_ms=plain_ms,
@@ -1069,6 +1092,7 @@ def grouped_kernels_line(rows):
 
 
 def main_path():
+    from ddsp_piano_torch import native
     from ddsp_piano_torch import synthesize_midi_file as cli
     from ddsp_piano_torch.data.io import load_midi_as_conditioning
     from ddsp_piano_torch.kernels import build
@@ -1082,11 +1106,13 @@ def main_path():
         cli.main(args)                    # warm-up: cuFFT plans, cuBLAS
     sync()
     build.reset_launches()
+    native.reset_calls()
     start = time.perf_counter()
     result = cli.main(args)
     sync()
     wall = time.perf_counter() - start
     launches = dict(build.LAUNCHES)
+    allocator_calls = native.CALLS['allocate_voices']
     forwards = [result['seconds']] + timed_renders(cli, args)
     missing = [k for k in RENDER_KERNELS if launches[k] == 0]
     if missing:
@@ -1109,6 +1135,7 @@ def main_path():
              f"played notes")
     forward = statistics.median(forwards)
     return dict(launches=launches, wall=wall, forward=forward,
+                allocator_calls=allocator_calls,
                 forwards=forwards, kernel_ms=kernel_ms, calls=shapes,
                 audio=audio,
                 rtf=MAIN_PATH_SECONDS / forward, peaks=peaks,
@@ -1362,12 +1389,12 @@ def check_gru_bwd(calls):
     from ddsp_piano_torch.kernels import gru as kgru
 
     rows = []
-    for x_proj, rec_kernel, rec_bias, h0, hs, g in calls:
+    for args in calls:
+        x_proj, rec_kernel, rec_bias, h0, hs, g = args[:6]
         t, b, three_u = x_proj.shape
         u = three_u // 3
-        got = kgru.gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, h0, hs, g)
-        want = kgru.gru_scan_plain_bwd(x_proj, rec_kernel, rec_bias, h0, hs,
-                                       g)
+        got = kgru.gru_scan_bwd_cuda(*args)
+        want = kgru.gru_scan_plain_bwd(*args)
         sync()
         # Each stream (dxz, dxr, dxh, drh, dh0) against its own peak.
         errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
@@ -1379,12 +1406,11 @@ def check_gru_bwd(calls):
             fail(f"GRU backward kernel (u={u}, B={b}) differs from its plain "
                  f"version: {rel} of a stream's peak > {GRU_BWD_TOL} (errors "
                  f"{errs}, peaks {peaks})")
-        fn = lambda: kgru.gru_scan_bwd_cuda(x_proj, rec_kernel, rec_bias, h0,
-                                            hs, g)
+        fn = lambda: kgru.gru_scan_bwd_cuda(*args)
         ms = median_ms(fn)
         card_ms = statistics.median(card_times(fn))
-        plain_ms = median_ms(lambda: kgru.gru_scan_plain_bwd(
-            x_proj, rec_kernel, rec_bias, h0, hs, g), n=5, warmup=1)
+        plain_ms = median_ms(lambda: kgru.gru_scan_plain_bwd(*args), n=5,
+                             warmup=1)
         x = x_proj.detach().requires_grad_()
         h = h0.detach().requires_grad_()
         library = _library_gru(x, rec_kernel, rec_bias, h)
@@ -1833,7 +1859,7 @@ def tensorflow_line():
     return f"import tensorflow: fails ({last})"
 
 
-# -- phase 25 -----------------------------------------------------------------
+# -- phase 26 -----------------------------------------------------------------
 
 
 def step_gradients(device, batch, noise, logmag_weight,
@@ -1866,11 +1892,12 @@ def plain_gru(dtype=torch.float32):
     from ddsp_piano_torch.kernels import gru as kgru
 
     saved = kgru.gru_scan_cuda, kgru.gru_scan_bwd_cuda
+    cast = lambda args: (a.to(dtype) if torch.is_tensor(a) else a
+                         for a in args)
     kgru.gru_scan_cuda = lambda *args: kgru.gru_scan_plain(
-        *(a.to(dtype) for a in args)).float()
+        *cast(args)).float()
     kgru.gru_scan_bwd_cuda = lambda *args: tuple(
-        s.float() for s in kgru.gru_scan_plain_bwd(
-            *(a.to(dtype) for a in args)))
+        s.float() for s in kgru.gru_scan_plain_bwd(*cast(args)))
     try:
         yield
     finally:
@@ -3995,6 +4022,316 @@ def gin_lines(g, seconds):
         + f"; phase {seconds:.1f} s"]
 
 
+# -- phase 25 -----------------------------------------------------------------
+
+ALLOC_TIMED = 5                # runs of each allocator a median
+ALLOC_WORKERS = 8              # preprocess_into_cache's num_workers
+ALLOC_CACHE_DIR = os.path.join(OUT_DIR, 'allocator_cache')
+ALLOC_ROLLS = (('demo.mid', 16), ('over-capacity roll', 4),
+               ('churn roll', 4))
+# K2's bf16 instance against its bf16 plain version step by step,
+# absolute (|h| < 1); K5's, a share of each stream's peak. Over a whole
+# run of 750 steps each drifts from its plain version as far as the plain
+# version on the card drifts from itself on the CPU: a state an ulp apart
+# rounds to bf16 values 2^-8 apart now and then (measured at the v2
+# segment's and the training step's shapes: K2 up to 6.15e-4 against the
+# plain version's 5.73e-4, K5 3.34e-4 of a stream's peak against 2.3e-4).
+GRU_BF16_TOL = 1e-5
+GRU_BWD_BF16_TOL = 1e-5
+GRU_BF16_RUN_TOL = 2e-3
+BF16_TIMED = 3                 # renders a median, each switch
+BF16_CPU_ROWS = 16             # the most rows the plain version runs on the CPU
+BF16_STEPS = 3
+
+
+def allocator_path():
+    """Phase 25 (a): the C++ host allocator bit for bit against the numpy
+    loop (outputs equal, dtypes and shapes too) on demo.mid's roll at 16
+    voices and two over-capacity rolls at 4; each one's ms a frame, median
+    of ALLOC_TIMED runs; then the mini-MAESTRO's train and validation
+    splits preprocessed into a cache with ALLOC_WORKERS workers under each
+    allocator (patched into data.io in this process), their seconds, and
+    the two caches bit-equal."""
+    from ddsp_piano_torch import native
+    from ddsp_piano_torch.data import io as dio
+    from ddsp_piano_torch.data import midi_encoders, pipeline, rolls
+
+    if not native.available():
+        fail("the C++ voice allocator is not available: no C++ compiler")
+    inputs = {'demo.mid': dio.load_midi_as_roll(DEMO_MIDI)['roll'][0],
+              'over-capacity roll': rolls.held_notes_roll(99, 200, 80),
+              'churn roll': rolls.churn_roll(0, 4, 500)}
+    cases = []
+    for name, n in ALLOC_ROLLS:
+        roll = inputs[name]
+        native.reset_calls()
+        got = midi_encoders.roll_to_conditioning(roll, n, 'always')
+        calls = native.CALLS['allocate_voices']
+        want = midi_encoders.roll_to_conditioning(roll, n, 'never')
+        if calls != 1 or native.CALLS['allocate_voices'] != 1:
+            fail(f"{name}: {native.CALLS} C++ allocator calls, not one")
+        for a, w in zip(got, want):
+            if (a.shape != w.shape or a.dtype != np.float32
+                    or not np.array_equal(a, w)):
+                fail(f"{name}: the C++ allocator's output differs from the "
+                     "numpy loop's")
+        ms = {}
+        for mode in ('always', 'never'):
+            times = []
+            for _ in range(ALLOC_TIMED):
+                start = time.perf_counter()
+                midi_encoders.roll_to_conditioning(roll, n, mode)
+                times.append(time.perf_counter() - start)
+            ms[mode] = 1e3 * statistics.median(times) / len(roll)
+        cases.append((name, len(roll), n, ms))
+    real = dio.roll_to_conditioning
+    seconds, calls, caches = {}, {}, {}
+    for mode in ('always', 'never'):
+        cache = caches[mode] = os.path.join(ALLOC_CACHE_DIR, mode)
+        shutil.rmtree(cache, ignore_errors=True)
+        dio.roll_to_conditioning = functools.partial(real, use_native=mode)
+        native.reset_calls()
+        try:
+            start = time.perf_counter()
+            for split in ('train', 'validation'):
+                pipeline.preprocess_into_cache(
+                    cache, MAESTRO_DIR, split=split, sample_rate=24000,
+                    max_polyphony=16, num_workers=ALLOC_WORKERS,
+                    verbose=False)
+            seconds[mode] = time.perf_counter() - start
+        finally:
+            dio.roll_to_conditioning = real
+        calls[mode] = native.CALLS['allocate_voices']
+    if calls['always'] < 2 or calls['never'] != 0:
+        fail(f"C++ allocator calls while preprocessing: {calls}")
+    names = sorted(os.listdir(caches['always']))
+    if names != sorted(os.listdir(caches['never'])):
+        fail("the two allocators' caches hold other files")
+    for name in names:
+        if name.endswith('.npz'):
+            a, b = (np.load(os.path.join(caches[m], name))
+                    for m in ('always', 'never'))
+            if sorted(a) != sorted(b) or not all(
+                    a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                    for k in a):
+                fail(f"cache {name} differs between the allocators")
+    return dict(cases=cases, seconds=seconds, calls=calls,
+                tracks=sum(n.endswith('.npz') for n in names))
+
+
+def check_gru_bf16(calls, kernel):
+    """Each recorded call of K2 (``kernel`` 'gru_scan') or K5
+    ('gru_scan_bwd') with the bf16 switch, against its bf16 plain version
+    on the card: step by step (gru_scan_plain_steps /
+    gru_scan_plain_bwd_steps, each step from the kernel's own earlier
+    ones) within GRU_BF16_TOL (K2, absolute) or GRU_BWD_BF16_TOL (K5, a
+    share of each stream's peak), and over the whole run within
+    GRU_BF16_RUN_TOL, beside the plain version's own distance from its
+    run on the CPU; its call and card times and bound."""
+    from ddsp_piano_torch.kernels import gru as kgru
+
+    forward = kernel == 'gru_scan'
+    cuda, plain, steps, tol = (
+        (kgru.gru_scan_cuda, kgru.gru_scan_plain, kgru.gru_scan_plain_steps,
+         GRU_BF16_TOL) if forward else
+        (kgru.gru_scan_bwd_cuda, kgru.gru_scan_plain_bwd,
+         kgru.gru_scan_plain_bwd_steps, GRU_BWD_BF16_TOL))
+
+    def gap(got, want):
+        if forward:
+            return (got - want).abs().max().item()
+        return max(((a - w).abs().max() / w.abs().max().clamp_min(1e-30)
+                    ).item() for a, w in zip(got, want))
+
+    rows = []
+    for args in calls:
+        args = to_card(args)
+        if args[-1] is not True:
+            fail(f"{kernel} was called without bf16 under the switch")
+        t, b, three_u = args[0].shape
+        u = three_u // 3
+        with torch.no_grad():
+            got = cuda(*args)
+            if forward:
+                step_err = gap(got, steps(*args[:4], got, True))
+            else:
+                step_err = gap(got, steps(*args[:6], got, True))
+            want = plain(*args)
+            run_err = gap(got, want)
+            # The plain version's own drift, on the CPU, at the segment's
+            # rows (the step's 96 take seconds there).
+            floor = (gap(want, to_card(plain(*to_cpu(args))))
+                     if b <= BF16_CPU_ROWS else None)
+            sync()
+            del got, want
+        if not (np.isfinite(step_err) and step_err <= tol
+                and run_err <= GRU_BF16_RUN_TOL):
+            fail(f"{kernel}'s bf16 instance (u={u}, B={b}) differs from its "
+                 f"bf16 plain version: {step_err} step by step (tolerance "
+                 f"{tol}), {run_err} over the run (tolerance "
+                 f"{GRU_BF16_RUN_TOL})")
+        fn = lambda: cuda(*args)
+        rows.append(dict(u=u, b=b, t=t, err=step_err, run_err=run_err,
+                         floor=floor, ms=median_ms(fn),
+                         card_ms=statistics.median(card_times(fn)),
+                         bound=(gru_bound if forward else gru_bwd_bound)(
+                             t, b, u)))
+    total = {'bf16_max_abs_err': max(r['err'] for r in rows),
+             'bf16_ms': sum(r['ms'] for r in rows),
+             'bf16_card_ms': sum(r['card_ms'] for r in rows),
+             'bf16_bound_ms': sum(r['bound'][0] for r in rows)}
+    detail = '; '.join(
+        f"u={r['u']} ({r['t']}, {r['b']}): err step by step {r['err']:.3g}, "
+        f"over the run {r['run_err']:.3g} (the plain version on the card "
+        "against the CPU " + ('not run' if r['floor'] is None
+                              else f"{r['floor']:.3g}")
+        + f"), {r['ms']:.4f} ms = "
+        f"{1e3 * r['ms'] / r['t']:.3f} us/step, card {r['card_ms']:.4f} "
+        f"ms, bound {r['bound'][0]:.5f} ms ({r['bound'][1]})" for r in rows)
+    return total, detail
+
+
+def bf16_path():
+    """Phase 25 (b): under nn.layers.enable_bf16_control(), the v2 3 s
+    segment on the card and one full-width training step, recording K2's
+    and K5's inputs, each held against its bf16 plain version and timed;
+    the 10 s render of demo.mid (counted: K2's bf16 instance twice), its
+    forward against the float32 one's (CUDA events, median of BF16_TIMED
+    each) and its distance from the float32 render as a share of peak;
+    BF16_STEPS training steps from the cache (counted: K5's bf16 instance
+    launched), with finite losses. The switch is off again at the end."""
+    from ddsp_piano_torch.configs import get_model
+    from ddsp_piano_torch.kernels import build
+    from ddsp_piano_torch.nn import layers
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    launches = {}
+
+    def count():
+        for counts, prefix in ((build.LAUNCHES, ''),
+                               (build.BF16_LAUNCHES, 'bf16 ')):
+            for k, n in counts.items():
+                launches[prefix + k] = launches.get(prefix + k, 0) + n
+        build.reset_launches()
+
+    layers.enable_bf16_control(True)
+    try:
+        build.reset_launches()
+        capture = {}
+        render_segment(DEV, capture)
+        count()
+        step_capture, _ = train_step_inputs()
+        count()
+        rows = {'gru_scan': check_gru_bf16(
+                    capture['gru_scan'] + step_capture['gru_scan'],
+                    'gru_scan'),
+                'gru_scan_bwd': check_gru_bf16(step_capture['gru_scan_bwd'],
+                                               'gru_scan_bwd')}
+        del capture, step_capture
+
+        features = demo_features(MAIN_PATH_SECONDS)
+        model = get_model('maestro_v2', inference=True, device=DEV,
+                          seed=SEED, duration=features['conditioning'].shape[1]
+                          / 250)
+        noise = 2.0 * torch.rand(
+            (model.n_synths, features['conditioning'].shape[1] * 96),
+            device=DEV, generator=torch.Generator(device=DEV).manual_seed(
+                SEED)) - 1.0
+
+        def render():
+            with torch.inference_mode():
+                return model(features, noise=noise)['audio_synth'][0]
+
+        build.reset_launches()
+        bf16_audio = render()
+        sync()
+        render_bf16 = dict(build.BF16_LAUNCHES)
+        count()
+        if render_bf16['gru_scan'] != 2:
+            fail(f"the bf16 render launched K2's bf16 instance "
+                 f"{render_bf16['gru_scan']} times, not twice")
+        forwards = {'bf16': event_times(render, n=BF16_TIMED, warmup=1)}
+        layers.enable_bf16_control(False)
+        f32_audio = render()
+        forwards['float32'] = event_times(render, n=BF16_TIMED, warmup=1)
+        build.reset_launches()
+        layers.enable_bf16_control(True)
+        if not bool(torch.isfinite(bf16_audio).all()):
+            fail("the bf16 render is not finite")
+        peak = f32_audio.abs().max().item()
+        gap = (bf16_audio - f32_audio).abs().max().item() / peak
+        del model, bf16_audio, f32_audio
+
+        student = get_model('maestro_v2', device=DEV, seed=STUDENT_SEED)
+        trainer = Trainer(student, first_phase=True, seed=STUDENT_SEED)
+        batches = cache_batches(BF16_STEPS)
+        build.reset_launches()
+        losses = [float(trainer.train_step(b)['total_loss'])
+                  for b in batches]
+        sync()
+        steps_bf16 = dict(build.BF16_LAUNCHES)
+        count()
+        if not all(np.isfinite(losses)):
+            fail(f"bf16 training losses {losses}")
+        if steps_bf16['gru_scan_bwd'] < 2 * BF16_STEPS:
+            fail(f"{BF16_STEPS} bf16 training steps launched K5's bf16 "
+                 f"instance {steps_bf16['gru_scan_bwd']} times")
+        del trainer, student
+    finally:
+        layers.enable_bf16_control(False)
+    for kernel, (total, _) in rows.items():
+        total['bf16_launches'] = launches.get('bf16 ' + kernel, 0)
+    return dict(rows=rows, forwards=forwards, gap=gap, losses=losses,
+                launches={k: v for k, v in launches.items()
+                          if not k.startswith('bf16 ')},
+                bf16_launches={k[5:]: v for k, v in launches.items()
+                               if k.startswith('bf16 ')},
+                render_bf16=render_bf16, steps_bf16=steps_bf16)
+
+
+def ffmpeg_line():
+    """Whether ``ffmpeg`` is on PATH (non-wav input needs it), and its
+    version line."""
+    found = shutil.which('ffmpeg')
+    if found is None:
+        return ("ffmpeg: not on PATH (non-wav audio raises; the decode is "
+                "held on the CPU with a stub)")
+    out = subprocess.run([found, '-version'], capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return f"ffmpeg: {found} ({out[0] if out else 'no version line'})"
+
+
+def phase25_lines(a, f):
+    lines = [
+        "host allocator: the C++ allocator bit for bit the numpy loop's; ms "
+        f"a frame, median of {ALLOC_TIMED}: " + '; '.join(
+            f"{name} ({frames} frames, {n} voices) C++ "
+            f"{ms['always']:.6f}, numpy {ms['never']:.6f} "
+            f"({ms['never'] / ms['always']:.0f}x)"
+            for name, frames, n, ms in a['cases'])
+        + f"; preprocess_into_cache of the mini-MAESTRO (train and "
+        f"validation, {a['tracks']} tracks, {ALLOC_WORKERS} workers): C++ "
+        f"{a['seconds']['always']:.3f} s ({a['calls']['always']} calls), "
+        f"numpy {a['seconds']['never']:.3f} s; the caches bit-equal"]
+    med = lambda v: statistics.median(v)
+    for kernel, (row, detail) in f['rows'].items():
+        lines.append(
+            f"kernel {kernel} bf16 instance at the bf16 v2 segment's and "
+            f"training step's inputs, against its bf16 plain version: "
+            f"{detail}; launches {row['bf16_launches']}")
+    lines.append(
+        f"bf16 control networks: v2 demo.mid {MAIN_PATH_SECONDS:g} s on "
+        f"cuda, forward {med(f['forwards']['bf16']):.2f} ms (median of "
+        + ' / '.join(f"{v:.2f}" for v in f['forwards']['bf16'])
+        + f") against float32 {med(f['forwards']['float32']):.2f} ms "
+        f"(" + ' / '.join(f"{v:.2f}" for v in f['forwards']['float32'])
+        + f"); the bf16 render {f['gap']:.3g} of peak from the float32 one; "
+        f"render bf16 launches {f['render_bf16']}; {BF16_STEPS} bf16 training "
+        f"steps, losses " + ', '.join(f"{v:.4f}" for v in f['losses'])
+        + f", bf16 launches {f['steps_bf16']}; the switch off again")
+    return lines
+
+
 def main():
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test needs one NVIDIA GPU")
@@ -4039,7 +4376,9 @@ def main():
     print(f"main path: demo.mid {MAIN_PATH_SECONDS:g} s on cuda, forward "
           f"{m['forward'] * 1e3:.1f} ms ({m['rtf']:.1f}x realtime; median of "
           f"{forwards_text(m['forwards'])} ms), wall "
-          f"{m['wall']:.2f} s; launches {m['launches']}; dry peaks "
+          f"{m['wall']:.2f} s; launches {m['launches']}; host allocator "
+          f"calls: C++ {m['allocator_calls']} (none: the numpy loop); dry "
+          f"peaks "
           f"{np.round(m['peaks'], 2).tolist()} Hz on partials of "
           f"{m['n_pitches']} pitches (+-{2 * m['bin_hz']:.2f} Hz)",
           flush=True)
@@ -4256,6 +4595,19 @@ def main():
     for k, n in parallel_launches(par).items():
         this_slice[k] = this_slice.get(k, 0) + n
 
+    t0 = time.perf_counter()
+    alloc = allocator_path()
+    low = bf16_path()
+    for line in phase25_lines(alloc, low):
+        print(line, flush=True)
+    print(ffmpeg_line() + f"; phase {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for k, n in low['launches'].items():
+        this_slice[k] = this_slice.get(k, 0) + n
+    for row in kernels:
+        if row['name'] in low['rows']:
+            row.update(low['rows'][row['name']][0])
+
     prof = profile_training_steps()
     if not prof['busy_ms'] > 0:
         fail("the profiler recorded no device time over the training steps")
@@ -4312,7 +4664,9 @@ def main():
         row.update(route=route, source=source, replaces=replaces,
                    launches=launches)
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'card_ms')
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'card_ms',
+            'bf16_launches', 'bf16_max_abs_err', 'bf16_ms', 'bf16_card_ms',
+            'bf16_bound_ms')
     print(json.dumps({'kernels': [{k: row[k] for k in keys if k in row}
                                   for row in kernels]}))
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -8,10 +8,18 @@
 // registers for the whole launch. A step's product h U then takes each lane
 // KC chunks x rows x 12 FMAs, and reduce_rows leaves row s's sums in lane
 // s, which computes row s's gates.
+//
+// The bf16 instances (the opt-in bf16 control networks) are the kernels'
+// template instances with BF16 = true: load_columns<KC, true> rounds the
+// lane's columns of U to bfloat16 as it loads them, and
+// product<KC, RM, true> rounds each h it reads; the sums stay float32
+// (products of two bf16 values are exact in float32). The float32
+// instances compile as they did before the bf16 ones existed.
 
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -23,6 +31,16 @@ namespace cg = cooperative_groups;
 #define GRU_UNITS_PER_CTA 32  // the default plan's most units per CTA
 #define GRU_MIN_UNITS 16      // and the fewest it spreads them to
 #define GRU_SMEM_LIMIT 232448 // shared bytes a CTA can have on sm_90
+
+// x rounded to the nearest bfloat16 (ties to even), as float.
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float4 round_bf16(float4 v) {
+  return make_float4(round_bf16(v.x), round_bf16(v.y), round_bf16(v.z),
+                     round_bf16(v.w));
+}
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -79,8 +97,8 @@ __device__ __forceinline__ float4 column4(const float* __restrict__ U, int k0,
 }
 
 // The lane's slice of unit j's z, r and h columns (zeros for a lane of no
-// unit or past the last chunk).
-template <int KC>
+// unit or past the last chunk), rounded to bfloat16 if BF16.
+template <int KC, bool BF16 = false>
 __device__ __forceinline__ void load_columns(const float* __restrict__ U,
                                              int u, int j, int s, bool unit_ok,
                                              float4 (&wz)[KC],
@@ -94,6 +112,11 @@ __device__ __forceinline__ void load_columns(const float* __restrict__ U,
     wz[q] = ok ? column4(U, 4 * c, j, 3 * u) : zero4;
     wr[q] = ok ? column4(U, 4 * c, u + j, 3 * u) : zero4;
     wh[q] = ok ? column4(U, 4 * c, 2 * u + j, 3 * u) : zero4;
+    if (BF16) {
+      wz[q] = round_bf16(wz[q]);
+      wr[q] = round_bf16(wr[q]);
+      wh[q] = round_bf16(wh[q]);
+    }
   }
 }
 
@@ -101,8 +124,9 @@ __device__ __forceinline__ void load_columns(const float* __restrict__ U,
 // (row stride `stride`), reduced so that lane s holds row s's three
 // pre-activations (without the bias). Rows past the cluster's last
 // (nrows) repeat it and their sums go unused, so every load is
-// unconditional and the compiler can issue them ahead.
-template <int KC, int RM>
+// unconditional and the compiler can issue them ahead. ROUND_H: each h
+// rounded to bfloat16 as it is read.
+template <int KC, int RM, bool ROUND_H = false>
 __device__ __forceinline__ void product(const float* h, int stride, int u,
                                         int nrows, int s,
                                         const float4 (&wz)[KC],
@@ -122,8 +146,9 @@ __device__ __forceinline__ void product(const float* h, int stride, int u,
     const int c = s + GRU_SLICES * q < u / 4 ? s + GRU_SLICES * q : 0;
 #pragma unroll
     for (int r = 0; r < RM; ++r) {
-      const float4 hv = *reinterpret_cast<const float4*>(
+      float4 hv = *reinterpret_cast<const float4*>(
           h + min(r, nrows - 1) * stride + 4 * c);
+      if (ROUND_H) hv = round_bf16(hv);
       az[r] = fmaf(hv.x, wz[q].x, az[r]);
       az[r] = fmaf(hv.y, wz[q].y, az[r]);
       az[r] = fmaf(hv.z, wz[q].z, az[r]);
@@ -210,7 +235,8 @@ static inline cudaError_t exclusive_clusters(const void* fn, int n,
 }
 
 // The launch plan for B rows of width u, for the kernels kernels[rows
-// index][chunks - 1]. The cluster: the smallest power of two that leaves at
+// index][chunks - 1] (the float32 instances; their bf16 instances take the
+// same plan). The cluster: the smallest power of two that leaves at
 // most GRU_UNITS_PER_CTA units to a CTA, doubled while the doubled cluster
 // leaves at least GRU_MIN_UNITS units to a CTA and still gives every row a
 // cluster of its own SMs (fewer units a CTA, a shorter step; below 16 units

@@ -47,10 +47,17 @@
 // step t+2's. The plan (gru_scan_plan) picks N, rows and the number of
 // clusters; the row stride u + 4 keeps the eight rows' writes in distinct
 // banks.
+//
+// The bf16 instance (BF16 = true; kernels/gru.py gru_scan_plain's bf16
+// recurrence): U's columns are rounded to bfloat16 as load_columns loads
+// them, and the h that the lanes publish for the product (h0 as it is
+// staged, then each h') is rounded too; the sums stay float32. The lane
+// that computes h'[s, j] keeps it unrounded in a register for the next
+// step's z h. gru_scan_launch's bf16 argument picks the instance.
 
 #include "gru_cluster.cuh"
 
-template <int KC, int RM>
+template <int KC, int RM, bool BF16>
 __global__ void __launch_bounds__(KC <= 2 ? 512 : 256)
 gru_scan_kernel(const float* __restrict__ x_proj, const float* __restrict__ U,
                 const float* __restrict__ rec_bias,
@@ -72,17 +79,19 @@ gru_scan_kernel(const float* __restrict__ x_proj, const float* __restrict__ U,
   const bool gate_ok = unit_ok && s < nrows;
 
   float4 wz[KC], wr[KC], wh[KC];
-  load_columns<KC>(U, u, j, s, unit_ok, wz, wr, wh);
+  load_columns<KC, BF16>(U, u, j, s, unit_ok, wz, wr, wh);
   const float bz = unit_ok ? rec_bias[j] : 0.0f;
   const float br = unit_ok ? rec_bias[u + j] : 0.0f;
   const float bh = unit_ok ? rec_bias[2 * u + j] : 0.0f;
 
   for (int i = threadIdx.x; i < nrows * u; i += blockDim.x) {
     const int r = i / u;
-    smem[r * hstride + (i - r * u)] = h0[(size_t)row0 * u + i];
+    const float h = h0[(size_t)row0 * u + i];
+    smem[r * hstride + (i - r * u)] = BF16 ? round_bf16(h) : h;
   }
-  float xz = 0.0f, xr = 0.0f, xh = 0.0f;
+  float xz = 0.0f, xr = 0.0f, xh = 0.0f, h_own = 0.0f;
   if (gate_ok) {
+    if (BF16) h_own = h0[(size_t)(row0 + s) * u + j];
     const float* x = x_proj + (size_t)(row0 + s) * three_u;
     xz = x[j];
     xr = x[u + j];
@@ -102,12 +111,15 @@ gru_scan_kernel(const float* __restrict__ x_proj, const float* __restrict__ U,
       const float z = sigmoidf_(xz + (rz + bz));
       const float rg = sigmoidf_(xr + (rr + br));
       const float hh = tanhf(xh + rg * (rh + bh));
-      const float h_new = z * hc[s * hstride + j] + (1.0f - z) * hh;
+      const float h_prev = BF16 ? h_own : hc[s * hstride + j];
+      const float h_new = z * h_prev + (1.0f - z) * hh;
+      if (BF16) h_own = h_new;
       out[((size_t)t * B + row0 + s) * u + j] = h_new;
       if (t + 1 < T) {
+        const float h_pub = BF16 ? round_bf16(h_new) : h_new;
         float* dst = smem + ((t + 1) & 1) * hplane + s * hstride + j;
         for (int p = 0; p < n_cta; ++p) {
-          *cluster.map_shared_rank(dst, p) = h_new;
+          *cluster.map_shared_rank(dst, p) = h_pub;
         }
       }
     }
@@ -131,15 +143,23 @@ gru_scan_kernel(const float* __restrict__ x_proj, const float* __restrict__ U,
 typedef void (*GruKernel)(const float*, const float*, const float*,
                           const float*, float*, int, int, int, int, int);
 
-#define GRU_KERNELS(RM)                                                     \
-  {(const void*)gru_scan_kernel<1, RM>, (const void*)gru_scan_kernel<2, RM>, \
-   (const void*)gru_scan_kernel<3, RM>, (const void*)gru_scan_kernel<4, RM>, \
-   (const void*)gru_scan_kernel<5, RM>, (const void*)gru_scan_kernel<6, RM>, \
-   (const void*)gru_scan_kernel<7, RM>, (const void*)gru_scan_kernel<8, RM>}
+#define GRU_KERNELS(RM, BF16)                                             \
+  {(const void*)gru_scan_kernel<1, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<2, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<3, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<4, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<5, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<6, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<7, RM, BF16>,                             \
+   (const void*)gru_scan_kernel<8, RM, BF16>}
 
-// By compiled rows (1, 2, 4, 8) and float4 chunks per lane (1 .. 8).
-static const void* const kKernels[4][GRU_MAX_CHUNKS] = {
-    GRU_KERNELS(1), GRU_KERNELS(2), GRU_KERNELS(4), GRU_KERNELS(8)};
+// By float32 or bf16, compiled rows (1, 2, 4, 8) and float4 chunks per
+// lane (1 .. 8).
+static const void* const kKernels[2][4][GRU_MAX_CHUNKS] = {
+    {GRU_KERNELS(1, false), GRU_KERNELS(2, false), GRU_KERNELS(4, false),
+     GRU_KERNELS(8, false)},
+    {GRU_KERNELS(1, true), GRU_KERNELS(2, true), GRU_KERNELS(4, true),
+     GRU_KERNELS(8, true)}};
 
 // Shared bytes: h, double-buffered, rows of u + 4.
 static int smem_of(int u, int m, int rows) { return 4 * 2 * rows * (u + 4); }
@@ -148,20 +168,21 @@ static int smem_of(int u, int m, int rows) { return 4 * 2 * rows * (u + 4); }
 // size, rows per cluster, clusters, threads per CTA, shared bytes per CTA,
 // co-resident clusters, those with an SM to each CTA, units per CTA.
 extern "C" int gru_scan_plan(int B, int u, int* plan) {
-  return gru_plan(B, u, smem_of, kKernels, plan);
+  return gru_plan(B, u, smem_of, kKernels[0], plan);
 }
 
-// cluster and rows: plan[0] and plan[1] of gru_scan_plan for B and u.
+// cluster and rows: plan[0] and plan[1] of gru_scan_plan for B and u;
+// bf16 != 0 launches the bf16 instance.
 extern "C" int gru_scan_launch(const float* x_proj, const float* U,
                                const float* rec_bias, const float* h0,
                                float* out, int T, int B, int u, int cluster,
-                               int rows, cudaStream_t stream) {
+                               int rows, int bf16, cudaStream_t stream) {
   int kc, m, threads, smem;
   if (T < 1 || !launch_shape(B, u, cluster, rows, smem_of, &kc, &m, &threads,
                              &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* fn = kKernels[rows_index(rows)][kc - 1];
+  const void* fn = kKernels[bf16 != 0][rows_index(rows)][kc - 1];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_launch(fn, B, cluster, rows, threads, smem,

@@ -55,6 +55,14 @@
 //     step, and only the carry product, its reduction and the gate math
 //     on the serial chain. The barrier that publishes D_t also proves
 //     every peer has finished reading the buffer that step t-1 writes.
+//
+// The bf16 instance (BF16 = true; kernels/gru.py gru_scan_plain_bwd's bf16
+// gradient): the recompute's columns of U are rounded to bfloat16 as
+// load_columns loads them and its h_prev as the product reads it; the
+// rows of U for the carry are rounded as they are staged, and each lane
+// publishes its D rounded; the carry's sums stay float32, and the four
+// streams are written unrounded. gru_scan_bwd_launch's bf16 argument
+// picks the instance.
 
 #include "gru_cluster.cuh"
 
@@ -69,7 +77,7 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-template <int KC, int RM>
+template <int KC, int RM, bool BF16>
 __global__ void __launch_bounds__(KC <= 2 ? 512 : 256)
 gru_scan_bwd_kernel(const float* __restrict__ x_proj,
                     const float* __restrict__ U,
@@ -104,10 +112,11 @@ gru_scan_bwd_kernel(const float* __restrict__ x_proj,
 
   for (int i = threadIdx.x; i < m * three_u; i += blockDim.x) {
     const int unit = rank * m + i / three_u;
-    u_rows[i] = unit < u ? U[(size_t)rank * m * three_u + i] : 0.0f;
+    const float w = unit < u ? U[(size_t)rank * m * three_u + i] : 0.0f;
+    u_rows[i] = BF16 ? round_bf16(w) : w;
   }
   float4 wz[KC], wr[KC], wh[KC];
-  load_columns<KC>(U, u, j, s, unit_ok, wz, wr, wh);
+  load_columns<KC, BF16>(U, u, j, s, unit_ok, wz, wr, wh);
   const float bz = unit_ok ? rec_bias[j] : 0.0f;
   const float br = unit_ok ? rec_bias[u + j] : 0.0f;
   const float bh = unit_ok ? rec_bias[2 * u + j] : 0.0f;
@@ -141,8 +150,8 @@ gru_scan_bwd_kernel(const float* __restrict__ x_proj,
   cp_async_wait_all();
   cluster.sync();   // U's rows and h_prev staged; every CTA is running
   float rz, rr, rh;
-  product<KC, RM>(pbuf_of(T - 1), u, u, nrows, s, wz, wr, wh, &rz, &rr,
-                  &rh);
+  product<KC, RM, BF16>(pbuf_of(T - 1), u, u, nrows, s, wz, wr, wh, &rz,
+                        &rr, &rh);
   load_inputs(T - 1);
   float dh = 0.0f;
 
@@ -165,20 +174,23 @@ gru_scan_bwd_kernel(const float* __restrict__ x_proj,
       dxr[o] = dr_pre;
       dxh[o] = dpre;
       drh_out[o] = drh;
+      const float dz_pub = BF16 ? round_bf16(dz_pre) : dz_pre;
+      const float dr_pub = BF16 ? round_bf16(dr_pre) : dr_pre;
+      const float drh_pub = BF16 ? round_bf16(drh) : drh;
       float* dst = dcur + s * dstride + j;
       for (int p = 0; p < n_cta; ++p) {
         float* peer = cluster.map_shared_rank(dst, p);
-        peer[0] = dz_pre;
-        peer[u] = dr_pre;
-        peer[2 * u] = drh;
+        peer[0] = dz_pub;
+        peer[u] = dr_pub;
+        peer[2 * u] = drh_pub;
       }
       dhz = d * z;
     }
     cp_async_wait_all();   // h_prev of step t-2, issued a step ago
     cluster_arrive();
     if (t > 0) {
-      product<KC, RM>(pbuf_of(t - 1), u, u, nrows, s, wz, wr, wh, &rz, &rr,
-                      &rh);
+      product<KC, RM, BF16>(pbuf_of(t - 1), u, u, nrows, s, wz, wr, wh, &rz,
+                            &rr, &rh);
       load_inputs(t - 1);
       if (t > 1) {
         prefetch_span(x_proj + ((size_t)(t - 2) * B + row0) * three_u,
@@ -219,19 +231,23 @@ typedef void (*GruBwdKernel)(const float*, const float*, const float*,
                              const float*, const float*, const float*, float*,
                              float*, int, int, int, int, int);
 
-#define GRUB_KERNELS(RM)                                                  \
-  {(const void*)gru_scan_bwd_kernel<1, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<2, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<3, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<4, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<5, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<6, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<7, RM>,                               \
-   (const void*)gru_scan_bwd_kernel<8, RM>}
+#define GRUB_KERNELS(RM, BF16)                                            \
+  {(const void*)gru_scan_bwd_kernel<1, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<2, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<3, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<4, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<5, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<6, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<7, RM, BF16>,                         \
+   (const void*)gru_scan_bwd_kernel<8, RM, BF16>}
 
-// By compiled rows (1, 2, 4, 8) and float4 chunks per lane (1 .. 8).
-static const void* const kKernels[4][GRU_MAX_CHUNKS] = {
-    GRUB_KERNELS(1), GRUB_KERNELS(2), GRUB_KERNELS(4), GRUB_KERNELS(8)};
+// By float32 or bf16, compiled rows (1, 2, 4, 8) and float4 chunks per
+// lane (1 .. 8).
+static const void* const kKernels[2][4][GRU_MAX_CHUNKS] = {
+    {GRUB_KERNELS(1, false), GRUB_KERNELS(2, false), GRUB_KERNELS(4, false),
+     GRUB_KERNELS(8, false)},
+    {GRUB_KERNELS(1, true), GRUB_KERNELS(2, true), GRUB_KERNELS(4, true),
+     GRUB_KERNELS(8, true)}};
 
 // Shared bytes: the units' rows of U, D double-buffered in rows of 3u + 4,
 // h_prev triple-buffered.
@@ -241,22 +257,23 @@ static int smem_of(int u, int m, int rows) {
 
 // The launch plan, as gru_scan_plan (gru_plan in gru_cluster.cuh).
 extern "C" int gru_scan_bwd_plan(int B, int u, int* plan) {
-  return gru_plan(B, u, smem_of, kKernels, plan);
+  return gru_plan(B, u, smem_of, kKernels[0], plan);
 }
 
-// cluster and rows: plan[0] and plan[1] of gru_scan_bwd_plan for B and u.
+// cluster and rows: plan[0] and plan[1] of gru_scan_bwd_plan for B and u;
+// bf16 != 0 launches the bf16 instance.
 extern "C" int gru_scan_bwd_launch(const float* x_proj, const float* U,
                                    const float* rec_bias, const float* h0,
                                    const float* hs, const float* g,
                                    float* streams, float* dh0, int T, int B,
-                                   int u, int cluster, int rows,
+                                   int u, int cluster, int rows, int bf16,
                                    cudaStream_t stream) {
   int kc, m, threads, smem;
   if (T < 1 || !launch_shape(B, u, cluster, rows, smem_of, &kc, &m, &threads,
                              &smem)) {
     return (int)cudaErrorInvalidValue;
   }
-  const void* fn = kKernels[rows_index(rows)][kc - 1];
+  const void* fn = kKernels[bf16 != 0][rows_index(rows)][kc - 1];
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_launch(fn, B, cluster, rows, threads, smem,

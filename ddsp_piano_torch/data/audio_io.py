@@ -1,10 +1,11 @@
-"""Wav reading and writing, resampling and dBFS normalisation (numpy, scipy
-and the stdlib wave module).
+"""Audio reading and writing, resampling and dBFS normalisation (numpy,
+scipy and the stdlib wave module; other formats through ffmpeg).
 
-Copies of read_wav, resample_audio, load_audio_as_signal, write_wav, dbfs
-and normalize_audio from ddsp_piano_tpu/data/audio_io.py. Only wav input
-is read: where the JAX package decodes other formats with ffmpeg, the port
-refuses them.
+Copies of read_wav, resample_audio, decode_audio_ffmpeg,
+load_audio_as_signal, write_wav, dbfs and normalize_audio from
+ddsp_piano_tpu/data/audio_io.py. Wav files are read here; anything else
+(mp3, flac, ogg, ...) is decoded by an ``ffmpeg`` subprocess, which must be
+on PATH.
 """
 
 from __future__ import annotations
@@ -49,21 +50,59 @@ def resample_audio(audio: np.ndarray, orig_rate: int,
                          axis=0).astype(np.float32)
 
 
+def decode_audio_ffmpeg(path: str, sample_rate: int) -> np.ndarray:
+    """Decode any ffmpeg-readable file (mp3/flac/ogg/...) to mono float32
+    in [-1, 1] at ``sample_rate``: one ``ffmpeg`` subprocess streaming raw
+    f32le samples, ffmpeg doing the resample (the reference decodes through
+    pydub, which shells out to ffmpeg: ddsp_piano utils/io_utils.py:50-74).
+    Raises RuntimeError with no ``ffmpeg`` on PATH, on a non-zero exit and
+    on zero decoded samples."""
+    import shutil
+    import subprocess
+
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        raise RuntimeError(
+            f"Cannot decode {path!r}: not a wav file and no `ffmpeg` binary "
+            f"on PATH. Install ffmpeg for mp3/flac/ogg inputs, or convert "
+            f"to wav. (MAESTRO ships wav; this path only serves "
+            f"user-supplied audio.)")
+    proc = subprocess.run(
+        [ffmpeg, '-v', 'error', '-i', path, '-f', 'f32le', '-ac', '1',
+         '-ar', str(int(sample_rate)), 'pipe:1'],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"ffmpeg failed to decode {path!r}: "
+            f"{proc.stderr.decode(errors='replace').strip()}")
+    samples = np.frombuffer(proc.stdout, '<f4').astype(np.float32)
+    if samples.size == 0:
+        raise RuntimeError(
+            f"ffmpeg decoded zero samples from {path!r} (corrupt or empty "
+            f"stream): {proc.stderr.decode(errors='replace').strip()}")
+    # Lossy codecs decode slightly outside [-1, 1]; clip to the range that
+    # load_audio_as_signal promises.
+    return np.clip(samples, -1.0, 1.0)
+
+
 def _is_wav(path: str) -> bool:
-    """RIFF/WAVE header sniff."""
-    with open(path, 'rb') as f:
-        head = f.read(12)
-    return head[:4] == b'RIFF' and head[8:12] == b'WAVE'
+    """RIFF/WAVE header sniff (whatever the extension); False on a file
+    that cannot be read."""
+    try:
+        with open(path, 'rb') as f:
+            head = f.read(12)
+        return head[:4] == b'RIFF' and head[8:12] == b'WAVE'
+    except OSError:
+        return False
 
 
 def load_audio_as_signal(audio_path: str,
                          sample_rate: int = 16000) -> np.ndarray:
-    """Load a wav file as mono float32 at the target sample rate, of length
-    int(duration * sample_rate) (padded or trimmed after resampling)."""
+    """Load audio as mono float32 at the target sample rate. A wav file is
+    read here, at length int(duration * sample_rate) (padded or trimmed
+    after resampling); anything else goes to decode_audio_ffmpeg."""
     if not _is_wav(audio_path):
-        raise ValueError(f"{audio_path!r} is not a wav file: "
-                         "ddsp_piano_torch reads wav only (MAESTRO ships "
-                         "wav); convert other formats first.")
+        return decode_audio_ffmpeg(audio_path, sample_rate)
     data, rate = read_wav(audio_path)
     mono = data.mean(axis=1)
     expected_len = int(len(mono) / rate * sample_rate)

@@ -14,7 +14,9 @@ checkpoints were trained on, so channel-assignment decisions must match:
 
 The per-frame loop is inherently sequential (host CPU); a vectorized fast
 path skips stretches of frames with an unchanged note set, which dominates
-real performances. A copy of the numpy allocator of
+real performances. ``roll_to_conditioning`` runs the C++ allocator
+(ddsp_piano_torch/native) unless asked for this numpy loop, which stays
+the reference for the semantics. A copy of
 ddsp_piano_tpu/data/midi_encoders.py.
 """
 
@@ -25,10 +27,24 @@ from typing import Tuple
 import numpy as np
 
 
-def roll_to_conditioning(roll: np.ndarray, n_synths: int = 16
+def roll_to_conditioning(roll: np.ndarray, n_synths: int = 16,
+                         use_native: str = 'auto'
                          ) -> Tuple[np.ndarray, np.ndarray]:
-    """Allocate a fresh-state pianoroll into monophonic channels (the
-    numpy allocator; the JAX package's C++ allocator is not ported)."""
+    """Allocate a fresh-state pianoroll into monophonic channels.
+
+    ``use_native``: 'auto' runs the C++ allocator (ddsp_piano_torch.native,
+    built at first use), or the numpy loop after a notice on stderr when no
+    C++ compiler is on PATH to build it; 'always' runs the C++ allocator
+    and raises if it cannot be had; 'never' runs the numpy loop. A failed
+    build or load raises in both 'auto' and 'always'.
+    """
+    if use_native not in ('auto', 'always', 'never'):
+        raise ValueError(f"use_native must be 'auto', 'always' or 'never', "
+                         f"got {use_native!r}")
+    if use_native != 'never':
+        from ddsp_piano_torch import native
+        if use_native == 'always' or native.available():
+            return native.allocate_voices(roll, n_synths)
     return MIDIRoll2Conditioning(n_synths)(roll)
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes) is
 compiled on its own by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes
-seconds; the GRU sources, 32 kernel instances each, about half a minute);
+seconds; the GRU sources, 64 kernel instances each (32 float32, 32 bf16),
+about a minute);
 all sources compile in parallel. Outputs go to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -60,7 +61,8 @@ SIGNATURES = {
                                 _P),
     },
     'gru_scan': {
-        'gru_scan_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        'gru_scan_launch': (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P),
         'gru_scan_plan': (_I, _I, _P),
     },
     'oscillator_skip': {
@@ -75,7 +77,7 @@ SIGNATURES = {
     },
     'gru_scan_bwd': {
         'gru_scan_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                _I, _I, _P),
+                                _I, _I, _I, _P),
         'gru_scan_bwd_plan': (_I, _I, _P),
     },
     'oscillator_skip_bwd': {
@@ -101,11 +103,15 @@ KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
 # Launches of each kernel, counted by its wrapper where it launches the
 # kernel and nowhere else (a run shows its path went through the kernels).
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# Of those, the launches of K2's and K5's bf16 instance (the bf16 control
+# networks, nn.layers.enable_bf16_control).
+BF16_LAUNCHES: Dict[str, int] = {'gru_scan': 0, 'gru_scan_bwd': 0}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, BF16_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def nvcc_path() -> str:

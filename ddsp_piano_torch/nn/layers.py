@@ -8,6 +8,10 @@ params pytree maps onto ``named_parameters()`` one to one (params.py).
 Every module with parameters has ``reset_parameters(generator)``: the Keras
 initializers (glorot_uniform, orthogonal, zeros, uniform/normal
 embeddings) drawn from an explicit torch.Generator.
+
+``enable_bf16_control()`` switches the control networks' matmuls (Dense,
+the GRU's input projection and its recurrence) to bfloat16 operands, as
+the JAX package's switch of the same name does; off by default.
 """
 
 from __future__ import annotations
@@ -57,6 +61,31 @@ def glorot_uniform_(tensor: torch.Tensor, generator: torch.Generator):
     return tensor
 
 
+# Opt-in bf16 control networks (ddsp_piano_tpu/nn/layers.py:66-87): the
+# Dense and GRU matmuls take operands rounded to bfloat16. Off by default:
+# the float32 numerics are the Keras ones that the released checkpoints and
+# the tests hold. Read at call time, so it reaches every model built from
+# these layers (renders, streams, serving and training steps); there is no
+# environment variable.
+_BF16_MATMUL = False
+
+
+def enable_bf16_control(enabled: bool = True) -> None:
+    global _BF16_MATMUL
+    _BF16_MATMUL = bool(enabled)
+
+
+def _mm(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """x @ kernel; under the bf16 switch, of the operands rounded to
+    bfloat16, the float32 product rounded once to bfloat16, as jnp.matmul
+    of bfloat16 operands returns it (its gradients then round the same
+    way: the product's cotangent, and each operand's gradient)."""
+    if _BF16_MATMUL:
+        return core.round_bf16(torch.matmul(core.round_bf16(x),
+                                            core.round_bf16(kernel)))
+    return torch.matmul(x, kernel)
+
+
 def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=torch.float32))
 
@@ -83,7 +112,7 @@ class Dense(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        return self.activation(torch.matmul(x, self.kernel) + self.bias)
+        return self.activation(_mm(x, self.kernel) + self.bias)
 
 
 class Activation(nn.Module):
@@ -194,7 +223,8 @@ class GRU(nn.Module):
     """Keras GRU v2 (reset_after=True), gate order [z, r, h].
 
     The input projection of all steps is one matmul; the recurrence goes
-    through kernels.gru.gru_scan (the CUDA kernel on the card).
+    through kernels.gru.gru_scan (the CUDA kernel on the card). Under the
+    bf16 switch both take bfloat16 operands (gru_scan's ``bf16``).
     """
 
     def __init__(self, units: int, in_features: int):
@@ -218,11 +248,12 @@ class GRU(nn.Module):
         ``return_state`` also the final hidden state (batch, units), which
         streaming synthesis carries into the next chunk."""
         b = x.shape[0]
-        x_proj = torch.matmul(x, self.kernel) + self.bias[0]
+        x_proj = _mm(x, self.kernel) + self.bias[0]
         x_proj = x_proj.transpose(0, 1).contiguous()     # (time, batch, 3u)
         h0 = (x.new_zeros((b, self.units)) if initial_state is None
               else initial_state)
-        hs = gru_scan(x_proj, self.recurrent_kernel, self.bias[1], h0)
+        hs = gru_scan(x_proj, self.recurrent_kernel, self.bias[1], h0,
+                      _BF16_MATMUL)
         out = hs.transpose(0, 1)
         if return_state:
             return out, hs[-1]

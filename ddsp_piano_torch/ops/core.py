@@ -34,6 +34,13 @@ def rounded(fn, *args) -> torch.Tensor:
                 for a in args)).float()
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bfloat16 (ties to even), as float32. Its
+    gradient is the incoming gradient rounded the same way, as JAX
+    transposes a convert to bfloat16 and back."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 def midi_to_hz(notes) -> torch.Tensor:
     """MIDI note number to frequency in Hz (A4 = 69 = 440 Hz)."""
     notes = f32(notes)

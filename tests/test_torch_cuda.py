@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
 K1-K3 and K8 (forward), K4-K7 (gradients) and K9 (the voice allocator),
-each with its launch
+K2's and K5's bf16 instances step by step, each with its launch
 counter (K3, K6 and K7 at every edge of their shared plan; K8 at edge
 shapes, and its cosine to 2 ulp), and
 each autograd Function on CUDA tensors against the same Function on CPU
@@ -376,6 +376,40 @@ def test_gru_bwd_kernel_matches_plain(cuda_device, u, B, T):
         # stream's peak.
         assert (a - w).abs().max().item() <= 1e-5 * max(
             1.0, w.abs().max().item()), name
+
+
+# The bf16 instances of K2 and K5 (nn.layers.enable_bf16_control): the
+# paths' widths and rows, one CTA, one step.
+GRU_BF16_CASES = [(64, 1, 60), (64, 6, 60), (192, 16, 60), (192, 96, 60),
+                  (20, 5, 60), (192, 16, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('u,B,T', GRU_BF16_CASES)
+def test_gru_bf16_kernels_match_plain_step_by_step(cuda_device, u, B, T):
+    x_proj, rec, bias, h0, g = _gru_inputs(u, B, T, cuda_device, 0.5)
+    build.reset_launches()
+    hs = tgru.gru_scan_cuda(x_proj, rec, bias, h0, True)
+    streams = tgru.gru_scan_bwd_cuda(x_proj, rec, bias, h0, hs, g, True)
+    torch.cuda.synchronize()
+    for kernel in ('gru_scan', 'gru_scan_bwd'):
+        assert build.LAUNCHES[kernel] == build.BF16_LAUNCHES[kernel] == 1
+    # Each step against the bf16 plain version's step from the kernel's
+    # own earlier ones (a whole run drifts further, as the plain version
+    # does between the card and the CPU: a state an ulp apart rounds to
+    # bf16 values 2^-8 apart now and then).
+    want = tgru.gru_scan_plain_steps(x_proj, rec, bias, h0, hs, True)
+    assert (hs - want).abs().max().item() <= 1e-5
+    want = tgru.gru_scan_plain_bwd_steps(x_proj, rec, bias, h0, hs, g,
+                                         streams, True)
+    for name, a, w in zip(('dxz', 'dxr', 'dxh', 'drh', 'dh0'), streams,
+                          want):
+        assert (a - w).abs().max().item() <= 1e-5 * max(
+            1.0, w.abs().max().item()), name
+    # The float32 instance's steps are not the bf16 plain version's.
+    f32 = tgru.gru_scan_cuda(x_proj, rec, bias, h0)
+    assert (f32 - tgru.gru_scan_plain_steps(
+        x_proj, rec, bias, h0, f32, True)).abs().max().item() > 1e-4
 
 
 @pytest.mark.cuda

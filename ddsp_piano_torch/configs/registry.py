@@ -66,11 +66,14 @@ def get_model(config: str = 'maestro_v2', inference: bool = False,
     Keras-style initial weights from
     ``seed`` and move it to ``device`` (default ``cuda``; raises when CUDA
     is missing, unless device='cpu'). ``overrides`` go to the config's
-    builder, e.g. ``oscillator='full'`` for the all-partials oscillator."""
+    builder, e.g. ``oscillator='full'`` for the all-partials oscillator.
+    With tracing on, the span ``setup.model``."""
+    from ddsp_piano_torch import tracing
     from ddsp_piano_torch.nn import init_weights
 
-    device = resolve_device(device)
-    model = _build(config, inference=inference, duration=duration,
-                   **overrides)
-    init_weights(model, seed)
-    return model.to(device).eval()
+    with tracing.span('setup.model'):
+        device = resolve_device(device)
+        model = _build(config, inference=inference, duration=duration,
+                       **overrides)
+        init_weights(model, seed)
+        return model.to(device).eval()

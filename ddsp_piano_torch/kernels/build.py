@@ -33,6 +33,8 @@ import tempfile
 from pathlib import Path
 from typing import Dict
 
+from ddsp_piano_torch import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_ROOT = Path(__file__).resolve().parents[2] / 'build' / 'kernels'
 
@@ -201,13 +203,16 @@ def build_report(name: str) -> str:
 
 @functools.lru_cache(maxsize=None)
 def library(name: str) -> ctypes.CDLL:
-    """The built library of one source, with argtypes/restype declared."""
-    build_all()
-    lib = ctypes.CDLL(str(_build_dir() / f'lib{name}.so'))
-    for fn_name, argtypes in SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+    """The built library of one source, with argtypes/restype declared.
+    With tracing on, its first call for a source is the span
+    ``kernels.load`` (the build of whatever is missing, and the load)."""
+    with tracing.span('kernels.load'):
+        build_all()
+        lib = ctypes.CDLL(str(_build_dir() / f'lib{name}.so'))
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     return lib
 
 

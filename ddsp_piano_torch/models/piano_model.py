@@ -14,6 +14,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 from torch import nn
 
+from ddsp_piano_torch import tracing
 from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
 from ddsp_piano_torch.models.losses import Loss
 from ddsp_piano_torch.models.sub_modules import (InharmonicityNetwork,
@@ -152,26 +153,35 @@ class PianoModel(nn.Module):
         {'signal'} (the dry stem) and, in training, 'losses'.
         ``use_sequential_dag`` renders a folded-voice group through its
         per-voice DAG (piano_model.py:212-222); the noise draw is split by
-        voice (processors.base)."""
-        features = dict(features)
-        batch_size = features['conditioning'].shape[0]
-        features = self._apply_slots(self.GLOBAL_SLOTS, features)
-        features = self.parallelizer.parallelize(features)
-        features = self._apply_slots(self.MONO_SLOTS, features)
-        features = self.parallelizer.unparallelize(features, batch_size)
-        group = self.processor_group
-        if use_sequential_dag and isinstance(
-                group, VectorizedPolyphonicProcessorGroup):
-            group = group.as_sequential_group()
-        if isinstance(group, ProcessorGroup):
-            features = self.parallelizer.voice_views(features)
-        pg_out = group(features, noise=noise, generator=generator)
-        outputs = pg_out['controls']
-        outputs['audio_synth'] = pg_out['signal']
-        if training:
-            losses = {loss.name: loss.compute(outputs)
-                      for loss in self.loss_objs}
-            losses['regularization_loss'] = self.regularization_loss()
-            losses['total_loss'] = sum(losses.values())
-            outputs['losses'] = losses
-        return outputs
+        voice (processors.base). With tracing on: the span
+        ``model.forward``, and in it ``model.networks`` (the slots, with
+        parallelize and unparallelize), ``model.synthesis`` (the processor
+        group) and, in training, ``model.losses``."""
+        with tracing.span('model.forward'):
+            with tracing.span('model.networks'):
+                features = dict(features)
+                batch_size = features['conditioning'].shape[0]
+                features = self._apply_slots(self.GLOBAL_SLOTS, features)
+                features = self.parallelizer.parallelize(features)
+                features = self._apply_slots(self.MONO_SLOTS, features)
+                features = self.parallelizer.unparallelize(features,
+                                                           batch_size)
+            with tracing.span('model.synthesis'):
+                group = self.processor_group
+                if use_sequential_dag and isinstance(
+                        group, VectorizedPolyphonicProcessorGroup):
+                    group = group.as_sequential_group()
+                if isinstance(group, ProcessorGroup):
+                    features = self.parallelizer.voice_views(features)
+                pg_out = group(features, noise=noise, generator=generator)
+            outputs = pg_out['controls']
+            outputs['audio_synth'] = pg_out['signal']
+            if training:
+                with tracing.span('model.losses'):
+                    losses = {loss.name: loss.compute(outputs)
+                              for loss in self.loss_objs}
+                    losses['regularization_loss'] = \
+                        self.regularization_loss()
+                    losses['total_loss'] = sum(losses.values())
+                outputs['losses'] = losses
+            return outputs

@@ -27,8 +27,14 @@ batch goes to the card: 'packed' (one pinned copy of 16-bit wire lanes,
 decoded on the card bit-exactly), 'packed32' (the same with exact 32-bit
 lanes) or 'dict' (one copy a key); all three give the same numbers.
 --profile N writes a Chrome trace of N steps (after one untraced step)
-into <exp_dir>/phase_<N>/profile/trace.json. --debug_nans traps a
-non-finite value in the module (or backward function) that makes it.
+into <exp_dir>/phase_<N>/profile/trace.json, with the program's spans
+(ddsp_piano_torch.tracing) on: in Perfetto each step's ``train.step``,
+the next batch's ``train.stage``, and in the step ``train.forward``
+(``model.forward``: ``model.networks``, ``model.synthesis``,
+``model.losses``), ``train.backward``, ``train.reduce`` and
+``train.update`` lie over the host's operators and, on a card, the
+kernels they launched. --debug_nans traps a non-finite value in the
+module (or backward function) that makes it.
 
 Data parallelism (parallel/mesh.py): --batch_size is the global batch,
 and the run takes the largest number of cards up to --n_devices (default:
@@ -111,8 +117,9 @@ def process_args(argv=None):
                              "three give the same numbers.")
     parser.add_argument('--profile', type=int, default=0, metavar='N',
                         help="Write a torch.profiler Chrome trace of N "
-                             "training steps into <exp_dir>/phase_<N>/"
-                             "profile/trace.json, then train normally.")
+                             "training steps, with the program's spans, "
+                             "into <exp_dir>/phase_<N>/profile/trace.json, "
+                             "then train normally.")
     parser.add_argument('--debug_nans', action='store_true',
                         help="Trap a non-finite value in the module or "
                              "backward function that makes it (slower; "

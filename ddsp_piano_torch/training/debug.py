@@ -4,9 +4,12 @@ Counterparts of ddsp_piano_tpu/utils/jax_setup.py's profile_trace and
 enable_debug_nans:
 
 - :func:`profile_trace` records the steps run under it with torch.profiler
-  (host operators, and the device's kernels and copies on a card) and
-  writes a Chrome trace, ``trace.json``, into its directory. The trace
-  opens in Perfetto or chrome://tracing; no TensorBoard plugin is needed.
+  (host operators, and the device's kernels and copies on a card), with
+  the program's spans on (ddsp_piano_torch.tracing: ``train.step``,
+  ``train.stage``, ``model.forward`` ...), and writes a Chrome trace,
+  ``trace.json``, into its directory. The trace opens in Perfetto or
+  chrome://tracing, the spans over the kernels; no TensorBoard plugin is
+  needed.
 - :func:`enable_debug_nans` traps a non-finite value where it is made: a
   forward hook on every submodule raises FloatingPointError naming the
   first module (the innermost, as hooks run when a module returns) whose
@@ -24,13 +27,16 @@ from typing import Iterator, List
 
 import torch
 
+from ddsp_piano_torch import tracing
+
 TRACE_NAME = 'trace.json'
 
 
 @contextlib.contextmanager
 def profile_trace(logdir: str, device: torch.device) -> Iterator[str]:
-    """Profile the block into ``<logdir>/trace.json``; yields the trace's
-    path. Records the device's activity when ``device`` is a card."""
+    """Profile the block, with tracing on, into ``<logdir>/trace.json``;
+    yields the trace's path. Records the device's activity when ``device``
+    is a card."""
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(logdir, exist_ok=True)
@@ -39,9 +45,13 @@ def profile_trace(logdir: str, device: torch.device) -> Iterator[str]:
     if torch.device(device).type == 'cuda':
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        yield path
-        if torch.device(device).type == 'cuda':
-            torch.cuda.synchronize(device)
+        tracing.enable()
+        try:
+            yield path
+            if torch.device(device).type == 'cuda':
+                torch.cuda.synchronize(device)
+        finally:
+            tracing.disable()
     prof.export_chrome_trace(path)
 
 

@@ -43,7 +43,13 @@ Counterpart of ddsp_piano_tpu/training/trainer.py (:160-260 and
   and an injected ``noise=`` is the global batch's draw, of which the
   Trainer keeps the rank's rows. validation_step gathers the audio rows
   to every rank. With one rank in a group, the reduce is a sum over one
-  rank divided by 1: the single-process step bit for bit.
+  rank divided by 1: the single-process step bit for bit;
+- with tracing on (ddsp_piano_torch.tracing), a step is a unit of spans
+  (:meth:`Trainer.train_step`), and the staging of its batch joins it;
+  the timeline of ``record_timeline`` is the CUDA events of its spans
+  ``train.forward``, ``train.backward``, ``train.update`` and
+  ``train.reduce`` (:attr:`Trainer.timeline`, :meth:`Trainer.step_times`,
+  :meth:`Trainer.reduce_times`).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ddsp_piano_torch import tracing
 from ddsp_piano_torch.parallel import mesh
 from ddsp_piano_torch.training.checkpoints import (CKPT_NAME,
                                                    import_tf_weights,
@@ -157,11 +164,11 @@ class Trainer:
         self.nan_check_interval = max(1, int(nan_check_interval))
         self._pending = []
         self._ring = [None] * (self.nan_check_interval + 1)
-        # CUDA events (start, after forward, after backward, after the
-        # update) of every step, when asked for: device-side phase times;
-        # in a process group also each reduce's (start, end).
-        self.timeline = [] if record_timeline else None
-        self.reduce_timeline = [] if record_timeline else None
+        # With record_timeline, the spans of every step's forward,
+        # backward and update and of each reduce, with their CUDA events
+        # on a card (timeline, step_times, reduce_times).
+        self._timeline = (tracing.Recorder(self.device.type == 'cuda')
+                          if record_timeline else None)
         # In a process group: the ranks, and the bytes each step's reduce
         # sums.
         self.distributed = mesh.in_group()
@@ -196,7 +203,8 @@ class Trainer:
                if k != 'filename'):
             return {k: v.to(self.device) for k, v in batch.items()
                     if k != 'filename'}
-        return self.stage(batch)
+        with tracing.span('train.stage'):
+            return self.stage(batch)
 
     def _rank_noise(self, batch, noise, generator):
         """In a process group: this rank's rows of an injected global draw
@@ -215,25 +223,26 @@ class Trainer:
 
     def forward_backward(self, batch, noise: Optional[torch.Tensor] = None,
                          generator: Optional[torch.Generator] = None,
-                         events=None) -> Dict[str, torch.Tensor]:
+                         into: Optional[tracing.Recorder] = None
+                         ) -> Dict[str, torch.Tensor]:
         """Losses of one batch, with the gradient of total_loss in each
         trainable parameter's .grad (no backward when none is trainable).
         ``noise`` injects the noise synth's uniform draw (tests hand both
         sides the same draw). In a process group, the gradients and the
-        losses are those of the global batch (one all-reduce)."""
-        batch = self._as_device_batch(batch)
-        noise, generator = self._rank_noise(batch, noise, generator)
-        if self.optimizer is not None:
-            self.optimizer.zero_grad(set_to_none=True)
-        outputs = self.model(batch, noise=noise, generator=generator,
-                             training=True)
-        losses = outputs['losses']
-        if events is not None:
-            events[1].record()
-        if self.optimizer is not None:
-            losses['total_loss'].backward()
-        if events is not None:
-            events[2].record()
+        losses are those of the global batch (one all-reduce). ``into``
+        (a step's timeline) takes the spans ``train.forward`` (the batch
+        onto the device and the forward, to the losses) and
+        ``train.backward``."""
+        with tracing.span('train.forward', into=into):
+            batch = self._as_device_batch(batch)
+            noise, generator = self._rank_noise(batch, noise, generator)
+            if self.optimizer is not None:
+                self.optimizer.zero_grad(set_to_none=True)
+            losses = self.model(batch, noise=noise, generator=generator,
+                                training=True)['losses']
+        with tracing.span('train.backward', into=into):
+            if self.optimizer is not None:
+                losses['total_loss'].backward()
         losses = {k: v.detach() for k, v in losses.items()}
         if self.distributed:
             losses = self.all_reduce_step(losses)
@@ -251,15 +260,9 @@ class Trainer:
         buffer = torch.cat([g.reshape(-1) for g in grads]
                            + [losses[k].reshape(1).float() for k in keys])
         self.reduce_bytes = buffer.numel() * buffer.element_size()
-        events = None
-        if self.reduce_timeline is not None and self.device.type == 'cuda':
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            events[0].record()
-        dist.all_reduce(buffer)
-        buffer.div_(self.world)
-        if events is not None:
-            events[1].record()
-            self.reduce_timeline.append(events)
+        with tracing.span('train.reduce', into=self._timeline):
+            dist.all_reduce(buffer)
+            buffer.div_(self.world)
         offset = 0
         for p in self.params:
             p.grad = buffer[offset:offset + p.numel()].view_as(p)
@@ -293,18 +296,11 @@ class Trainer:
               ) -> Dict[str, torch.Tensor]:
         """One optimization step with the noise draw of step self.step,
         without the NaN guard."""
-        events = None
-        if self.timeline is not None and self.device.type == 'cuda':
-            events = [torch.cuda.Event(enable_timing=True)
-                      for _ in range(4)]
-            events[0].record()
         losses = self.forward_backward(
             batch, noise=noise, generator=self.noise_generator(self.step),
-            events=events)
-        self.apply_gradients()
-        if events is not None:
-            events[3].record()
-            self.timeline.append(events)
+            into=self._timeline)
+        with tracing.span('train.update', into=self._timeline):
+            self.apply_gradients()
         self.step += 1
         return losses
 
@@ -319,12 +315,20 @@ class Trainer:
     def train_step(self, batch, noise: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
         """One optimization step; returns the losses as device scalars
-        (reading one waits for the step)."""
+        (reading one waits for the step). With tracing on, the span
+        ``train.step`` (a unit, numbered by the step) holds the NaN ring's
+        snapshot and the NaN guard (``train.update``), the forward
+        (``train.forward``), the backward (``train.backward``), in a
+        process group the reduce (``train.reduce``), and the clip and Adam
+        (``train.update``)."""
         step = self.step
-        slot = step % len(self._ring)
-        self._snapshot(slot)
-        losses = self._step(batch, noise=noise)
-        self._guard(step, losses, slot)
+        with tracing.span('train.step', unit=step):
+            slot = step % len(self._ring)
+            with tracing.span('train.update'):
+                self._snapshot(slot)
+            losses = self._step(batch, noise=noise)
+            with tracing.span('train.update'):
+                self._guard(step, losses, slot)
         return losses
 
     def train_steps(self, batches) -> Dict[str, torch.Tensor]:
@@ -335,7 +339,8 @@ class Trainer:
         losses and parameters are those of K single steps. Returns each
         loss as a ``(K,)`` device tensor. The NaN guard takes the block as
         one entry: a non-finite loss anywhere in it raises NanLossError
-        with the state from before the block."""
+        with the state from before the block. The block is one unit of
+        spans, numbered by its first step, as in train_step."""
         if isinstance(batches, (list, tuple)):
             items = list(batches)
         elif isinstance(batches, torch.Tensor):
@@ -344,12 +349,15 @@ class Trainer:
             items = [{k: v[i] for k, v in batches.items()}
                      for i in range(len(next(iter(batches.values()))))]
         step = self.step
-        slot = step % len(self._ring)
-        self._snapshot(slot)
-        per_step = [self._step(item) for item in items]
-        losses = {k: torch.stack([s[k] for s in per_step])
-                  for k in per_step[0]}
-        self._guard(step, losses, slot)
+        with tracing.span('train.step', unit=step):
+            slot = step % len(self._ring)
+            with tracing.span('train.update'):
+                self._snapshot(slot)
+            per_step = [self._step(item) for item in items]
+            losses = {k: torch.stack([s[k] for s in per_step])
+                      for k in per_step[0]}
+            with tracing.span('train.update'):
+                self._guard(step, losses, slot)
         return losses
 
     def check_pending(self) -> None:
@@ -485,6 +493,12 @@ class Trainer:
         return self.stage({k: np.stack([np.asarray(b[k]) for b in batches])
                            for k in batches[0] if k != 'filename'})
 
+    def _staged(self, stage, batch):
+        """``stage(batch)`` in the span ``train.stage``, a span of the unit
+        of the step it feeds (the Trainer's next step)."""
+        with tracing.span('train.stage', unit=self.step):
+            return stage(batch)
+
     def device_prefetch(self, iterator: Iterable, packed: bool = False
                         ) -> Iterator:
         """Yield device batches (packed lane tensors with ``packed``, else
@@ -493,14 +507,14 @@ class Trainer:
         stage = self.pack_batch if packed else self.stage
         it = iter(iterator)
         try:
-            staged = stage(next(it))
+            staged = self._staged(stage, next(it))
         except StopIteration:
             return
         while True:
             current = staged
             yield current
             try:
-                staged = stage(next(it))
+                staged = self._staged(stage, next(it))
             except StopIteration:
                 return
 
@@ -516,25 +530,41 @@ class Trainer:
             block = list(itertools.islice(it, k))
             if len(block) < k:
                 return
-            yield stage(block)
+            yield self._staged(stage, block)
+
+    @property
+    def timeline(self):
+        """[start, after the forward, after the backward, after the update]
+        CUDA events of every recorded step (the ends of its spans
+        train.forward, train.backward and train.update); None without
+        record_timeline, empty off a card."""
+        if self._timeline is None:
+            return None
+        return [[f.events[0], f.events[1], b.events[1], u.events[1]]
+                for f, b, u in zip(self._timeline.named('train.forward'),
+                                   self._timeline.named('train.backward'),
+                                   self._timeline.named('train.update'))]
 
     def step_times(self):
         """[(total, forward, backward, update) ms] of every recorded step,
         from its CUDA events."""
-        if not self.timeline:
+        timeline = self.timeline
+        if not timeline:
             return []
-        self.timeline[-1][3].synchronize()
+        timeline[-1][3].synchronize()
         return [(e[0].elapsed_time(e[3]), e[0].elapsed_time(e[1]),
                  e[1].elapsed_time(e[2]), e[2].elapsed_time(e[3]))
-                for e in self.timeline]
+                for e in timeline]
 
     def reduce_times(self):
         """ms of every recorded step's all-reduce (a process group on a
-        card), from its CUDA events."""
-        if not self.reduce_timeline:
+        card), from the CUDA events of its span train.reduce."""
+        reduces = self._timeline.named('train.reduce') \
+            if self._timeline is not None else []
+        if not reduces:
             return []
-        self.reduce_timeline[-1][1].synchronize()
-        return [e[0].elapsed_time(e[1]) for e in self.reduce_timeline]
+        reduces[-1].events[1].synchronize()
+        return [s.events[0].elapsed_time(s.events[1]) for s in reduces]
 
     # -- snapshots and checkpoints --------------------------------------------
 

@@ -7,7 +7,8 @@ _write_mini_maestro, cached by the port's preprocess CLI). Each flag's
 losses and final parameters are held bit-equal to those of the default
 path (K = 1, --staging packed): -k 4 against 4 single steps, the three
 stagings against one another, the profiled run against the default run
-with the profiled steps added, --debug_nans against the run without it.
+with the profiled steps added (its trace holding the program's spans),
+--debug_nans against the run without it.
 """
 
 import json
@@ -24,6 +25,8 @@ torch.set_num_threads(1)
 threadpoolctl.threadpool_limits(1)
 
 from test_torch_training import _write_mini_maestro  # noqa: E402
+
+from ddsp_piano_torch import tracing  # noqa: E402
 
 SEGMENT_SECONDS = 1.0
 SMALL = dict(n_synths=4, n_harmonics=16)
@@ -117,6 +120,11 @@ def test_train_cli_flag_matches_default_path(cache, small, tmp_path,
         with open(path) as f:
             events = json.load(f)['traceEvents']
         assert any(e.get('name', '').startswith('aten::') for e in events)
+        # The program's spans, turned on for the profiled steps only.
+        assert {'train.step', 'train.stage', 'train.forward',
+                'model.forward', 'train.backward', 'train.update'} <= {
+                    e.get('name') for e in events}
+        assert not tracing.enabled()
     assert os.path.isfile(os.path.join(exp, 'phase_1', 'last_iter',
                                        'ckpt.pt'))
 

@@ -610,7 +610,10 @@ def _copy(args):
 @contextlib.contextmanager
 def capturing(capture, doors=FRONT_DOORS):
     """Record the inputs of every front door in ``doors``, by kernel name,
-    in the dict ``capture`` (None records nothing)."""
+    in the dict ``capture`` (None records nothing). Calls made while a
+    CUDA graph is captured (the Trainer's step graphs) run nothing and are
+    not recorded: a Trainer's first step on a card records the eager
+    warm-up's calls, and its replays call no front door."""
     patched = []
     doors = doors if capture is not None else ()
     for module_name, attr, kernel in doors:
@@ -618,7 +621,9 @@ def capturing(capture, doors=FRONT_DOORS):
         original = getattr(module, attr)
 
         def recorder(*args, _original=original, _kernel=kernel):
-            capture.setdefault(_kernel, []).append(_copy(args))
+            if not (torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                capture.setdefault(_kernel, []).append(_copy(args))
             return _original(*args)
 
         setattr(module, attr, recorder)

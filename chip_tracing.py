@@ -24,10 +24,12 @@ After the warm-up the script measures, in turn:
   device alone, tracing on: its pace and idle share; the card's idle
   time a unit by the innermost span open at each instant
   (``tracing.idle_by_span``), summed into the layers of PERF.md's
-  "Tracing" table; the kernel launches and the spans a unit; the share
-  of the launch calls that fall inside a unit's root spans
-  (``serve.request``; ``train.step`` or ``train.stage``), which shows the
-  spans and the profile on one clock.
+  "Tracing" table; the kernel and graph launches and the spans a unit;
+  in a training cell the share of its steps replayed from the step's
+  CUDA graphs (``Trainer.graph_replays``); the share of the launch calls
+  that fall inside a unit's root spans (``serve.request``; ``train.step``
+  or ``train.stage``), which shows the spans and the profile on one
+  clock.
 
 First, one line of the host microseconds an empty span costs, tracing
 off and on. Then one JSON line a cell goes to standard output and to
@@ -116,6 +118,7 @@ def train_cell(cell, seed, device):
         trainer.train_step(next(feed), noise=noises[trainer.step
                                                     % len(noises)])
 
+    unit.trainer = trainer
     return unit
 
 
@@ -219,9 +222,13 @@ def measure(name, seed, seconds, repeats, n_units, device):
     out['host_profiled_idle_pct'] = 100.0 * idle_share(busy, window)
     del prof
 
+    trainer = getattr(unit, 'trainer', None)
+    replays = trainer.graph_replays if trainer is not None else 0
     recorder = tracing.enable()
     prof, window, rate = profiled(unit, n_units, device, card or host)
     tracing.disable()
+    if trainer is not None:
+        out['replay_share'] = (trainer.graph_replays - replays) / n_units
     busy, launches = tracing.profile_activity(prof)
     spans = [s for s in recorder.spans
              if s.end_ns > window[0] and s.start_ns < window[1]]

@@ -16,7 +16,10 @@ compiles and the others wait for it and then find the libraries built.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 a non-zero code. Kernels launch on ``torch.cuda.current_stream()`` and
-allocate nothing: the wrappers allocate outputs with ``torch.empty``.
+allocate nothing: the wrappers allocate outputs with ``torch.empty``, so a
+CUDA graph can capture them. ``LAUNCHES`` counts the launches the card
+ran: a wrapper counts each call, and a capture's calls are taken back out
+and added again for each replay of its graph.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 from ddsp_piano_torch import tracing
 
@@ -102,18 +105,47 @@ KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
            'oscillator_skip_bwd', 'gru_scan_bwd', 'note_release_res',
            'note_release_bwd', 'oscillator_full', 'voice_allocator')
 
-# Launches of each kernel, counted by its wrapper where it launches the
-# kernel and nowhere else (a run shows its path went through the kernels).
+# Launches of each kernel that the card ran (a run shows its path went
+# through the kernels). A wrapper counts its launch where it launches the
+# kernel and nowhere else. Under CUDA graph capture a wrapper's launch runs
+# nothing: whoever captures takes the capture's counts back out
+# (take_launches) and adds them once for each replay of the graph
+# (add_launches), as the training step's graphs do
+# (training/trainer.py).
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 # Of those, the launches of K2's and K5's bf16 instance (the bf16 control
 # networks, nn.layers.enable_bf16_control).
 BF16_LAUNCHES: Dict[str, int] = {'gru_scan': 0, 'gru_scan_bwd': 0}
+
+# A copy of both counters: (LAUNCHES, BF16_LAUNCHES).
+Counts = Tuple[Dict[str, int], Dict[str, int]]
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, BF16_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def launch_counts() -> Counts:
+    """A copy of LAUNCHES and BF16_LAUNCHES."""
+    return dict(LAUNCHES), dict(BF16_LAUNCHES)
+
+
+def take_launches(since: Counts) -> Counts:
+    """Take the launches counted after ``since`` (launch_counts) back out
+    of the counters, and return them."""
+    taken = tuple({k: counts[k] - before.get(k, 0) for k in counts}
+                  for counts, before in zip((LAUNCHES, BF16_LAUNCHES), since))
+    add_launches(taken, -1)
+    return taken
+
+
+def add_launches(counts: Counts, times: int = 1) -> None:
+    """Add ``times`` x ``counts`` (take_launches) to the counters."""
+    for total, part in zip((LAUNCHES, BF16_LAUNCHES), counts):
+        for k, n in part.items():
+            total[k] += times * n
 
 
 def nvcc_path() -> str:

@@ -75,6 +75,11 @@ def enable_bf16_control(enabled: bool = True) -> None:
     _BF16_MATMUL = bool(enabled)
 
 
+def bf16_control() -> bool:
+    """Whether the bf16 control networks are on."""
+    return _BF16_MATMUL
+
+
 def _mm(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     """x @ kernel; under the bf16 switch, of the operands rounded to
     bfloat16, the float32 product rounded once to bfloat16, as jnp.matmul

@@ -66,6 +66,16 @@ def _decay(delay_sec: torch.Tensor, t60: torch.Tensor) -> torch.Tensor:
         delay_sec.dtype)
 
 
+def _prod_last(x: torch.Tensor) -> torch.Tensor:
+    """The product over the last axis, multiplied out in order: the
+    gradient of torch.prod reads on the host whether a factor is zero, which
+    a CUDA graph of the training step cannot capture."""
+    out = x[..., 0]
+    for i in range(1, x.shape[-1]):
+        out = out * x[..., i]
+    return out
+
+
 def fdn_late_ir(params: FDNParams, sample_rate: float,
                 delay_values: Optional[torch.Tensor] = None,
                 freq_points: Optional[int] = None,
@@ -107,7 +117,7 @@ def fdn_late_ir(params: FDNParams, sample_rate: float,
     ga = _c64(params.gain_allpass)[:, None]                    # (b,1,L,ap)
     da = _c64(params.delays_allpass)[:, None]
     z_ap = torch.exp(iwk[None, :, None, None] * da)            # (b,bins,L,ap)
-    ap = torch.prod((1.0 + ga * z_ap) / (ga + z_ap), dim=-1)   # (b,bins,L)
+    ap = _prod_last((1.0 + ga * z_ap) / (ga + z_ap))           # (b,bins,L)
 
     g_in = _c64(params.input_gain)[:, None, :]                 # (b, 1, L)
     g_out = _c64(params.output_gain)[:, None, :]

@@ -42,10 +42,11 @@ import threading
 import time
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-# Runtime calls that launch a kernel, as the profiler names them.
+# Runtime calls that launch a kernel or a CUDA graph (the training step's
+# replays), as the profiler names them.
 LAUNCH_CALLS = frozenset(('cudaLaunchKernel', 'cudaLaunchKernelExC',
                           'cudaLaunchCooperativeKernel', 'cuLaunchKernel',
-                          'cuLaunchKernelEx'))
+                          'cuLaunchKernelEx', 'cudaGraphLaunch'))
 CALLER = 'caller'
 
 

@@ -44,6 +44,26 @@ Counterpart of ddsp_piano_tpu/training/trainer.py (:160-260 and
   Trainer keeps the rank's rows. validation_step gathers the audio rows
   to every rank. With one rank in a group, the reduce is a sum over one
   rank divided by 1: the single-process step bit for bit;
+- on a card, outside a process group, in a phase with an optimizer and
+  with autograd's anomaly mode off (its checks read each gradient on the
+  host), :meth:`Trainer.train_step` and :meth:`Trainer.train_steps` replay
+  each step from three CUDA graphs in one memory pool, captured before the
+  first step of each input signature (the staged batch's shapes and
+  dtypes, the injected noise's shape and the bf16 switch; the latest
+  MAX_GRAPH_SIGNATURES are kept), after one eager forward and backward
+  on the capture's stream whose gradients are dropped: the forward
+  (unpacking the batch, the forward and the losses), the backward (the
+  gradients into static .grad tensors) and the update (the clip and
+  Adam, which keeps its state on the device, ``capturable``). The step's
+  kernels and their order are the eager step's; the host launches three
+  graphs instead of each kernel. Before a replay the batch and an
+  injected draw are copied into the graphs' inputs; else the generator
+  registered with the forward graph is seeded from the step, as
+  noise_generator(step) is. The losses returned are copied out of the
+  graph's. ``graph_captures``, ``graph_replays`` and ``eager_steps``
+  count the captures and the steps of each path. A replay does not see a
+  change of the model's Python attributes (a loss weight) made after its
+  capture. Everywhere else the step runs eagerly, with the same kernels;
 - with tracing on (ddsp_piano_torch.tracing), a step is a unit of spans
   (:meth:`Trainer.train_step`), and the staging of its batch joins it;
   the timeline of ``record_timeline`` is the CUDA events of its spans
@@ -57,6 +77,7 @@ from __future__ import annotations
 import itertools
 import logging
 import os
+import warnings
 from typing import Any, Dict, Iterable, Iterator, Optional
 
 import numpy as np
@@ -64,6 +85,8 @@ import torch
 import torch.distributed as dist
 
 from ddsp_piano_torch import tracing
+from ddsp_piano_torch.kernels import build
+from ddsp_piano_torch.nn import layers
 from ddsp_piano_torch.parallel import mesh
 from ddsp_piano_torch.training.checkpoints import (CKPT_NAME,
                                                    import_tf_weights,
@@ -75,6 +98,11 @@ log = logging.getLogger(__name__)
 _STAGED_DTYPES = {np.dtype(np.float32): torch.float32,
                   np.dtype(np.int32): torch.int32,
                   np.dtype(np.int16): torch.int16}
+
+
+# The input signatures whose step graphs a Trainer keeps (a step of
+# another signature drops the oldest).
+MAX_GRAPH_SIGNATURES = 2
 
 
 class NanLossError(RuntimeError):
@@ -132,6 +160,34 @@ class BatchStager:
         return {k: self._one(k, a) for k, a in arrays.items()}
 
 
+class _StepGraphs:
+    """The captured step of one input signature: its static inputs (the
+    staged lanes or batch dict; the injected noise, or None where the
+    forward draws it), the graphs ``forward``, ``backward`` and
+    ``update``, the losses' keys and their stacked static values, the
+    static gradients and the kernel launches (build.take_launches) of one
+    replay of the three."""
+
+    __slots__ = ('inputs', 'noise', 'forward', 'backward', 'update', 'keys',
+                 'losses', 'grads', 'launches')
+
+
+def _init_adam_state(optimizer: torch.optim.Adam) -> None:
+    """Adam's state as its first step would make it, for each parameter
+    without one (a graph captured over that first step would make it
+    anew on every replay)."""
+    for group in optimizer.param_groups:
+        for p in group['params']:
+            state = optimizer.state[p]
+            if not state:
+                state['step'] = torch.zeros((), dtype=torch.float32,
+                                            device=p.device)
+                state['exp_avg'] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+                state['exp_avg_sq'] = torch.zeros_like(
+                    p, memory_format=torch.preserve_format)
+
+
 class Trainer:
     """Adam trainer for a PianoModel whose parameters live on its device."""
 
@@ -174,21 +230,42 @@ class Trainer:
         self.distributed = mesh.in_group()
         self.world = mesh.world_size()
         self.reduce_bytes = 0
+        # The step's CUDA graphs by input signature, oldest first; their
+        # memory pool, capture stream and registered noise generator; and
+        # how often each path of the step ran.
+        self._graphs: Dict[tuple, _StepGraphs] = {}
+        self._graph_pool = None
+        self._graph_stream = None
+        self._graph_generator = None
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self.eager_steps = 0
         self.distribute_state()
 
     def _make_optimizer(self) -> Optional[torch.optim.Adam]:
-        """Adam over the trainable parameters; None when there is none."""
+        """Adam over the trainable parameters; None when there is none. On
+        a card it keeps its step count on the device (``capturable``) and
+        its state is made here, so that a CUDA graph can replay its
+        update."""
         if not self.params:
             return None
-        return torch.optim.Adam(self.params, lr=self.learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8)
+        capturable = self.device.type == 'cuda'
+        optimizer = torch.optim.Adam(self.params, lr=self.learning_rate,
+                                     betas=(0.9, 0.999), eps=1e-8,
+                                     capturable=capturable)
+        if capturable:
+            _init_adam_state(optimizer)
+        return optimizer
 
     # -- steps --------------------------------------------------------------
+
+    def _noise_seed(self, step: int) -> int:
+        return (self.seed << 32) + 17 * (1 << 24) + int(step)
 
     def noise_generator(self, step: int) -> torch.Generator:
         """The noise synth's generator for one step, on the device."""
         return torch.Generator(device=self.device).manual_seed(
-            (self.seed << 32) + 17 * (1 << 24) + int(step))
+            self._noise_seed(step))
 
     def _as_device_batch(self, batch):
         """A host batch dict, a dict of tensors or a packed ``(b, width)``
@@ -290,19 +367,177 @@ class Trainer:
         if self.optimizer is None:
             return
         self.clip_gradients()
-        self.optimizer.step()
+        with warnings.catch_warnings():
+            # A capturable Adam stepped eagerly (a process group's step,
+            # one composed from forward_backward) warns once that it runs
+            # uncaptured: it runs the kernels of its graph.
+            warnings.filterwarnings('ignore', message='This instance was '
+                                    'constructed with capturable=True')
+            self.optimizer.step()
 
     def _step(self, batch, noise: Optional[torch.Tensor] = None
               ) -> Dict[str, torch.Tensor]:
         """One optimization step with the noise draw of step self.step,
-        without the NaN guard."""
-        losses = self.forward_backward(
-            batch, noise=noise, generator=self.noise_generator(self.step),
-            into=self._timeline)
-        with tracing.span('train.update', into=self._timeline):
-            self.apply_gradients()
+        without the NaN guard: replayed from the step's graphs where they
+        engage, else eager."""
+        graphs = self._step_graphs(batch, noise)
+        if graphs is None:
+            losses = self.forward_backward(
+                batch, noise=noise,
+                generator=self.noise_generator(self.step),
+                into=self._timeline)
+            with tracing.span('train.update', into=self._timeline):
+                self.apply_gradients()
+            self.eager_steps += 1
+        else:
+            losses = self._replay(graphs, batch, noise)
         self.step += 1
         return losses
+
+    # -- the step's CUDA graphs -----------------------------------------------
+
+    def _signature(self, batch, noise) -> Optional[tuple]:
+        """The key of a step's graphs, or None where the step runs eagerly:
+        off a card, in a process group (its reduce stays eager), in a
+        phase without an optimizer, under autograd's anomaly mode, or with
+        noise injected as anything but one tensor."""
+        if (self.device.type != 'cuda' or self.distributed
+                or self.optimizer is None or torch.is_anomaly_enabled()):
+            return None
+        if noise is None:
+            drawn = None
+        elif isinstance(noise, torch.Tensor):
+            drawn = (tuple(noise.shape), noise.dtype)
+        else:
+            return None
+        if isinstance(batch, torch.Tensor):
+            if self._packer is None:
+                return None
+            inputs = (self._packer, tuple(batch.shape), batch.dtype)
+        else:
+            inputs = tuple(
+                (k, tuple(np.shape(v)),
+                 v.dtype if isinstance(v, torch.Tensor)
+                 else _STAGED_DTYPES.get(np.asarray(v).dtype))
+                for k, v in sorted(batch.items()) if k != 'filename')
+        return inputs, drawn, layers.bf16_control()
+
+    def _step_graphs(self, batch, noise) -> Optional[_StepGraphs]:
+        """The graphs of this step's signature, captured on its first
+        step; None where the step runs eagerly."""
+        key = self._signature(batch, noise)
+        if key is None:
+            return None
+        graphs = self._graphs.get(key)
+        if graphs is None:
+            while len(self._graphs) >= MAX_GRAPH_SIGNATURES:
+                del self._graphs[next(iter(self._graphs))]
+            with torch.cuda.device(self.device):
+                graphs = self._graphs[key] = self._capture(batch, noise)
+        return graphs
+
+    def _staged_inputs(self, batch):
+        """A step's input on the device as its graphs take it: packed
+        lanes as they are (unpacked inside the forward graph), a dict
+        batch staged."""
+        if isinstance(batch, torch.Tensor):
+            return batch.to(self.device)
+        return self._as_device_batch(batch)
+
+    def _graph_forward(self, inputs, noise, generator
+                       ) -> Dict[str, torch.Tensor]:
+        """The losses of the forward as forward_backward computes them,
+        from a step's staged input."""
+        batch = (self._packer.unpack(inputs)
+                 if isinstance(inputs, torch.Tensor) else dict(inputs))
+        return self.model(batch, noise=noise, generator=generator,
+                          training=True)['losses']
+
+    def _drop_grads(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def _capture(self, batch, noise) -> _StepGraphs:
+        """Warm up, then capture the step's three graphs for this batch's
+        signature, on a side stream, into the Trainer's memory pool. The
+        warm-up (an eager forward and backward, gradients dropped) builds
+        and loads the kernels and makes cached constants, FFT plans and
+        library workspaces outside the capture; it changes no parameter,
+        moment or step. The capture's kernel launches are taken back out
+        of build.LAUNCHES (each replay adds them)."""
+        device = self.device
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(device)
+            self._graph_generator = torch.Generator(device=device)
+        staged = self._staged_inputs(batch)
+        g = _StepGraphs()
+        g.inputs = (staged.clone() if isinstance(staged, torch.Tensor)
+                    else {k: v.clone() for k, v in staged.items()})
+        g.noise = None if noise is None else noise.detach().to(device).clone()
+        stream = self._graph_stream
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            self._drop_grads()
+            self._graph_forward(
+                g.inputs, g.noise, torch.Generator(device=device)
+            )['total_loss'].backward()
+            self._drop_grads()
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+        before = build.launch_counts()
+        g.forward, g.backward, g.update = (torch.cuda.CUDAGraph()
+                                           for _ in range(3))
+        generator = None
+        if g.noise is None:
+            generator = self._graph_generator
+            g.forward.register_generator_state(generator)
+        with torch.cuda.graph(g.forward, pool=self._graph_pool,
+                              stream=stream):
+            losses = self._graph_forward(g.inputs, g.noise, generator)
+            g.keys = list(losses)
+            total = losses['total_loss']
+            g.losses = torch.stack([losses[k].detach() for k in g.keys])
+        del losses
+        with torch.cuda.graph(g.backward, pool=self._graph_pool,
+                              stream=stream):
+            total.backward()
+        del total
+        with torch.cuda.graph(g.update, pool=self._graph_pool,
+                              stream=stream):
+            self.apply_gradients()
+        g.grads = [p.grad for p in self.params]
+        g.launches = build.take_launches(before)
+        self.graph_captures += 1
+        return g
+
+    def _replay(self, g: _StepGraphs, batch, noise
+                ) -> Dict[str, torch.Tensor]:
+        """One step from its graphs, each replayed in the span of the
+        eager step's part it holds; returns copies of the losses."""
+        with tracing.span('train.forward', into=self._timeline):
+            staged = self._staged_inputs(batch)
+            if isinstance(staged, torch.Tensor):
+                g.inputs.copy_(staged)
+            else:
+                torch._foreach_copy_(list(g.inputs.values()),
+                                     [staged[k] for k in g.inputs])
+            if g.noise is None:
+                self._graph_generator.manual_seed(self._noise_seed(self.step))
+            else:
+                g.noise.copy_(noise)
+            g.forward.replay()
+            losses = g.losses.clone()
+        with tracing.span('train.backward', into=self._timeline):
+            g.backward.replay()
+        with tracing.span('train.update', into=self._timeline):
+            g.update.replay()
+        for p, grad in zip(self.params, g.grads):
+            if p.grad is not grad:
+                p.grad = grad
+        build.add_launches(g.launches)
+        self.graph_replays += 1
+        return dict(zip(g.keys, losses.unbind(0)))
 
     def _guard(self, step: int, losses: Dict[str, torch.Tensor],
                slot: int) -> None:
@@ -585,8 +820,7 @@ class Trainer:
             self._ring[slot] = (self.step,
                                 [t.detach().clone() for t in tensors])
             return
-        for dst, src in zip(held[1], tensors):
-            dst.copy_(src, non_blocking=True)
+        torch._foreach_copy_(held[1], tensors, non_blocking=True)
         self._ring[slot] = (self.step, held[1])
 
     def _snapshot_state(self, slot: int) -> Dict[str, Any]:
@@ -643,6 +877,8 @@ class Trainer:
                 if ckpt['optimizer'] is None:
                     raise ValueError("the checkpoint has no optimizer state")
                 self.optimizer.load_state_dict(ckpt['optimizer'])
+                if self.optimizer.defaults['capturable']:
+                    _init_adam_state(self.optimizer)
             except ValueError:
                 log.warning("Optimizer state structure changed (training-"
                             "phase switch?) - reinitializing optimizer "
@@ -650,6 +886,8 @@ class Trainer:
                 self.optimizer = self._make_optimizer()
         self.step = int(ckpt['step'])
         self._pending = []
+        # The optimizer's state tensors are new: the graphs' are not.
+        self._graphs.clear()
         self.distribute_state()
         return dict(ckpt.get('meta', {}))
 

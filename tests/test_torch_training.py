@@ -684,11 +684,52 @@ def test_batch_stager_on_cpu_keeps_arrays():
         BatchStager(torch.device('cpu'))({'x': np.zeros(3, np.float64)})
 
 
-def test_nan_guard_and_checkpoint_round_trip(tmp_path):
-    from ddsp_piano_torch.training.trainer import NanLossError, Trainer
+@pytest.mark.parametrize('staging', ['dict', 'packed'])
+def test_train_step_on_the_cpu_is_the_eager_step(staging):
+    """Off a card the step runs eagerly: train_step's losses and
+    parameters equal forward_backward and apply_gradients', no graph is
+    captured, and each step's losses are tensors of their own."""
+    from ddsp_piano_torch.training.trainer import Trainer
+
+    model, twin = _v2_small(duration=0.25), _v2_small(duration=0.25)
+    twin.load_state_dict(model.state_dict())
+    trainer = Trainer(model, first_phase=True, seed=5)
+    eager = Trainer(twin, first_phase=True, seed=5)
+    batches = [_v2_batch(n_frames=62, seed=s) for s in range(2)]
+    stage = ((lambda t, b: t.pack_batch(b)) if staging == 'packed'
+             else (lambda t, b: b))
+    got = [trainer.train_step(stage(trainer, b)) for b in batches]
+    for k, b in enumerate(batches):
+        want = eager.forward_backward(stage(eager, b),
+                                      generator=eager.noise_generator(k))
+        eager.apply_gradients()
+        eager.step += 1
+        for key, value in want.items():
+            torch.testing.assert_close(got[k][key], value, rtol=0, atol=0)
+    for p, q in zip(trainer.params, eager.params):
+        torch.testing.assert_close(p, q, rtol=0, atol=0)
+    assert (trainer.graph_captures, trainer.graph_replays,
+            trainer.eager_steps) == (0, 0, 2)
+    assert got[0]['total_loss'].data_ptr() != got[1]['total_loss'].data_ptr()
+    assert float(got[0]['total_loss']) != float(got[1]['total_loss'])
+
+
+@pytest.mark.parametrize('adam_state', ['lazy', 'made'])
+def test_nan_guard_and_checkpoint_round_trip(tmp_path, adam_state):
+    """The NaN guard's state and a checkpoint restore to the same next
+    step, with Adam's state made at its first step (the CPU's) or made
+    before it (a card's capturable Adam, _init_adam_state)."""
+    from ddsp_piano_torch.training.trainer import (NanLossError, Trainer,
+                                                   _init_adam_state)
+
+    def new_trainer(model, **kwargs):
+        trainer = Trainer(model, first_phase=True, **kwargs)
+        if adam_state == 'made':
+            _init_adam_state(trainer.optimizer)
+        return trainer
 
     model = _v2_small(duration=0.25)
-    trainer = Trainer(model, first_phase=True, nan_check_interval=2)
+    trainer = new_trainer(model, nan_check_interval=2)
     batch = _v2_batch(n_frames=62)
     trainer.train_step(batch)
     path = trainer.save(str(tmp_path / 'last_iter'), meta={'x': 1.5})
@@ -698,18 +739,31 @@ def test_nan_guard_and_checkpoint_round_trip(tmp_path):
     trainer.train_step(batch)        # step 2
     with pytest.raises(NanLossError, match='step 1') as err:
         trainer.train_step(batch)    # the guard drains steps 1 and 2
+    assert (trainer.graph_replays, trainer.eager_steps) == (0, 4)
     state = err.value.state
     assert state['step'] == 1
     for name, value in saved.items():
         torch.testing.assert_close(state['model'][name], value, rtol=0,
                                    atol=0)
-    fresh = Trainer(_v2_small(duration=0.25), first_phase=True)
+    fresh = new_trainer(_v2_small(duration=0.25))
     assert fresh.restore(os.path.dirname(path)) == {'x': 1.5}
     assert fresh.step == 1
     for name, p in fresh.model.named_parameters():
         torch.testing.assert_close(p.detach(), saved[name], rtol=0, atol=0)
-    fresh.train_step(batch)
-    assert fresh.step == 2
+    # NanLossError.state, saved and restored, gives the checkpoint's next
+    # step: the same parameters, moments and Adam step count.
+    again = new_trainer(_v2_small(duration=0.25))
+    again.restore(trainer.save(str(tmp_path / 'nan_state'), state=state))
+    want, got = fresh.train_step(batch), again.train_step(batch)
+    assert fresh.step == again.step == 2
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)
+    for p, q in zip(again.params, fresh.params):
+        torch.testing.assert_close(p, q, rtol=0, atol=0)
+    for p, q in zip(again.params, fresh.params):
+        for key, value in fresh.optimizer.state[q].items():
+            torch.testing.assert_close(again.optimizer.state[p][key], value,
+                                       rtol=0, atol=0)
 
 
 def test_train_cli_on_cpu(tmp_path, monkeypatch):

@@ -127,7 +127,7 @@ non-zero exit code and no result line:
    ``cuda`` (enstdkcl_32khz also with ``--oscillator full``), counters and
    peak memory set to 0 just before the counted render and read just
    after: K1 (K8 with ``full``), K2 and K3 must launch and no other
-   kernel; the surrogate synth has no oscillator kernel (K2, K3). The
+   kernel; the surrogate synth's oscillator is its own, K10. The
    forward is the median of three; each launch is held against its plain
    version at its inputs; the 3 s segment on the card against its CPU
    render (1.1e-4 of peak); the peak memory is printed, and its excess
@@ -135,14 +135,14 @@ non-zero exit code and no result line:
 17. A phase-1 training step of each of those configurations (student
    seed 1; b = 6 x 3 s of demo.mid rendered on the card by the config's
    seed-0 model, no data thread) through the Trainer API, counters set to
-   0 just before and read just after: K2, K5, K6, K7 and, but for the
-   surrogate, K1 and K4 must launch (K4 at up 32 and 128 through its
-   generic kernel). Each launch is held against its plain version at its
-   inputs, with K4's bound and K2's and K5's plans; three more steps are
-   timed with CUDA events; one step's gradients (the magnitude term and
-   the regularisers) on the card against the CPU's on the same batch and
-   noise draw, each leaf within 1e-3 of its peak (a scalar leaf 1e-2),
-   cosine 0.99999.
+   0 just before and read just after: K2, K5, K6, K7 and K1 and K4 (K4
+   at up 32 and 128 through its generic kernel), or for the surrogate
+   K10 and K11, must launch. Each launch is held against its plain
+   version at its inputs, with K4's bound and K2's and K5's plans; three
+   more steps are timed with CUDA events; one step's gradients (the
+   magnitude term and the regularisers) on the card against the CPU's on
+   the same batch and noise draw, each leaf within 1e-3 of its peak (a
+   scalar leaf 1e-2), cosine 0.99999.
 18. The user's training path from a preprocessing cache, at v2's full
    width on ``cuda``, over phase 9's mini-MAESTRO: ``python -m
    ddsp_piano_torch.preprocess_maestro`` writes the cache (every cached
@@ -549,6 +549,8 @@ FRONT_DOORS = (
      'oscillator_skip'),
     ('ddsp_piano_torch.processors.inharm', 'render_framewise_full',
      'oscillator_full'),
+    ('ddsp_piano_torch.processors.surrogate', 'render_framewise_decay_skip',
+     'oscillator_decay'),
     ('ddsp_piano_torch.nn.layers', 'gru_scan', 'gru_scan'),
     ('ddsp_piano_torch.models.sub_modules', 'note_release_scan',
      'note_release'),
@@ -566,6 +568,10 @@ TRAIN_DOORS = (
     ('ddsp_piano_torch.kernels.gru', 'gru_scan_bwd_cuda', 'gru_scan_bwd'),
     ('ddsp_piano_torch.kernels.note_release', 'note_release_scan_bwd_cuda',
      'note_release_bwd'),
+    ('ddsp_piano_torch.kernels.oscillator_decay',
+     'render_framewise_decay_cuda', 'oscillator_decay'),
+    ('ddsp_piano_torch.kernels.oscillator_decay',
+     'render_framewise_decay_bwd_cuda', 'oscillator_decay_bwd'),
 )
 TRAIN_KERNELS = ('oscillator_skip', 'gru_scan', 'oscillator_skip_bwd',
                  'gru_scan_bwd', 'note_release_res', 'note_release_bwd')
@@ -1040,12 +1046,16 @@ def path_kernels(capture, what):
     version on the card (oscillators within OSC_TOL of peak, ``err`` a share
     of peak; the GRU within GRU_TOL, absolute; NoteRelease bit-exact), then
     its CUDA-event time."""
-    from ddsp_piano_torch.kernels import gru, note_release, oscillator
+    from ddsp_piano_torch.kernels import (gru, note_release, oscillator,
+                                          oscillator_decay)
+    from ddsp_piano_torch.ops.oscillator import render_framewise_decay
 
     pairs = {'oscillator_skip': (oscillator.render_framewise_skip_cuda,
                                  oscillator.render_framewise_plain),
              'oscillator_full': (oscillator.render_framewise_full_cuda,
                                  oscillator.render_framewise_full_plain),
+             'oscillator_decay': (oscillator_decay.render_framewise_decay_cuda,
+                                  render_framewise_decay),
              'gru_scan': (gru.gru_scan_cuda, gru.gru_scan_plain),
              'note_release': (note_release.note_release_scan_cuda,
                               note_release.note_release_scan_plain)}
@@ -2317,10 +2327,9 @@ STEP_MIN_COSINE_MAG = 0.99999
 
 def render_kernels(config, oscillator):
     """The kernels a render of ``config`` launches. The surrogate synth
-    renders its decaying partials in plain torch, as the JAX package does
-    in jnp: no oscillator kernel."""
+    renders its decaying partials with K10."""
     if config == 'surrogate':
-        return ('gru_scan', 'note_release')
+        return ('oscillator_decay', 'gru_scan', 'note_release')
     return (f'oscillator_{oscillator}', 'gru_scan', 'note_release')
 
 
@@ -2329,7 +2338,7 @@ def step_kernels(config):
     gru_nr = ('gru_scan', 'gru_scan_bwd', 'note_release_res',
               'note_release_bwd')
     if config == 'surrogate':
-        return gru_nr
+        return ('oscillator_decay', 'oscillator_decay_bwd') + gru_nr
     return ('oscillator_skip', 'oscillator_skip_bwd') + gru_nr
 
 
@@ -2350,8 +2359,14 @@ def memory_peak_mib(before):
 
 
 def launch_bound(kernel, args):
-    """(ms, what bounds it) of one K1, K8, K2 or K3 launch at its inputs,
-    as the kernel lines reckon it; None for another kernel."""
+    """(ms, what bounds it) of one K1, K8, K10, K2 or K3 launch at its
+    inputs, as the kernel lines reckon it (K10 at K1's count, a lower
+    bound); None for another kernel."""
+    if kernel == 'oscillator_decay':
+        # K1's count of the same live terms: the envelope left out.
+        controls, up, sr = args[0], args[3], args[4]
+        return osc_bound(OSC_FLOPS_PER_TERM * live_cells(controls, sr) * up,
+                         controls, up)
     if kernel in ('oscillator_skip', 'oscillator_full'):
         controls, up, sr = args[:3]
         if kernel == 'oscillator_skip':
@@ -2484,11 +2499,26 @@ def step_path_kernels(capture, what, timed=True):
     its CUDA-event time (else ms is None). The note gives K4's bound (its
     sounding and silent cells) and K2's and K5's plan, time a step and
     bound."""
-    from ddsp_piano_torch.kernels import gru, note_release, oscillator
+    from ddsp_piano_torch.kernels import (gru, note_release, oscillator,
+                                          oscillator_decay)
+    from ddsp_piano_torch.ops import oscillator as plain_osc
+
+    def flat(fn):
+        """K11 and its plain version with their DecayGrads as one
+        tuple."""
+        def call(*args):
+            grads = fn(*args)
+            return tuple(grads.controls) + (grads.decays, grads.decay_time)
+        return call
 
     pairs = {
         'oscillator_skip': (oscillator.render_framewise_skip_cuda,
                             oscillator.render_framewise_plain),
+        'oscillator_decay': (oscillator_decay.render_framewise_decay_cuda,
+                             plain_osc.render_framewise_decay),
+        'oscillator_decay_bwd': (
+            flat(oscillator_decay.render_framewise_decay_bwd_cuda),
+            flat(plain_osc.render_framewise_decay_vjp)),
         'gru_scan': (gru.gru_scan_cuda, gru.gru_scan_plain),
         'note_release': (note_release.note_release_scan_cuda,
                          note_release.note_release_scan_plain),
@@ -2512,7 +2542,7 @@ def step_path_kernels(capture, what, timed=True):
             elif kernel == 'gru_scan':
                 err = (got - want).abs().max().item()
                 ok = np.isfinite(err) and err <= GRU_TOL
-            elif kernel == 'oscillator_skip':
+            elif kernel in ('oscillator_skip', 'oscillator_decay'):
                 err = ((got - want).abs().max()
                        / want.abs().max().clamp_min(1e-30)).item()
                 ok = np.isfinite(err) and err <= OSC_TOL
@@ -2521,7 +2551,8 @@ def step_path_kernels(capture, what, timed=True):
                            / w.abs().max().clamp_min(1e-30)).item()
                           for a, w in zip(got, want))
                 ok = np.isfinite(err) and err <= (
-                    OSC_BWD_TOL if kernel == 'oscillator_skip_bwd'
+                    OSC_BWD_TOL if kernel in ('oscillator_skip_bwd',
+                                              'oscillator_decay_bwd')
                     else GRU_BWD_TOL)
             del got, want
             shape = tuple(args[0][0].shape if kernel.startswith(
@@ -2534,7 +2565,7 @@ def step_path_kernels(capture, what, timed=True):
                 continue
             ms = median_ms(lambda: cuda(*args), n=10)
             note = ''
-            if kernel == 'oscillator_skip':
+            if kernel in ('oscillator_skip', 'oscillator_decay'):
                 bound_ms, by = launch_bound(kernel, args)
                 note = f" bound {bound_ms:.5f} ms ({by})"
             elif kernel == 'oscillator_skip_bwd':
@@ -3219,11 +3250,12 @@ def stream_launches(config, oscillator):
     """The launches of a ``--streaming`` render of n chunks (and the
     flush): each Normalize sweep runs the control path to its slot (K2 a
     chunk for the context slot; the surrogate's mono slot, ahead of its
-    GRU, adds K2 and K3 a chunk), then the render (K2 twice, K3 and, but
-    for the surrogate, the oscillator once a chunk)."""
+    GRU, adds K2 and K3 a chunk), then the render (K2 twice, K3 and the
+    oscillator, K10 for the surrogate, once a chunk)."""
     def expected(n):
         if config == 'surrogate':
-            return {'gru_scan': 2 * n + 2 * (n + 1),
+            return {'oscillator_decay': n + 1,
+                    'gru_scan': 2 * n + 2 * (n + 1),
                     'note_release': n + (n + 1)}
         return {f'oscillator_{oscillator}': n + 1,
                 'gru_scan': n + 2 * (n + 1), 'note_release': n + 1}

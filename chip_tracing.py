@@ -2,7 +2,8 @@
 """The cost of the program's spans, and where the card sits idle, in the
 benchmark's cells on one NVIDIA GPU.
 
-    python3 chip_tracing.py [--cells v2.serve-b8,dafx22.serve-b8,v2.train-b6]
+    python3 chip_tracing.py [--cells v2.serve-b8,dafx22.serve-b8,v2.train-b6,
+                             surrogate.train-b6]
         [--seed N] [--seconds 5] [--repeats 3] [--units 8]
         [--out build/chip_tracing]
 
@@ -58,12 +59,13 @@ LAYERS = {
     'serve': {'upload': ('serve.upload',),
               'launch': ('serve.request', 'serve.allocate', 'model.forward',
                          'model.networks', 'model.synthesis',
-                         'kernels.load'),
+                         'synth.surrogate', 'kernels.load'),
               'caller': (tracing.CALLER,)},
     'train': {'stage': ('train.stage',),
               'forward': ('train.forward', 'model.forward',
                           'model.networks', 'model.synthesis',
-                          'model.losses', 'kernels.load'),
+                          'synth.surrogate', 'model.losses',
+                          'kernels.load'),
               'backward': ('train.backward',),
               'update': ('train.update', 'train.step', 'train.reduce'),
               'caller': (tracing.CALLER,)},
@@ -259,7 +261,8 @@ def measure(name, seed, seconds, repeats, n_units, device):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     parser.add_argument('--cells',
-                        default='v2.serve-b8,dafx22.serve-b8,v2.train-b6')
+                        default='v2.serve-b8,dafx22.serve-b8,v2.train-b6,'
+                        'surrogate.train-b6')
     parser.add_argument('--seed', type=int, default=3000000101)
     parser.add_argument('--seconds', type=float, default=5.0)
     parser.add_argument('--repeats', type=int, default=3)

@@ -5,7 +5,9 @@ compiled on its own by ``nvcc`` into a shared library with a plain C
 interface (no PyTorch headers, so a build takes
 seconds; the GRU sources, 64 kernel instances each (32 float32, 32 bf16),
 about a minute);
-all sources compile in parallel. Outputs go to
+the sources of a group compile in parallel, at the first call of any of
+them (``GROUPS``: the surrogate model's decay oscillator builds only where
+that model runs). Outputs go to
 ``build/kernels/<hash>/`` at the repository root, keyed by a hash of the
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import time.
@@ -34,7 +36,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 from ddsp_piano_torch import tracing
 
@@ -55,6 +57,8 @@ SOURCE_FLAGS = {
     'gru_scan_bwd': (),
     'oscillator_full': ('--fmad=false',),
     'voice_allocator': (),
+    'oscillator_decay': ('--fmad=false',),
+    'oscillator_decay_bwd': ('--fmad=false',),
 }
 
 _P = ctypes.c_void_p
@@ -96,14 +100,35 @@ SIGNATURES = {
     'voice_allocator': {
         'voice_allocator_launch': (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     },
+    'oscillator_decay': {
+        'osc_decay_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _F, _F, _P),
+    },
+    'oscillator_decay_bwd': {
+        'osc_decay_bwd_launch': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _F, _F, _P),
+    },
 }
 
+# Sources built together, at the first call of any of them: the surrogate
+# model's decay oscillator (K10, K11) apart from the rest, so that a model
+# that never runs it never waits for its build. build_all builds every
+# group.
+GROUPS = {
+    'surrogate': ('oscillator_decay', 'oscillator_decay_bwd'),
+}
+GROUPS['common'] = tuple(name for name in SIGNATURES
+                         if not any(name in g for g in GROUPS.values()))
+
 # The kernels, by the name of their launch counter: K1-K3 (inference),
-# K4-K7 (gradients), K8 (the all-partials oscillator) and K9 (the voice
-# allocator of the serving path). note_release_bwd.cu holds two of them.
+# K4-K7 (gradients), K8 (the all-partials oscillator), K9 (the voice
+# allocator of the serving path) and K10-K11 (the surrogate synth's
+# decaying partials, forward and backward). note_release_bwd.cu holds two
+# of them.
 KERNELS = ('oscillator_skip', 'gru_scan', 'note_release',
            'oscillator_skip_bwd', 'gru_scan_bwd', 'note_release_res',
-           'note_release_bwd', 'oscillator_full', 'voice_allocator')
+           'note_release_bwd', 'oscillator_full', 'voice_allocator',
+           'oscillator_decay', 'oscillator_decay_bwd')
 
 # Launches of each kernel that the card ran (a run shows its path went
 # through the kernels). A wrapper counts its launch where it launches the
@@ -187,20 +212,21 @@ def build_lock(out_dir: Path):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def build_all() -> Dict[str, str]:
-    """Compile every source that is not built yet; one nvcc per source,
-    all started together, under the build directory's lock. Returns
-    {name: ptxas report} for fresh builds."""
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
+    """Compile every source of ``names`` (default: all) that is not built
+    yet; one nvcc per source, all started together, under the build
+    directory's lock. Returns {name: ptxas report} for fresh builds."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     with build_lock(out_dir):
-        return _build_missing(out_dir)
+        return _build_missing(out_dir, names)
 
 
-def _build_missing(out_dir: Path) -> Dict[str, str]:
+def _build_missing(out_dir: Path,
+                   names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     nvcc = nvcc_path()
     procs = {}
-    for name in SIGNATURES:
+    for name in (SIGNATURES if names is None else names):
         target = out_dir / f'lib{name}.so'
         if target.exists():
             continue
@@ -237,9 +263,10 @@ def build_report(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The built library of one source, with argtypes/restype declared.
     With tracing on, its first call for a source is the span
-    ``kernels.load`` (the build of whatever is missing, and the load)."""
+    ``kernels.load`` (the build of whatever its group misses, and the
+    load)."""
     with tracing.span('kernels.load'):
-        build_all()
+        build_all(next(g for g in GROUPS.values() if name in g))
         lib = ctypes.CDLL(str(_build_dir() / f'lib{name}.so'))
         for fn_name, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, fn_name)

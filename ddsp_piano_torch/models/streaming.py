@@ -49,7 +49,7 @@ from ddsp_piano_torch.models.dag import VectorizedPolyphonicProcessorGroup
 from ddsp_piano_torch.ops import core, oscillator
 from ddsp_piano_torch.processors.reverb import Reverb
 from ddsp_piano_torch.processors.surrogate import (SurrogateAdditive,
-                                                   render_framewise_decay)
+                                                   render_decay)
 
 Noise = Union[None, torch.Tensor, Sequence[torch.Tensor]]
 
@@ -259,7 +259,7 @@ class StreamingSynthesizer:
         if surrogate:
             # The decay envelope is frame-local: its controls align with
             # the rendered frames (the lookahead endpoint dropped).
-            sig_add = render_framewise_decay(
+            sig_add = render_decay(
                 osc, controls['decays'][:, :-1],
                 controls['decay_time'][:, :-1], up, sample_rate)
         else:

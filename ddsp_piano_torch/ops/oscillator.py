@@ -10,6 +10,9 @@ so the only serial work is a frame-rate cumsum. ``render_framewise`` is
 the plain version of the oscillator kernel (kernels/oscillator.py): the
 kernel computes the same terms and skips partials that are exactly zero.
 ``render_framewise_vjp`` is the plain version of the backward kernel.
+``render_framewise_decay`` and ``render_framewise_decay_vjp`` are the
+same pair for the surrogate synth's decaying partials
+(kernels/oscillator_decay.py).
 
 Also the envelope pipeline (``oscillator_bank_envelopes``, :57-86) and the
 ``harmonic_synthesis`` front door (:506-595) of the single-f0 InHarmonic
@@ -251,6 +254,109 @@ def render_framewise_vjp(controls: FramewiseOscControls, g: torch.Tensor,
                                       gc * w_ahi, gs)):
             out.append(torch.sum(value, dim=2))
     return FramewiseOscControls(*(torch.cat(p, dim=1) for p in parts))
+
+
+def render_framewise_decay(controls: FramewiseOscControls,
+                           decays: torch.Tensor, decay_time: torch.Tensor,
+                           upsampling: int, sample_rate: int
+                           ) -> torch.Tensor:
+    """Plain render with per-partial decay (the surrogate synth's, and the
+    plain version of its kernel, kernels/oscillator_decay.py): (b,
+    n_frames, K) controls, decays (b, n_frames, K), decay_time (b,
+    n_frames, 1) in frames -> (b, n_frames * up). Each term of
+    render_framewise times env[k, s] = |decays[k]| ** (up decay_time + s),
+    as exp(log|d| t) (ddsp_piano_tpu/processors/surrogate.py:76-117), with
+    torch.cos. Chunking over frames changes no value."""
+    decays = core.f32(decays)
+    decay_time = core.f32(decay_time)
+    up = upsampling
+    f_lo, f_hi, a_lo, a_hi, phase0 = controls
+    b, n_frames, k = f_lo.shape
+    w_scale = _2PI / float(sample_rate)
+    nyquist = sample_rate / 2.0
+    s = torch.arange(up, dtype=torch.float32, device=f_lo.device)
+    s_col = s[None, None, :, None]
+    h = (torch.sin((math.pi / (2.0 * up)) * s) ** 2)[None, None, :, None]
+    tri = (s_col * (s_col + 1.0)) * (0.5 / up)
+    chunk = max(1, _MAX_CHUNK_ELEMENTS // max(b * up * k, 1))
+    parts = []
+    for start in range(0, n_frames, chunk):
+        sl = slice(start, start + chunk)
+        log_d = torch.log(torch.abs(decays[:, sl]))[:, :, None, :]
+        t_base = (decay_time[:, sl] * up)[:, :, None, :]
+        decay_env = torch.exp(log_d * (t_base + s_col))
+        flo = f_lo[:, sl, None, :]
+        df = (f_hi[:, sl] - f_lo[:, sl])[:, :, None, :]
+        amp = a_lo[:, sl, None, :] * (1.0 - h) + a_hi[:, sl, None, :] * h
+        freq = flo + df * (s_col * (1.0 / up))
+        amp = amp * (freq < nyquist).to(torch.float32)
+        amp = amp * decay_env
+        phase = phase0[:, sl, None, :] + w_scale * (
+            (s_col + 1.0) * flo + df * tri)
+        parts.append(torch.sum(amp * torch.cos(phase), dim=-1))
+    return torch.cat(parts, dim=1).reshape(b, n_frames * up)
+
+
+class DecayGrads(NamedTuple):
+    """The gradients of render_framewise_decay's inputs."""
+    controls: FramewiseOscControls
+    decays: torch.Tensor       # (b, n_frames, K)
+    decay_time: torch.Tensor   # (b, n_frames, 1)
+
+
+def render_framewise_decay_vjp(controls: FramewiseOscControls,
+                               decays: torch.Tensor,
+                               decay_time: torch.Tensor, g: torch.Tensor,
+                               upsampling: int, sample_rate: int
+                               ) -> DecayGrads:
+    """Plain VJP of render_framewise_decay (the plain version of its
+    backward kernel) from the audio cotangent g (b, n_frames * up), with
+    torch.sin and torch.cos. Per sample, with the envelope e = exp(log|d|
+    t), t = up decay_time + s, and ge = g e:
+    gc = ge mask cos, gs = -ge amp sin, q = gc amp; then the sums over the
+    frame's samples d a_lo = sum gc (1 - h), d a_hi = sum gc h, d phase0 =
+    sum gs, d f_lo = sum gs w ((s + 1) - tri), d f_hi = sum gs w tri,
+    d decays = sum q t / d, and d decay_time = up sum_k log|d| sum_s q.
+    Chunked over frames like the forward."""
+    decays = core.f32(decays)
+    decay_time = core.f32(decay_time)
+    f_lo, f_hi, a_lo, a_hi, phase0 = controls
+    b, n_frames, k = f_lo.shape
+    up = upsampling
+    w_scale = _2PI / float(sample_rate)
+    nyquist = sample_rate / 2.0
+    h, tri, s1, s_frac = (v[None, None, :, None]
+                          for v in sample_tables(up, f_lo.device))
+    w_alo, w_ahi, w_flo, w_fhi = (
+        v[None, None, :, None]
+        for v in gradient_tables(up, sample_rate, f_lo.device))
+    s_col = s1 - 1.0
+    g = g.reshape(b, n_frames, up)
+    chunk = max(1, _MAX_CHUNK_ELEMENTS // max(b * up * k, 1))
+    parts = [[] for _ in range(7)]
+    for start in range(0, n_frames, chunk):
+        sl = slice(start, start + chunk)
+        log_d = torch.log(torch.abs(decays[:, sl]))[:, :, None, :]
+        t = (decay_time[:, sl] * up)[:, :, None, :] + s_col
+        env = torch.exp(log_d * t)
+        flo = f_lo[:, sl, None, :]
+        df = (f_hi[:, sl] - f_lo[:, sl])[:, :, None, :]
+        phase = phase0[:, sl, None, :] + w_scale * (s1 * flo + df * tri)
+        mask = (flo + df * s_frac) < nyquist
+        amp = torch.where(mask, a_lo[:, sl, None, :] * w_alo
+                          + a_hi[:, sl, None, :] * h, 0.0)
+        ge = g[:, sl, :, None] * env
+        gc = torch.where(mask, ge * torch.cos(phase), 0.0)
+        gs = ge * amp * (-torch.sin(phase))
+        q = gc * amp
+        for out, value in zip(parts, (gs * w_flo, gs * w_fhi, gc * w_alo,
+                                      gc * w_ahi, gs, q * t, q)):
+            out.append(torch.sum(value, dim=2))
+    sums = [torch.cat(p, dim=1) for p in parts]
+    log_d = torch.log(torch.abs(decays))
+    return DecayGrads(
+        FramewiseOscControls(*sums[:5]), sums[5] / decays,
+        torch.sum(log_d * sums[6], dim=-1, keepdim=True) * float(up))
 
 
 def oscillator_bank_envelopes(frequency_envelopes, amplitude_envelopes,

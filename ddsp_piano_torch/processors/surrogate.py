@@ -2,61 +2,39 @@
 envelopes whose time base restarts at each onset.
 
 Counterpart of ddsp_piano_tpu/processors/surrogate.py:27-190. The JAX
-package renders the decay oscillator in plain jnp, with no Pallas kernel,
-so the port renders it in plain torch too: the framewise closed form of
-ops/oscillator.py (phase cumsum in float64) times the envelope
-|d|^(up T[k] + s), over (b, frames, up, K) intermediates in chunks of
-frames.
+package renders the decay oscillator in plain jnp, with no Pallas kernel.
+The port renders it through kernels/oscillator_decay.py: the framewise
+closed form of ops/oscillator.py (phase cumsum in float64) times the
+envelope |d|^(up T[k] + s), as the kernel K10 on the card (K11 its
+gradients) and as ops.oscillator.render_framewise_decay, its plain
+version, on the CPU.
 """
 
 from __future__ import annotations
 
-import math
 from typing import Callable, Optional
 
 import torch
 
+from ddsp_piano_torch import tracing
+from ddsp_piano_torch.kernels.oscillator_decay import \
+    render_framewise_decay_skip
 from ddsp_piano_torch.ops import core, oscillator
+# The plain render, importable from here as before it moved to ops.
+from ddsp_piano_torch.ops.oscillator import render_framewise_decay  # noqa
 from ddsp_piano_torch.processors.base import Processor
 
 
-def render_framewise_decay(controls: oscillator.FramewiseOscControls,
-                           decays: torch.Tensor, decay_time: torch.Tensor,
-                           upsampling: int, sample_rate: int
-                           ) -> torch.Tensor:
-    """Framewise render with per-partial decay: (b, n_frames, K) controls,
-    decays (b, n_frames, K), decay_time (b, n_frames, 1) in frames ->
-    (b, n_frames * up). env[k, s] = |decays[k]| ** (up decay_time[k] + s),
-    as exp(log|d| t) (surrogate.py:76-117). Chunking over frames changes no
-    value."""
-    decays = core.f32(decays)
-    decay_time = core.f32(decay_time)
-    up = upsampling
-    f_lo, f_hi, a_lo, a_hi, phase0 = controls
-    b, n_frames, k = f_lo.shape
-    w_scale = 2.0 * math.pi / float(sample_rate)
-    nyquist = sample_rate / 2.0
-    s = torch.arange(up, dtype=torch.float32, device=f_lo.device)
-    s_col = s[None, None, :, None]
-    h = (torch.sin((math.pi / (2.0 * up)) * s) ** 2)[None, None, :, None]
-    tri = (s_col * (s_col + 1.0)) * (0.5 / up)
-    chunk = max(1, oscillator._MAX_CHUNK_ELEMENTS // max(b * up * k, 1))
-    parts = []
-    for start in range(0, n_frames, chunk):
-        sl = slice(start, start + chunk)
-        log_d = torch.log(torch.abs(decays[:, sl]))[:, :, None, :]
-        t_base = (decay_time[:, sl] * up)[:, :, None, :]
-        decay_env = torch.exp(log_d * (t_base + s_col))
-        flo = f_lo[:, sl, None, :]
-        df = (f_hi[:, sl] - f_lo[:, sl])[:, :, None, :]
-        amp = a_lo[:, sl, None, :] * (1.0 - h) + a_hi[:, sl, None, :] * h
-        freq = flo + df * (s_col * (1.0 / up))
-        amp = amp * (freq < nyquist).to(torch.float32)
-        amp = amp * decay_env
-        phase = phase0[:, sl, None, :] + w_scale * (
-            (s_col + 1.0) * flo + df * tri)
-        parts.append(torch.sum(amp * torch.cos(phase), dim=-1))
-    return torch.cat(parts, dim=1).reshape(b, n_frames * up)
+def render_decay(controls: oscillator.FramewiseOscControls,
+                 decays: torch.Tensor, decay_time: torch.Tensor,
+                 upsampling: int, sample_rate: int) -> torch.Tensor:
+    """The decay render through its front door (K10, with K11 for its
+    gradients, on the card), in the span ``synth.surrogate``: (b,
+    n_frames, K) controls, decays (b, n_frames, K), decay_time (b,
+    n_frames, 1) -> (b, n_frames * up)."""
+    with tracing.span('synth.surrogate'):
+        return render_framewise_decay_skip(controls, decays, decay_time,
+                                           upsampling, sample_rate)
 
 
 def surrogate_harmonic_synthesis(frequencies, amplitudes, decays,
@@ -72,8 +50,8 @@ def surrogate_harmonic_synthesis(frequencies, amplitudes, decays,
         amplitudes, harmonic_distribution, harmonic_shifts, frequencies)
     controls = oscillator.framewise_osc_controls(freqs, amps, upsampling,
                                                  sample_rate)
-    return render_framewise_decay(controls, decays, decay_time, upsampling,
-                                  sample_rate)
+    return render_decay(controls, decays, decay_time, upsampling,
+                        sample_rate)
 
 
 class SurrogateAdditive(Processor):

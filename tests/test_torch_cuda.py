@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on the card.
 
-K1-K3 and K8 (forward), K4-K7 (gradients) and K9 (the voice allocator),
+K1-K3 and K8 (forward), K4-K7 (gradients), K9 (the voice allocator) and
+K10-K11 (the surrogate synth's decaying partials, forward and backward),
 K2's and K5's bf16 instances step by step, each with its launch
 counter (K3, K6 and K7 at every edge of their shared plan; K8 at edge
 shapes, and its cosine to 2 ulp), and
@@ -23,6 +24,7 @@ from ddsp_piano_torch.kernels import build  # noqa: E402
 from ddsp_piano_torch.kernels import gru as tgru  # noqa: E402
 from ddsp_piano_torch.kernels import note_release as tnr  # noqa: E402
 from ddsp_piano_torch.kernels import oscillator as tosck  # noqa: E402
+from ddsp_piano_torch.kernels import oscillator_decay as tdec  # noqa: E402
 from ddsp_piano_torch.ops import oscillator as tosc  # noqa: E402
 
 
@@ -637,6 +639,18 @@ def _other_card_case(kernel, device):
                                                              24000),
                 lambda: tosck.render_framewise_vjp_plain(controls, g, 96,
                                                          24000), 'peak')
+    if kernel in ('oscillator_decay', 'oscillator_decay_bwd'):
+        controls, decays, decay_time = _decay_inputs(device)
+        if kernel == 'oscillator_decay':
+            return (lambda: tdec.render_framewise_decay_cuda(
+                        controls, decays, decay_time, 64, 16000),
+                    lambda: tosc.render_framewise_decay(
+                        controls, decays, decay_time, 64, 16000), 'peak')
+        g = _t(np.random.RandomState(3).randn(4, 60 * 64), device)
+        return (lambda: _flat_decay_grads(tdec.render_framewise_decay_bwd_cuda(
+                    controls, decays, decay_time, g, 64, 16000)),
+                lambda: _flat_decay_grads(tosc.render_framewise_decay_vjp(
+                    controls, decays, decay_time, g, 64, 16000)), 'peak')
     if kernel == 'oscillator_full':
         controls, sr = _full_edge_controls(64, 96, 40, device)
         return (lambda: tosck.render_framewise_full_cuda(controls, 64, sr),
@@ -720,3 +734,111 @@ def test_front_door_launches_on_its_inputs_card(cuda_device, kernel, card):
         assert err <= 1e-5 * scale
     print(f"\n{kernel} on cuda:{card} from cuda:0: worst error "
           f"{worst:.3g} ({tolerance})")
+
+
+def _decay_inputs(device, b=4, t=60, k=96, up=64, sr=16000):
+    """Surrogate synth controls at 16 kHz: a voice silent for 20 frames
+    (below min_frequency, amplitudes 0), partials past Nyquist, a voice
+    whose upper half is silent, decays 1 - 10^u (u in [-5, -3]) and the
+    frames since an onset at frames 0 and 30."""
+    rng = np.random.RandomState(5)
+    f0 = rng.uniform(30.0, 2000.0, (b, 1, 1)).repeat(t, 1)
+    f0[0, :20] = 8.0
+    f0[2, 40:] *= 1.3
+    freqs = f0 * np.arange(1, k + 1) * (1.0 + 1e-4 * rng.rand(b, t, k))
+    amps = rng.rand(b, t, k)
+    amps[0, :20] = 0.0
+    amps[1, :, k // 2:] = 0.0
+    controls = tosc.framewise_osc_controls(_t(freqs, device),
+                                           _t(amps, device), up, sr)
+    decays = 1.0 - 10.0 ** rng.uniform(-5.0, -3.0, (b, t, k))
+    frames = np.arange(t, dtype=np.float32)
+    decay_time = np.where(frames < 30, frames, frames - 30)
+    decay_time = np.tile(decay_time[None, :, None], (b, 1, 1))
+    return controls, _t(decays, device), _t(decay_time, device)
+
+
+def _flat_decay_grads(grads):
+    """DecayGrads as one tuple: the five controls', the decays', T's."""
+    return tuple(grads.controls) + (grads.decays, grads.decay_time)
+
+
+def _worst_share(got, want):
+    """Each pair's largest difference over the plain one's peak."""
+    return [((a - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+            for a, w in zip(got, want)]
+
+
+@pytest.mark.cuda
+def test_decay_oscillator_kernel_matches_plain(cuda_device):
+    """K10 against ops.oscillator.render_framewise_decay: the phase,
+    crossfade, frequency, mask and envelope round as the plain version's,
+    the cosine and exp are within a few ulp of torch's, the accumulation
+    rounds once a term and sums the partials in another order: 1e-5 of
+    peak."""
+    controls, decays, decay_time = _decay_inputs(cuda_device)
+    build.reset_launches()
+    got = tdec.render_framewise_decay_cuda(controls, decays, decay_time, 64,
+                                           16000)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['oscillator_decay'] == 1
+    want = tosc.render_framewise_decay(controls, decays, decay_time, 64,
+                                       16000)
+    err = _worst_share([got], [want])[0]
+    print(f"\nK10 against its plain version: {err:.3g} of peak")
+    assert err <= 1e-5
+
+
+@pytest.mark.cuda
+def test_decay_oscillator_bwd_kernel_matches_plain(cuda_device):
+    """K11's seven gradients (controls, decays, T) against
+    ops.oscillator.render_framewise_decay_vjp, each within 1e-5 of its
+    peak; silent cells' d f, d phase0, d decays and d T are exact zeros
+    on both sides."""
+    controls, decays, decay_time = _decay_inputs(cuda_device)
+    g = _t(np.random.RandomState(3).randn(4, 60 * 64), cuda_device)
+    build.reset_launches()
+    got = _flat_decay_grads(tdec.render_framewise_decay_bwd_cuda(
+        controls, decays, decay_time, g, 64, 16000))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES['oscillator_decay_bwd'] == 1
+    want = _flat_decay_grads(tosc.render_framewise_decay_vjp(
+        controls, decays, decay_time, g, 64, 16000))
+    errs = _worst_share(got, want)
+    print(f"\nK11 against its plain version, by gradient: "
+          f"{[f'{e:.3g}' for e in errs]}")
+    assert max(errs) <= 1e-5
+    silent = (controls.a_lo[0, :19] == 0) & (controls.a_hi[0, :19] == 0)
+    assert bool(silent.all())
+    for i in (0, 1, 4, 5):
+        assert torch.count_nonzero(got[i][0, :19]) == 0
+
+
+@pytest.mark.cuda
+def test_decay_function_on_cuda_matches_cpu(cuda_device):
+    """The front door with gradients (RenderFramewiseDecay: K10 and K11 on
+    the card) against the same Function on CPU tensors (its plain
+    versions): the audio and the gradients of the partials' frequencies
+    and amplitudes, the decays and T, each within 1e-4 of its peak (the
+    CPU's and the card's sin, cos and exp differ in the last place)."""
+    controls, decays, decay_time = _decay_inputs(torch.device('cpu'))
+    g = torch.from_numpy(np.random.RandomState(3).randn(4, 60 * 64)
+                         .astype(np.float32))
+    results = []
+    for device in (cuda_device, torch.device('cpu')):
+        leaves = [x.to(device).requires_grad_()
+                  for x in (*controls, decays, decay_time)]
+        build.reset_launches()
+        audio = tdec.render_framewise_decay_skip(
+            tosc.FramewiseOscControls(*leaves[:5]), leaves[5], leaves[6], 64,
+            16000)
+        grads = torch.autograd.grad(audio, leaves, g.to(device))
+        if device.type == 'cuda':
+            torch.cuda.synchronize()
+            assert build.LAUNCHES['oscillator_decay'] == 1
+            assert build.LAUNCHES['oscillator_decay_bwd'] == 1
+        results.append([x.detach().cpu() for x in (audio, *grads)])
+    errs = _worst_share(*results)
+    print(f"\nthe decay Function, cuda against cpu: "
+          f"{[f'{e:.3g}' for e in errs]}")
+    assert max(errs) <= 1e-4

@@ -63,7 +63,7 @@ for name in ('models.streaming', 'processors.surrogate',
              'data.midi_encoders_device', 'kernels.voice_allocator',
              'synthesize_from_csv', 'training.events', 'training.summaries',
              'configs.gin_compat', 'models.default_model',
-             'parallel.mesh', 'native'):
+             'parallel.mesh', 'native', 'kernels.oscillator_decay'):
     assert 'ddsp_piano_torch.' + name in names, names
 """
 

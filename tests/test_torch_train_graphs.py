@@ -4,8 +4,9 @@ eagerly, on the card.
 From the same weights, each case holds the graph path's losses,
 parameters, Adam moments and step counts bit-equal to the steps composed
 eagerly from ``forward_backward`` and ``apply_gradients``: with injected
-noise and with the generator's draw, on maestro_v2, dafx22 and the bf16
-control networks; a K = 4 block against four single steps; a batch of a
+noise and with the generator's draw, on maestro_v2, dafx22, the surrogate
+(its decay oscillator K10 and K11 in the graphs) and the bf16 control
+networks; a K = 4 block against four single steps; a batch of a
 new shape, captured anew; a non-finite loss (NanLossError at the same step
 with the same state); the launch counters over replayed steps against
 eager ones, and the profiler's kernel events of every replay against
@@ -126,9 +127,9 @@ def _assert_losses(got, want):
 # dafx22's eager step does not repeat itself bit for bit on the card: the
 # gradient of its z_encoder embedding (advanced indexing, whose gradient
 # is accumulated in no fixed order) differs by a few 1e-8 between two
-# eager steps on the same inputs. Its cases start each eager step from the
-# graph path's state, hold the losses bit-equal and the state after the
-# step within REPEAT_TOL.
+# eager steps on the same inputs. Its cases, and the surrogate's (the same
+# OneHotZEncoder), start each eager step from the graph path's state, hold
+# the losses bit-equal and the state after the step within REPEAT_TOL.
 REPEAT_TOL = 1e-6
 
 
@@ -140,10 +141,11 @@ REPEAT_TOL = 1e-6
     ('dafx22', False, 'injected', 'packed'),
     ('dafx22', False, 'drawn', 'dict'),
     ('maestro_v2', True, 'drawn', 'packed'),
+    ('surrogate', False, 'injected', 'packed'),
 ])
 def test_replayed_steps_equal_eager_steps(cuda_device, config, bf16, noise,
                                           staging):
-    exact = config != 'dafx22'
+    exact = config not in ('dafx22', 'surrogate')
     layers.enable_bf16_control(bf16)
     try:
         graphed, eager = _pair(config, cuda_device)
@@ -277,3 +279,45 @@ def test_launch_counters_and_profiler_events_of_replays(cuda_device):
                      and re.search(pattern, e.name))
         assert events == build.LAUNCHES[counter] == counts[0][0][counter], \
             counter
+
+
+# Profiler names of the surrogate synth's kernels K10 and K11, by launch
+# counter.
+DECAY_KERNEL_NAMES = {
+    'oscillator_decay': r'\bosc_decay_kernel\b',
+    'oscillator_decay_bwd': r'\bosc_decay_bwd_kernel\b',
+}
+
+
+@pytest.mark.cuda
+def test_surrogate_replays_launch_the_decay_kernels(cuda_device):
+    """The surrogate's replayed steps launch K10 and K11 once a step each,
+    as its eager steps do, and the profiler records each launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graphed, eager = _pair('surrogate', cuda_device)
+    batches = [_batch(graphed.model, 2, s) for s in range(4)]
+    graphed.train_step(batches[0])
+    _eager_step(eager, batches[0])
+    torch.cuda.synchronize()
+    counts = []
+    for step in (graphed.train_step, lambda b: _eager_step(eager, b)):
+        build.reset_launches()
+        for b in batches[1:]:
+            step(b)
+        torch.cuda.synchronize()
+        counts.append(build.launch_counts())
+    assert counts[0] == counts[1]
+    assert all(counts[0][0][k] == 3 for k in DECAY_KERNEL_NAMES)
+    assert counts[0][0]['oscillator_skip'] == 0
+    assert graphed.graph_replays == 4 and graphed.eager_steps == 0
+    build.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for b in batches[1:]:
+            graphed.train_step(b)
+        torch.cuda.synchronize()
+    for counter, pattern in DECAY_KERNEL_NAMES.items():
+        events = sum(1 for e in prof.events()
+                     if e.device_type.name == 'CUDA'
+                     and re.search(pattern, e.name))
+        assert events == build.LAUNCHES[counter] == 3, counter
